@@ -1,0 +1,119 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points never carry on quietly on the CPU."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import vectordb_retrieval_tpu_torch as port
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.dirname(port.__file__)
+FORBIDDEN = ("jax", "vectordb_retrieval_tpu")
+
+
+def _port_modules():
+    names = [port.__name__]
+    for info in pkgutil.walk_packages([PKG_DIR], prefix=port.__name__ + "."):
+        names.append(info.name)
+    return names
+
+
+def test_port_modules_do_not_load_jax_or_the_jax_package():
+    mods = _port_modules()
+    assert len(mods) >= 20, mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if any(m == f or m.startswith(f + '.') "
+        f"for f in {FORBIDDEN!r})]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(jax|vectordb_retrieval_tpu)(?:[\s.,]|$)", re.M
+)
+
+
+def test_port_sources_name_no_forbidden_import():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG_DIR):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    hits = []
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        hits += [(path, m.group(0).strip()) for m in _IMPORT.finditer(src)]
+    assert not hits, hits
+    assert _IMPORT.search("import jax.numpy as jnp")
+    assert _IMPORT.search("from vectordb_retrieval_tpu.ops import x")
+    assert not _IMPORT.search("from vectordb_retrieval_tpu_torch.ops import x")
+
+
+def _entry_point(name, tmp_path):
+    import numpy as np
+
+    q = np.zeros((2, 4), np.float32)
+    x = np.zeros((8, 4), np.float32)
+    if name == "exact_search":
+        from vectordb_retrieval_tpu_torch.ops.distances import exact_search
+
+        exact_search(q, x, 1)
+    elif name == "compute_ground_truth":
+        from vectordb_retrieval_tpu_torch.data.datasets import compute_ground_truth
+
+        compute_ground_truth(x, q, 1)
+    elif name == "BruteForceIndexer":
+        from vectordb_retrieval_tpu_torch.models.flat import BruteForceIndexer
+
+        BruteForceIndexer()
+    elif name == "LinearSearcher":
+        from vectordb_retrieval_tpu_torch.models.flat import LinearSearcher
+
+        LinearSearcher()
+    elif name == "ExactSearch":
+        from vectordb_retrieval_tpu_torch.models import get_algorithm_instance
+
+        get_algorithm_instance("exact", 4)
+    elif name == "artifact_from_numpy":
+        from vectordb_retrieval_tpu_torch.models.base import artifact_from_numpy
+
+        artifact_from_numpy("flat", {"vectors": x}, {})
+    elif name == "ExperimentRunner":
+        from vectordb_retrieval_tpu_torch.bench.config import ExperimentConfig
+        from vectordb_retrieval_tpu_torch.bench.experiment import ExperimentRunner
+
+        ExperimentRunner(ExperimentConfig(), output_dir=str(tmp_path))
+    elif name == "BenchmarkRunner":
+        from vectordb_retrieval_tpu_torch.bench.runner import BenchmarkRunner
+
+        cfg = tmp_path / "c.yaml"
+        cfg.write_text("datasets: [random]\n")
+        BenchmarkRunner(str(cfg), output_dir=str(tmp_path))
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["exact_search", "compute_ground_truth", "BruteForceIndexer", "LinearSearcher",
+     "ExactSearch", "artifact_from_numpy", "ExperimentRunner", "BenchmarkRunner"],
+)
+def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _entry_point(name, tmp_path)
