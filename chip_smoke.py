@@ -3,21 +3,43 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line and raising (exit code != 0) on failure:
+Phases, each printing one JSON line (or a few) and raising (exit code != 0)
+on failure:
 
   1. device      - fail at once without CUDA; the card's name and power limit
-  2. build       - compile every CUDA kernel of the port from ``csrc/``
-  3. kernels     - each kernel against its plain PyTorch version on the card
-  4. main path   - the port's BenchmarkRunner (exact row: BruteForceIndexer +
+  2. build       - compile every CUDA source of the port from ``csrc/`` (one
+                   nvcc per source, all started together); registers, spills
+                   and shared memory per kernel
+  3. kernels     - each kernel against its plain PyTorch version on the card:
+                   dist_blockmin in its f32, bf16 and u8 modes (flagship,
+                   ragged and 10%-dead shapes) and assign (the IVF1024
+                   k-means sample and corpus, a ragged shape, a tie case)
+  4. exact path  - the port's BenchmarkRunner (exact row: BruteForceIndexer +
                    LinearSearcher) on 100k x 384 random data, l2 and cosine;
                    ground truth, timed batched search, recall@20 == 1.0, the
                    kernel's launch counts, and a float64 spot check of the
                    ground truth
-  5. throughput  - exact search QPS at the flagship shape (100k x 384, l2,
-                   top-20, batches of 256) and at 1M x 128 (w = 32), with the
-                   kernel's time beside its plain version, one library call
-                   and the bound of the card
-  6. the kernels line, the nvidia-smi line, and last the result line.
+  5. IVF path    - the BenchmarkRunner's IVF-Flat and IVF-SQ8 rows at the
+                   SIFT1M shape (1M x 128, l2, top-100; configs/sift1m.yaml)
+                   and the MS MARCO MiniLM shape (100k x 384, cosine, top-20;
+                   configs/benchmark_config.yaml msmarco): per row, assign
+                   launched in the build and dist_blockmin_bf16 / _u8 in the
+                   timed search, recall, build time, index memory. Then the
+                   card against the host (64 queries searched with the plain
+                   versions on the CPU), and a build_only -> retrieve_only
+                   round trip of one row
+     In 4 and 5 every kernel launch of the main path is also held against
+     its plain version on the very inputs it was launched with (the last
+     launch of each kernel mode, shape and stage: ground truth, each build's
+     k-means sample and corpus with its centroids, each timed search), after
+     the launch counts are read
+  6. throughput  - exact search QPS at the flagship shape (100k x 384, l2,
+                   top-20, batches of 256) and at 1M x 128 (w = 32); each IVF
+                   row's QPS and its per-batch device time by stage (coarse
+                   probe, K1, probed selection, rescore, rest); the
+                   assignment at 1M x 1024 x 128; each kernel's time beside
+                   its plain version, one library call and the card's bound
+  7. the kernels line, the nvidia-smi line, and last the result line.
 
 Imports nothing of JAX. Writes its YAML and the runner's outputs under
 ``_smoke_out/`` of the checkout (git-ignored).
@@ -25,6 +47,7 @@ Imports nothing of JAX. Writes its YAML and the runner's outputs under
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -37,9 +60,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "_smoke_out")
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): FP32 outside the
-# tensor cores and HBM3 bandwidth. The bound of a kernel is the larger of
-# its operations over the first and its bytes over the second.
+# tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth. The
+# bound of a kernel is the larger of its operations over the peak of their
+# type and its bytes over the bandwidth. dist_blockmin's bf16/u8 modes do a
+# bf16 product, so their ceiling is the tensor-core rate, whatever the
+# kernel runs on.
 FP32_PEAK_FLOPS = 67e12
+BF16_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 # Kernel vs plain version: both are f32 sums of <= 384 products, taken in
@@ -47,12 +74,25 @@ HBM_BYTES_PER_S = 3.35e12
 # differ by a few f32 roundings of the largest partial sums; 1e-5 of the
 # largest |score| bounds that with a wide margin.
 KERNEL_REL_TOL = 1e-5
+# The bf16/u8 modes vs their plain version: both form exact bf16 products
+# and sum them in f32 in another order, so the same 1e-5 bound holds.
+# assign vs its plain version: ids agree on >= 99.9 % (a point whose two
+# nearest centroids tie to f32 rounding may go either way), minimum
+# distances within 1e-5 of the largest (f32 sums in another order).
+ASSIGN_MIN_AGREE = 0.999
 # Ground truth vs float64: f32 rounding of a 384-term distance sum.
 GT_REL_TOL = 1e-5
+# Card against host: sorted ids agree on >= 99.9 % of entries (a coarse
+# probe or a final rank may flip where two distances tie to f32 rounding);
+# distances within 1e-5 of the largest (exact f32 rescoring sums taken in
+# another order on each device).
+HOST_MIN_AGREE = 0.999
+HOST_REL_TOL = 1e-5
 
 BATCH = 256
 TOPK = 20
 SEED = 7
+DEV = "cuda"
 
 _LINES = []
 
@@ -71,9 +111,16 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+# ~50 ms of GPU cycles: long enough for the host to queue every timed call
+# behind it, so the events see device time, not the host's launch rate
+_PRIME_CYCLES = 100_000_000
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3, prime: bool = False) -> float:
     """Mean device milliseconds per call, from CUDA events around ``reps``
-    calls after ``warmup`` calls."""
+    calls after ``warmup`` calls. ``prime`` first queues a sleep kernel, so
+    a stage of many small kernels is timed on the device and not at the
+    host's launch rate."""
     import torch
 
     for _ in range(warmup):
@@ -81,6 +128,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if prime:
+        torch.cuda._sleep(_PRIME_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -133,59 +182,203 @@ K1_SHAPES = (
     (7, 1_000, 17, 16, 0.0),
     (24, 8_192, 96, 16, 0.1),
 )
+# the bf16/u8 modes' ragged and 10%-dead shapes; the main path's own
+# inputs of every mode are checked in phases 4 and 5 (check_launched)
+K1_MODE_SHAPES = (
+    (7, 1_000, 17, 16, 0.0),
+    (24, 8_192, 96, 16, 0.1),
+)
+# (N points, K centroids, d): the IVF1024 k-means sample (1024 x 256
+# points) and corpus at the SIFT1M shape, a ragged shape, and a tie case
+# with duplicated centroids; every build's own sample, corpus and centroids
+# are checked in phase 5 (check_launched)
+K3_SHAPES = (
+    (262_144, 1024, 128, False),
+    (1_000_000, 1024, 128, False),
+    (1030, 16, 16, False),
+    (5000, 300, 40, True),
+)
+_MODE_NAME = {"f32": "dist_blockmin", "bf16": "dist_blockmin_bf16",
+              "u8": "dist_blockmin_u8"}
 
 
-def _k1_inputs(b, n, d, w, dead, pen_kind, seed):
+def _dtype_modes():
+    import torch
+
+    return {torch.float32: "f32", torch.bfloat16: "bf16", torch.uint8: "u8"}
+
+
+def _k1_inputs(b, n, d, w, dead, pen_kind, seed, mode="f32"):
     import torch
 
     from vectordb_retrieval_tpu_torch.ops import kernels
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=DEV).manual_seed(seed)
     s = kernels.dist_blockmin_pad_rows(n, w)
-    q = torch.randn((b, d), generator=g, device="cuda")
-    x = torch.zeros((s, d), device="cuda")
-    x[:n] = torch.randn((n, d), generator=g, device="cuda")
-    pen = (x * x).sum(-1) if pen_kind == "l2" else torch.zeros(s, device="cuda")
+    q = torch.randn((b, d), generator=g, device=DEV)
+    x = torch.zeros((s, d), device=DEV)
+    x[:n] = torch.randn((n, d), generator=g, device=DEV)
+    if mode == "bf16":
+        x = x.to(torch.bfloat16)
+    elif mode == "u8":
+        x = torch.randint(0, 256, (s, d), generator=g, device=DEV,
+                          dtype=torch.uint8)
+    xf = x.float()
+    pen = (xf * xf).sum(-1) if pen_kind == "l2" else torch.zeros(s, device=DEV)
     pen[n:] = float("inf")
     if dead:
-        pen[torch.rand(s, generator=g, device="cuda") < dead] = float("inf")
+        pen[torch.rand(s, generator=g, device=DEV) < dead] = float("inf")
         pen[: 3 * w] = float("inf")  # three whole dead blocks -> +inf minima
     return q, x, pen.reshape(s // w, w).contiguous()
 
 
-def phase_kernels() -> float:
+def check_dist_blockmin(q, x, pen, w, where) -> float:
+    """One dist_blockmin launch against its plain version on the same
+    inputs: identical +inf positions, no NaN, max error <= 1e-5 x max|plain|.
+    Emits the check and returns the max abs error."""
     import torch
 
     from vectordb_retrieval_tpu_torch.ops import kernels
 
-    worst = 0.0
+    got = kernels.dist_blockmin(q, x, pen, w=w)
+    want = kernels.dist_blockmin_reference(q, x, pen, w=w)
+    torch.cuda.synchronize()
+    name = _MODE_NAME[_dtype_modes()[x.dtype]]
+    inf_got, inf_want = torch.isinf(got), torch.isinf(want)
+    if not torch.equal(inf_got, inf_want):
+        raise AssertionError(f"{name} {where}: +inf positions differ")
+    if torch.isnan(got).any():
+        raise AssertionError(f"{name} {where}: NaN in output")
+    fin = ~inf_want
+    err = float((got - want)[fin].abs().max()) if fin.any() else 0.0
+    scale = float(want[fin].abs().max()) if fin.any() else 0.0
+    ok = err <= KERNEL_REL_TOL * scale
+    emit({"phase": "kernel_check", "kernel": name, "at": where,
+          "shape": [q.shape[0], x.shape[0], x.shape[1], w],
+          "dead_blocks": int(inf_want[0].sum()),
+          "dead_slots": int(torch.isinf(pen).sum()),
+          "max_abs_err": err, "max_abs_plain": scale,
+          "tol": KERNEL_REL_TOL * scale, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} {where}: err {err}")
+    return err
+
+
+def check_assign(n, k, d, dup, seed) -> float:
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    p = torch.randn((n, d), generator=g, device=DEV)
+    c = torch.randn((k, d), generator=g, device=DEV)
+    if dup:  # exact duplicates: the lower id must win every tie
+        c[7] = c[2]
+        c[k - 1] = c[0]
+    err = check_assign_on(p, c, "synthetic", dup)
+    del p
+    torch.cuda.empty_cache()
+    return err
+
+
+def check_assign_on(p, c, where, dup=False) -> float:
+    """One assign launch against its plain version on the same inputs: ids
+    agree on >= 99.9 %, in range, min distances within 1e-5 x max|plain|;
+    with ``dup`` (centroid 7 = 2, K-1 = 0) no point takes a higher
+    duplicate's id. Emits the check and returns the max abs error."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    n, d = p.shape
+    k = c.shape[0]
+    ids, mins = kernels.assign(p, c)
+    want_ids, want_mins = kernels.assign_reference(p, c)
+    torch.cuda.synchronize()
+    agree = float((ids == want_ids).float().mean())
+    err = float((mins - want_mins).abs().max())
+    scale = float(want_mins.abs().max())
+    ok = agree >= ASSIGN_MIN_AGREE and err <= KERNEL_REL_TOL * scale
+    ok = ok and int(ids.min()) >= 0 and int(ids.max()) < k
+    if dup:
+        ok = ok and not bool(((ids == 7) | (ids == k - 1)).any())
+    emit({"phase": "kernel_check", "kernel": "assign", "at": where,
+          "shape": [n, k, d], "duplicated_centroids": dup, "agreement": agree,
+          "min_agreement": ASSIGN_MIN_AGREE, "max_abs_err": err,
+          "tol": KERNEL_REL_TOL * scale, "ok": ok})
+    if not ok:
+        raise AssertionError(f"assign {where} {(n, k, d)}: agreement {agree}, err {err}")
+    return err
+
+
+@contextlib.contextmanager
+def capture_launch_inputs(store: dict, stage: list):
+    """While active, keep in ``store`` the inputs of the last launch of
+    each kernel mode at each shape in each stage (``stage[0]``, set by the
+    caller), so that ``check_launched`` can hold every kernel against its
+    plain version on the main path's own inputs (the kernels use no
+    atomics, so a launch on the same inputs gives the same output). The
+    launches themselves and their counts are the wrappers' own."""
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    orig_dbm, orig_assign = kernels.dist_blockmin, kernels.assign
+    modes = _dtype_modes()
+
+    def dist_blockmin(queries, payload, pen, w=8, chunk_rows=None):
+        out = orig_dbm(queries, payload, pen, w=w, chunk_rows=chunk_rows)
+        name = _MODE_NAME[modes[payload.dtype]]
+        key = (stage[0], name, tuple(queries.shape), tuple(payload.shape), w)
+        store[key] = (queries, payload, pen, w)
+        return out
+
+    def assign(points, centroids, chunk_rows=None):
+        out = orig_assign(points, centroids, chunk_rows=chunk_rows)
+        key = (stage[0], "assign", tuple(points.shape), tuple(centroids.shape))
+        store[key] = (points, centroids)
+        return out
+
+    kernels.dist_blockmin, kernels.assign = dist_blockmin, assign
+    try:
+        yield store
+    finally:
+        kernels.dist_blockmin, kernels.assign = orig_dbm, orig_assign
+
+
+def check_launched(store: dict, prefix: str, worst: dict) -> None:
+    """Every captured launch input against the kernel's plain version (the
+    checks' own launches come after the main path's counts are read)."""
+    import torch
+
+    for key, args in store.items():
+        where = f"{prefix}/{key[0]}"
+        if key[1] == "assign":
+            err = check_assign_on(*args, where)
+        else:
+            q, x, pen, w = args
+            err = check_dist_blockmin(q, x, pen, w, where)
+        worst[key[1]] = max(worst[key[1]], err)
+    store.clear()
+    torch.cuda.empty_cache()
+
+
+def phase_kernels() -> dict:
+    """Worst max abs error per kernel name."""
+    worst = {name: 0.0 for name in (*_MODE_NAME.values(), "assign")}
     for i, (b, n, d, w, dead) in enumerate(K1_SHAPES):
         for pen_kind in ("l2", "zero"):
             q, x, pen = _k1_inputs(b, n, d, w, dead, pen_kind, SEED + i)
-            got = kernels.dist_blockmin(q, x, pen, w=w)
-            want = kernels.dist_blockmin_reference(q, x, pen, w=w)
-            torch.cuda.synchronize()
-            inf_got, inf_want = torch.isinf(got), torch.isinf(want)
-            if not torch.equal(inf_got, inf_want):
-                raise AssertionError(f"dist_blockmin {(b, n, d, w)}: +inf positions differ")
-            if torch.isnan(got).any():
-                raise AssertionError(f"dist_blockmin {(b, n, d, w)}: NaN in output")
-            fin = ~inf_want
-            err = float((got - want)[fin].abs().max()) if fin.any() else 0.0
-            scale = float(want[fin].abs().max()) if fin.any() else 0.0
-            ok = err <= KERNEL_REL_TOL * scale
-            emit({"phase": "kernel_check", "kernel": "dist_blockmin",
-                  "shape": [b, n, d, w], "pen": pen_kind, "dead": dead,
-                  "dead_blocks": int(inf_want[0].sum()),
-                  "max_abs_err": err, "max_abs_plain": scale,
-                  "tol": KERNEL_REL_TOL * scale, "ok": ok})
-            if not ok:
-                raise AssertionError(f"dist_blockmin {(b, n, d, w)} {pen_kind}: err {err}")
-            worst = max(worst, err)
+            err = check_dist_blockmin(q, x, pen, w, f"synthetic/{pen_kind}/dead={dead}")
+            worst["dist_blockmin"] = max(worst["dist_blockmin"], err)
+    for mode in ("bf16", "u8"):
+        for i, (b, n, d, w, dead) in enumerate(K1_MODE_SHAPES):
+            for pen_kind in ("l2", "zero"):
+                q, x, pen = _k1_inputs(b, n, d, w, dead, pen_kind, SEED + i, mode)
+                err = check_dist_blockmin(q, x, pen, w, f"synthetic/{pen_kind}/dead={dead}")
+                worst[_MODE_NAME[mode]] = max(worst[_MODE_NAME[mode]], err)
+    for i, (n, k, d, dup) in enumerate(K3_SHAPES):
+        worst["assign"] = max(worst["assign"], check_assign(n, k, d, dup, SEED + i))
     return worst
 
 
-# ---- 4. main path ------------------------------------------------------
+# ---- 4. exact path -----------------------------------------------------
 
 
 def _runner_config(metric: str) -> dict:
@@ -218,12 +411,12 @@ def _check_gt_float64(train, queries, gt_ids, metric, n_check=64):
     distance rows on the card, compared as sorted values (tie-aware)."""
     import torch
 
-    x = torch.as_tensor(train, device="cuda", dtype=torch.float64)
-    q = torch.as_tensor(queries[:n_check], device="cuda", dtype=torch.float64)
+    x = torch.as_tensor(train, device=DEV, dtype=torch.float64)
+    q = torch.as_tensor(queries[:n_check], device=DEV, dtype=torch.float64)
     if metric == "cosine":
         x = x / x.norm(dim=1, keepdim=True).clamp_min(1e-12)
         q = q / q.norm(dim=1, keepdim=True).clamp_min(1e-12)
-    ids = torch.as_tensor(gt_ids[:n_check, :TOPK], device="cuda")
+    ids = torch.as_tensor(gt_ids[:n_check, :TOPK], device=DEV)
     worst = 0.0
     for s in range(0, n_check, 8):
         rows = ((x[None, :, :] - q[s : s + 8, None, :]) ** 2).sum(-1)  # [8, N]
@@ -236,7 +429,7 @@ def _check_gt_float64(train, queries, gt_ids, metric, n_check=64):
     return worst
 
 
-def phase_main_path(card: str) -> int:
+def phase_main_path(card: str, worst: dict) -> int:
     import torch
     import yaml
 
@@ -246,12 +439,15 @@ def phase_main_path(card: str) -> int:
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     gt_calls, search_calls = [], []
+    launched, stage = {}, ["runner"]
     orig_gt = datasets.compute_ground_truth
     orig_search = experiment.ExperimentRunner._timed_search
 
     def counted_gt(train, queries, k, metric="l2", *args, **kwargs):
         before = kernels.LAUNCHES["dist_blockmin"]
+        stage[0] = "ground_truth"
         ids = orig_gt(train, queries, k, metric, *args, **kwargs)
+        stage[0] = "runner"
         gt_calls.append({
             "launches": kernels.LAUNCHES["dist_blockmin"] - before,
             "train": train, "queries": queries, "ids": ids, "metric": metric,
@@ -260,7 +456,9 @@ def phase_main_path(card: str) -> int:
 
     def counted_search(self, *args, **kwargs):
         before = kernels.LAUNCHES["dist_blockmin"]
+        stage[0] = "search"
         out = orig_search(self, *args, **kwargs)
+        stage[0] = "runner"
         search_calls.append(kernels.LAUNCHES["dist_blockmin"] - before)
         return out
 
@@ -275,12 +473,14 @@ def phase_main_path(card: str) -> int:
             path = os.path.join(OUT_DIR, f"exact_{metric}.yaml")
             with open(path, "w") as f:
                 yaml.safe_dump(_runner_config(metric), f)
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            results = BenchmarkRunner(path).run()
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = kernels.LAUNCHES["dist_blockmin"]
+            with capture_launch_inputs(launched, stage):
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                results = BenchmarkRunner(path).run()
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = kernels.LAUNCHES["dist_blockmin"]
+            check_launched(launched, f"exact_{metric}", worst)
 
             ds = results["random"]
             if "error" in ds:
@@ -322,7 +522,328 @@ def phase_main_path(card: str) -> int:
     return total
 
 
-# ---- 5. throughput -----------------------------------------------------
+# ---- 5. IVF path -------------------------------------------------------
+
+# Two configurations of the repo's own configs, with random data at the
+# published shapes. Rows: (indexer, searcher nprobe).
+IVF_CONFIGS = (
+    {
+        "name": "sift1m_shape", "source": "configs/sift1m.yaml ivf_flat, ivf_sq8",
+        "metric": "l2", "n": 1_000_000, "d": 128, "topk": 100,
+        "rows": {
+            "ivf_flat": ({"type": "FactoryIndexer", "index_key": "IVF1024,Flat",
+                          "nprobe": 32}, 32),
+            "ivf_sq8": ({"type": "FactoryIndexer", "index_key": "IVF1024,SQ8",
+                         "nprobe": 64}, 64),
+        },
+    },
+    {
+        "name": "msmarco_shape",
+        "source": "configs/benchmark_config.yaml msmarco ivf_flat, ivf_sq8",
+        "metric": "cosine", "n": 100_000, "d": 384, "topk": 20,
+        "rows": {
+            "ivf_flat": ({"type": "IVFIndexer", "index_type": "IVF100,Flat",
+                          "nprobe": 10}, 32),
+            "ivf_sq8": ({"type": "FactoryIndexer", "index_key": "IVF256,SQ8",
+                         "nprobe": 48}, 48),
+        },
+    },
+)
+IVF_QUERIES = 2048
+HOST_QUERIES = 64
+
+
+def _ivf_dataset(cfg) -> dict:
+    return {
+        "name": "random", "metric": cfg["metric"],
+        "dataset_options": {
+            "dimensions": cfg["d"], "train_size": cfg["n"],
+            "test_size": IVF_QUERIES, "ground_truth_k": cfg["topk"],
+            "seed": SEED, "use_cache": False,
+        },
+    }
+
+
+def _ivf_runner_config(cfg) -> dict:
+    metric = cfg["metric"]
+    indexers, searchers, algorithms = {}, {}, {}
+    for row, (indexer, nprobe) in cfg["rows"].items():
+        indexers[f"{row}_ix"] = dict(indexer, metric=metric)
+        searchers[f"{row}_search"] = {"type": "ANNSearcher", "metric": metric,
+                                      "nprobe": nprobe}
+        algorithms[row] = {"indexer_ref": f"{row}_ix",
+                           "searcher_ref": f"{row}_search", "metric": metric}
+    return {
+        "indexers": indexers, "searchers": searchers, "algorithms": algorithms,
+        "datasets": [_ivf_dataset(cfg)],
+        "topk": cfg["topk"], "n_queries": IVF_QUERIES, "query_batch_size": BATCH,
+        "output_dir": os.path.join(OUT_DIR, "runs"),
+        "data_dir": os.path.join(OUT_DIR, "data"),
+        "output_prefix": cfg["name"], "seed": 42,
+    }
+
+
+def _row_mode(algo) -> str:
+    return "dist_blockmin_bf16" if algo.artifact.kind == "ivf_flat" else "dist_blockmin_u8"
+
+
+def phase_ivf_main_path(card: str, cfg, worst: dict) -> dict:
+    """Drive the runner over one configuration's IVF rows with the launch
+    counts set to 0 just before and read just after; then hold every kernel
+    launch against its plain version on its own inputs; keep each row's
+    algorithm (artifact, searcher) and queries for the later phases."""
+    import torch
+    import yaml
+
+    from vectordb_retrieval_tpu_torch.bench import experiment
+    from vectordb_retrieval_tpu_torch.bench.runner import BenchmarkRunner
+    from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    runners, builds, searches = [], {}, {}
+    launched, stage = {}, ["ground_truth"]
+    orig_run = experiment.ExperimentRunner.run
+    orig_build = CompositeAlgorithm.build_index
+    orig_search = experiment.ExperimentRunner._timed_search
+
+    def delta(before):
+        return {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+
+    def kept_run(self):
+        out = orig_run(self)
+        runners.append(self)
+        return out
+
+    def counted_build(self, vectors):
+        before = dict(kernels.LAUNCHES)
+        stage[0] = f"{self.name}/build"
+        orig_build(self, vectors)
+        stage[0] = "runner"
+        builds[self.name] = delta(before)
+
+    def counted_search(self, algorithm, *args, **kwargs):
+        before = dict(kernels.LAUNCHES)
+        stage[0] = f"{algorithm.name}/search"
+        out = orig_search(self, algorithm, *args, **kwargs)
+        stage[0] = "runner"
+        searches[algorithm.name] = delta(before)
+        return out
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"{cfg['name']}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(_ivf_runner_config(cfg), f)
+    experiment.ExperimentRunner.run = kept_run
+    CompositeAlgorithm.build_index = counted_build
+    experiment.ExperimentRunner._timed_search = counted_search
+    try:
+        with capture_launch_inputs(launched, stage):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = BenchmarkRunner(path).run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        experiment.ExperimentRunner.run = orig_run
+        CompositeAlgorithm.build_index = orig_build
+        experiment.ExperimentRunner._timed_search = orig_search
+    check_launched(launched, cfg["name"], worst)
+
+    ds = results["random"]
+    if "error" in ds:
+        raise AssertionError(f"{cfg['name']}: dataset error {ds['error']}")
+    if launches["dist_blockmin"] < 1:
+        raise AssertionError(f"{cfg['name']}: ground truth did not launch dist_blockmin")
+    runner = runners[-1]
+    queries, _ = runner._select_query_subset()
+    topk = cfg["topk"]
+    rows = {}
+    for row, (indexer, nprobe) in cfg["rows"].items():
+        res = ds[row]
+        if "error" in res:
+            raise AssertionError(f"{cfg['name']}/{row}: row error {res['error']}")
+        algo = runner.algorithms[row]
+        mode = _row_mode(algo)
+        b, s = builds.get(row, {}), searches.get(row, {})
+        if b.get("assign", 0) < 1:
+            raise AssertionError(f"{cfg['name']}/{row}: the build did not launch assign")
+        if s.get(mode, 0) < 1:
+            raise AssertionError(f"{cfg['name']}/{row}: the timed search did not launch {mode}")
+        recall = res.get(f"recall@{topk}")
+        if recall is None or not 0.0 <= recall <= 1.0:
+            raise AssertionError(f"{cfg['name']}/{row}: recall@{topk} = {recall}")
+        meta = algo.artifact.metadata
+        emit({
+            "phase": "ivf_main_path", "config": cfg["name"], "source": cfg["source"],
+            "row": row, "index_key": meta["index_key"], "nprobe": nprobe,
+            "shape": [cfg["n"], cfg["d"]], "metric": cfg["metric"], "card": card,
+            f"recall@{topk}": recall, "qps": res["qps"],
+            "build_time_s": res["build_time_s"],
+            "index_memory_mb": res["index_memory_mb"],
+            "n_buckets": meta["n_buckets"], "bucket_len": meta["max_list_len"],
+            "slots": meta["n_buckets"] * meta["max_list_len"],
+            "pad_ratio": meta["pad_ratio"],
+            "launches_build": b, "launches_timed_search": s,
+        })
+        rows[row] = {"algo": algo, "queries": queries, "k": min(topk, cfg["n"])}
+    emit({"phase": "ivf_main_path_run", "config": cfg["name"], "card": card,
+          "runner_seconds": seconds, "launches": launches})
+    return {"name": cfg["name"], "launches": launches, "rows": rows}
+
+
+def _ivf_stages(info):
+    """The fused IVF search of one row, cut into its stages, on the row's
+    first 256 queries: the inputs each stage takes on the main path."""
+    import types
+
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import distances as dops
+    from vectordb_retrieval_tpu_torch.ops import ivf
+
+    algo = info["algo"]
+    searcher, art = algo.searcher, algo.artifact
+    d, meta = art.data, art.metadata
+    if "full_vectors" in d:
+        raise AssertionError("the stage split covers rows without exact_rescore")
+    q_raw = torch.as_tensor(info["queries"][:BATCH], device=DEV)
+    q = dops.normalize(q_raw) if meta.get("normalize_queries") else q_raw
+    metric = searcher._score_metric()
+    slot_ids = d["slot_ids"]
+    n_bkt, L = slot_ids.shape
+    w = ivf._use_fused(n_bkt, L)
+    if not w:
+        raise AssertionError(f"layout {n_bkt} x {L} does not take the fused stream")
+    pen = ivf._fused_pen(slot_ids, d["list_sqnorms"], metric).reshape(-1, w)
+    if art.kind == "ivf_flat":
+        qk, payload = q, d["list_vecs"].reshape(n_bkt * L, -1)
+        rs_payload = (d["list_vecs"],)
+        rescore = ivf._flat_block_rescore(q, metric)
+    else:
+        qk = (q * d["step"][None, :]).to(torch.bfloat16)
+        payload = d["list_codes"].reshape(n_bkt * L, -1)
+        rs_payload = (d["list_codes"],)
+        rescore = ivf._sq_block_rescore(q, d["vmin"], d["step"], metric)
+    budget = searcher._nprobe()
+    pk = searcher._probe_kwargs()
+    if pk:
+        def coarse():
+            return ivf.exact_probe_mask(
+                q, d["centroids"], pk["bucket_lists"], pk["nlist"],
+                pk["nprobe_lists"], budget, list_centroids=pk.get("list_centroids"))
+    else:
+        def coarse():
+            return ivf._coarse_probes(q, d["centroids"], budget), None
+    return types.SimpleNamespace(
+        q_raw=q_raw, q=q, qk=qk, payload=payload, pen=pen, w=w, n_bkt=n_bkt,
+        bpb=L // w, slot_ids=slot_ids, rs_payload=rs_payload, rescore=rescore,
+        coarse=coarse, k=min(info["k"], meta["n_vectors"]), searcher=searcher,
+    )
+
+
+def phase_card_vs_host(card: str, paths) -> None:
+    """Each built artifact copied to the CPU and searched there by the port
+    (the kernels' plain versions) for 64 queries, against the card."""
+    import numpy as np
+
+    from vectordb_retrieval_tpu_torch.models.base import IndexArtifact
+    from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
+
+    for path in paths:
+        for row, info in path["rows"].items():
+            algo = info["algo"]
+            art = algo.artifact
+            host = ANNSearcher(metric=algo.searcher.metric, device="cpu",
+                               **algo.searcher.params)
+            host.attach(IndexArtifact(
+                art.kind, {k: v.cpu() for k, v in art.data.items()},
+                dict(art.metadata)))
+            q = info["queries"][:HOST_QUERIES]
+            k = info["k"]
+            t0 = time.perf_counter()
+            hd, hi = host.batch_search(q, k)
+            host_s = time.perf_counter() - t0
+            cd, ci = algo.searcher.batch_search(q, k)
+            agree = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ci, hi)]))
+            scale = float(np.abs(hd).max())
+            err = float(np.abs(np.sort(cd, 1) - np.sort(hd, 1)).max())
+            ok = agree >= HOST_MIN_AGREE and err <= HOST_REL_TOL * scale
+            emit({"phase": "card_vs_host", "config": path["name"], "row": row,
+                  "queries": len(q), "k": k, "id_agreement": agree,
+                  "min_agreement": HOST_MIN_AGREE, "max_abs_dist_err": err,
+                  "tol": HOST_REL_TOL * scale, "host_seconds": host_s,
+                  "card": card, "ok": ok})
+            if not ok:
+                raise AssertionError(
+                    f"card vs host {path['name']}/{row}: agreement {agree}, err {err}")
+
+
+def phase_persistence_round_trip(card: str) -> None:
+    """build_only then retrieve_only of the MS MARCO-shape IVF-SQ8 row on
+    the card: the loaded index returns the built index's ids exactly."""
+    import numpy as np
+    import torch
+
+    from vectordb_retrieval_tpu_torch.bench import experiment
+    from vectordb_retrieval_tpu_torch.bench.config import ExperimentConfig
+
+    cfg = IVF_CONFIGS[1]
+    indexer, nprobe = cfg["rows"]["ivf_sq8"]
+    ds = _ivf_dataset(cfg)
+    art_dir = os.path.join(OUT_DIR, "artifacts")
+
+    def config(mode):
+        return ExperimentConfig(
+            dataset="random", data_dir=os.path.join(OUT_DIR, "data"),
+            dataset_options=ds["dataset_options"], metric=cfg["metric"],
+            n_queries=IVF_QUERIES, topk=cfg["topk"], query_batch_size=BATCH,
+            algorithms={"ivf_sq8": {
+                "indexer": dict(indexer), "metric": cfg["metric"],
+                "searcher": {"type": "ANNSearcher", "nprobe": nprobe},
+                "persistence": {"enabled": True, "mode": mode,
+                                "artifact_dir": art_dir, "force_rebuild": True},
+            }},
+        )
+
+    seen = []
+    orig_search = experiment.ExperimentRunner._timed_search
+
+    def kept_search(self, *args, **kwargs):
+        out = orig_search(self, *args, **kwargs)
+        seen.append(out[0])
+        return out
+
+    built = experiment.ExperimentRunner(config("build_only"),
+                                        output_dir=os.path.join(OUT_DIR, "rt_build"))
+    res_b = built.run()["ivf_sq8"]
+    if res_b.get("status") != "build_only":
+        raise AssertionError(f"build_only row: {res_b}")
+    experiment.ExperimentRunner._timed_search = kept_search
+    try:
+        loaded = experiment.ExperimentRunner(
+            config("retrieve_only"), output_dir=os.path.join(OUT_DIR, "rt_load"))
+        res_l = loaded.run()["ivf_sq8"]
+    finally:
+        experiment.ExperimentRunner._timed_search = orig_search
+    if "error" in res_l or res_l.get("index_source") != "loaded" or len(seen) != 1:
+        raise AssertionError(f"retrieve_only row: {res_l}")
+    algo = built.algorithms["ivf_sq8"]
+    queries, _ = loaded._select_query_subset()
+    q = torch.as_tensor(queries, device=DEV)
+    k = cfg["topk"]
+    direct = torch.cat([algo.device_kernel(q[s : s + BATCH], k)[1]
+                        for s in range(0, len(queries), BATCH)]).cpu().numpy()
+    same = bool(np.array_equal(direct, seen[0][:, :k]))
+    emit({"phase": "persistence_round_trip", "config": cfg["name"], "row": "ivf_sq8",
+          "persist_dir": res_b["persist_dir"], "index_source": res_l["index_source"],
+          "index_load_time_s": res_l["index_load_time_s"],
+          f"recall@{k}": res_l[f"recall@{k}"], "ids_identical": same, "card": card})
+    if not same:
+        raise AssertionError("retrieve_only ids differ from the built index's")
+
+
+# ---- 6. throughput -----------------------------------------------------
 
 
 def phase_throughput(card: str, n: int, d: int, batches: int) -> dict:
@@ -331,7 +852,7 @@ def phase_throughput(card: str, n: int, d: int, batches: int) -> dict:
     from vectordb_retrieval_tpu_torch.ops import distances as dops
     from vectordb_retrieval_tpu_torch.ops import kernels
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     rng = np.random.default_rng(SEED)
     db = torch.as_tensor(rng.standard_normal((n, d), dtype=np.float32), device=dev)
     sqn = dops.sq_norms(db)
@@ -391,6 +912,117 @@ def phase_throughput(card: str, n: int, d: int, batches: int) -> dict:
     return out
 
 
+def phase_ivf_throughput(card: str, path_name: str, row: str, info) -> dict:
+    """One IVF row: QPS over its 2048 queries (the clock stops with the ids
+    on the host), then one 256-query batch's device time by stage, and K1
+    beside its plain version, one library call and the card's bound."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import ivf
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    st = _ivf_stages(info)
+    searcher, k = st.searcher, st.k
+    qs = torch.as_tensor(info["queries"], device=DEV)
+    batches = qs.shape[0] // BATCH
+    searcher.device_kernel(qs[:BATCH], k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [searcher.device_kernel(qs[i * BATCH : (i + 1) * BATCH], k)[1]
+           for i in range(batches)]
+    torch.cuda.synchronize()
+    ids_host = torch.cat(ids).cpu().numpy()
+    elapsed = time.perf_counter() - t0
+    if ids_host.shape != (batches * BATCH, k) or ids_host.max() >= info["algo"].artifact.metadata["n_vectors"]:
+        raise AssertionError(f"{path_name}/{row}: ids malformed {ids_host.shape}")
+
+    # the stages of one batch, each on the inputs the main path gives it,
+    # timed on the device (primed: host launches are not what is measured)
+    slack = ivf._BLOCKMIN_SLACK
+    coarse_ms = time_ms(st.coarse, prime=True)
+    probes, valid = st.coarse()
+    k1_ms = time_ms(lambda: kernels.dist_blockmin(st.qk, st.payload, st.pen, w=st.w),
+                    prime=True)
+    bm = kernels.dist_blockmin(st.qk, st.payload, st.pen, w=st.w)
+    select_ms = time_ms(
+        lambda: ivf._probed_blocks(bm, probes, st.n_bkt, st.bpb, k + slack, valid),
+        prime=True)
+    sel_vals, blk = ivf._probed_blocks(bm, probes, st.n_bkt, st.bpb, k + slack, valid)
+
+    def rescore():
+        return ivf._rescore_blocks(blk, sel_vals, st.slot_ids, st.rs_payload,
+                                   st.rescore, k, st.w)
+
+    rescore_ms = time_ms(rescore, prime=True)
+    batch_ms = time_ms(lambda: searcher.device_kernel(st.q_raw, k), prime=True)
+    # unprimed, the batch's events also see the host's launch rate
+    batch_host_bound_ms = time_ms(lambda: searcher.device_kernel(st.q_raw, k))
+    if not torch.equal(rescore()[1], searcher.device_kernel(st.q_raw, k)[1]):
+        raise AssertionError(f"{path_name}/{row}: the stage split differs from the search")
+
+    plain_ms = time_ms(lambda: kernels.dist_blockmin_reference(st.qk, st.payload, st.pen, w=st.w),
+                       reps=5, warmup=1)
+    qb = st.qk.to(torch.bfloat16)
+    xb = st.payload.to(torch.bfloat16)  # u8 widened outside the clock
+    library_ms = time_ms(lambda: torch.matmul(qb, xb.T), reps=10)
+    del xb
+    s_rows, dim = st.payload.shape
+    flops = 2.0 * BATCH * s_rows * dim
+    nbytes = (2.0 * BATCH * dim + st.payload.element_size() * s_rows * dim
+              + 4.0 * s_rows + 4.0 * BATCH * (s_rows // st.w))
+    flop_ms = flops / BF16_PEAK_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {
+        "phase": "ivf_throughput", "config": path_name, "row": row,
+        "kernel": _row_mode(info["algo"]), "card": card,
+        "qps": batches * BATCH / elapsed, "seconds": elapsed, "batches": batches,
+        "ms_per_batch": elapsed / batches * 1e3, "batch_device_ms": batch_ms,
+        "batch_events_unprimed_ms": batch_host_bound_ms,
+        "coarse_probe_ms": coarse_ms, "dist_blockmin_ms": k1_ms,
+        "probed_select_ms": select_ms, "rescore_ms": rescore_ms,
+        "rest_ms": batch_ms - coarse_ms - k1_ms - select_ms - rescore_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(flop_ms, byte_ms),
+        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "flops": flops, "bytes": nbytes,
+        "shape": [BATCH, s_rows, dim, st.w], "probes_per_query": probes.shape[1],
+    }
+    emit(out)
+    del bm, qs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_assign_throughput(card: str, n=1_000_000, k=1024, d=128) -> dict:
+    """The IVF1024 corpus assignment at the SIFT1M shape: kernel, plain
+    version, one FP32 library product (TF32 off) and the card's bound."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    p = torch.randn((n, d), generator=g, device=DEV)
+    c = torch.randn((k, d), generator=g, device=DEV)
+    ms = time_ms(lambda: kernels.assign(p, c), reps=10)
+    plain_ms = time_ms(lambda: kernels.assign_reference(p, c), reps=5, warmup=1)
+    library_ms = time_ms(lambda: torch.matmul(p, c.T), reps=10)
+    flops = 2.0 * n * k * d
+    nbytes = 4.0 * (n * d + k * d + k) + 8.0 * n + 4.0 * n
+    flop_ms = flops / FP32_PEAK_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {
+        "phase": "assign_throughput", "shape": [n, k, d], "card": card,
+        "assign_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(flop_ms, byte_ms),
+        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+    emit(out)
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -403,24 +1035,57 @@ def main() -> int:
 
     card = phase_device()
     phase_build()
-    max_err = phase_kernels()
-    launches = phase_main_path(card)
+    worst = phase_kernels()
+    launches = {name: 0 for name in worst}
+    launches["dist_blockmin"] += phase_main_path(card, worst)
+    paths = [phase_ivf_main_path(card, cfg, worst) for cfg in IVF_CONFIGS]
+    for path in paths:
+        for name, n in path["launches"].items():
+            launches[name] += n
+    phase_card_vs_host(card, paths)
+    phase_persistence_round_trip(card)
     flagship = phase_throughput(card, 100_000, 384, 96)
     phase_throughput(card, 1_000_000, 128, 96)
-    emit({"kernels": [{
-        "name": "dist_blockmin",
-        "route": "cuda",
-        "source": "vectordb_retrieval_tpu_torch/csrc/dist_blockmin.cu",
-        "replaces": "vectordb_retrieval_tpu/ops/pallas_kernels.py:220",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": flagship["dist_blockmin_ms"],
-        "plain_ms": flagship["plain_ms"],
-        "bound_ms": flagship["bound_ms"],
-        "bound_by": flagship["bound_by"],
-        "library_ms": flagship["library_ms"],
+    sift = paths[0]["rows"]
+    by_kernel = {
+        "dist_blockmin_bf16": phase_ivf_throughput(card, paths[0]["name"], "ivf_flat", sift["ivf_flat"]),
+        "dist_blockmin_u8": phase_ivf_throughput(card, paths[0]["name"], "ivf_sq8", sift["ivf_sq8"]),
+    }
+    for row, info in paths[1]["rows"].items():
+        phase_ivf_throughput(card, paths[1]["name"], row, info)
+    k3 = phase_assign_throughput(card)
+
+    src = "vectordb_retrieval_tpu_torch/csrc/"
+    tpu = "vectordb_retrieval_tpu/ops/pallas_kernels.py"
+    entries = [{
+        "name": "dist_blockmin", "route": "cuda", "source": src + "dist_blockmin.cu",
+        "replaces": f"{tpu}:220", "launches": launches["dist_blockmin"],
+        "max_abs_err": worst["dist_blockmin"], "ms": flagship["dist_blockmin_ms"],
+        "plain_ms": flagship["plain_ms"], "bound_ms": flagship["bound_ms"],
+        "bound_by": flagship["bound_by"], "library_ms": flagship["library_ms"],
         "shape": [BATCH, 100_000, 384, flagship["w"]],
-    }]})
+    }]
+    for name, t in by_kernel.items():
+        entries.append({
+            "name": name, "route": "cuda", "source": src + "dist_blockmin.cu",
+            "replaces": f"{tpu}:220", "launches": launches[name],
+            "max_abs_err": worst[name], "ms": t["dist_blockmin_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": t["shape"],
+        })
+    entries.append({
+        "name": "assign", "route": "cuda", "source": src + "assign.cu",
+        "replaces": f"{tpu}:53", "launches": launches["assign"],
+        "max_abs_err": worst["assign"], "ms": k3["assign_ms"],
+        "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+        "shape": k3["shape"],
+    })
+    for e in entries:
+        if e["launches"] < 1:
+            raise AssertionError(f"{e['name']}: never launched on the main path")
+    emit({"kernels": entries})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.jsonl"), "w") as f:
         f.write("\n".join(_LINES) + "\n")

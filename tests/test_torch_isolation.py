@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points never carry on quietly on the CPU."""
+"""The port stands alone: it imports neither JAX, nor the JAX package, nor
+``ml_dtypes`` (bf16 persists through int16 views), and its entry points
+never carry on quietly on the CPU."""
 
 import os
 import pkgutil
@@ -16,7 +17,7 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG_DIR = os.path.dirname(port.__file__)
-FORBIDDEN = ("jax", "vectordb_retrieval_tpu")
+FORBIDDEN = ("jax", "vectordb_retrieval_tpu", "ml_dtypes")
 
 
 def _port_modules():
@@ -46,7 +47,7 @@ def test_port_modules_do_not_load_jax_or_the_jax_package():
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:import|from)\s+(jax|vectordb_retrieval_tpu)(?:[\s.,]|$)", re.M
+    r"^\s*(?:import|from)\s+(jax|vectordb_retrieval_tpu|ml_dtypes)(?:[\s.,]|$)", re.M
 )
 
 
@@ -63,6 +64,29 @@ def test_port_sources_name_no_forbidden_import():
     assert _IMPORT.search("import jax.numpy as jnp")
     assert _IMPORT.search("from vectordb_retrieval_tpu.ops import x")
     assert not _IMPORT.search("from vectordb_retrieval_tpu_torch.ops import x")
+    assert _IMPORT.search("    import ml_dtypes")
+
+
+def test_bf16_artifacts_persist_without_ml_dtypes(tmp_path):
+    """A bf16 artifact saves and loads with ``ml_dtypes`` made unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        "import torch\n"
+        "from vectordb_retrieval_tpu_torch.models import persist\n"
+        "from vectordb_retrieval_tpu_torch.models.base import IndexArtifact\n"
+        "v = torch.arange(12, dtype=torch.float32).reshape(3, 4).to(torch.bfloat16)\n"
+        f"path = {str(tmp_path / 'a')!r}\n"
+        "persist.save_artifact(IndexArtifact('ivf_flat', {'list_vecs': v}, {}), path)\n"
+        "back = persist.load_artifact(path, device='cpu').data['list_vecs']\n"
+        "assert back.dtype == torch.bfloat16 and torch.equal(back, v)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
 def _entry_point(name, tmp_path):
@@ -99,6 +123,22 @@ def _entry_point(name, tmp_path):
         from vectordb_retrieval_tpu_torch.bench.experiment import ExperimentRunner
 
         ExperimentRunner(ExperimentConfig(), output_dir=str(tmp_path))
+    elif name == "FactoryIndexer":
+        from vectordb_retrieval_tpu_torch.models.factory import FactoryIndexer
+
+        FactoryIndexer(index_key="IVF4,Flat")
+    elif name == "ANNSearcher":
+        from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
+
+        ANNSearcher()
+    elif name == "ApproximateSearch":
+        from vectordb_retrieval_tpu_torch.models import get_algorithm_instance
+
+        get_algorithm_instance("approx", 4)
+    elif name == "load_artifact":
+        from vectordb_retrieval_tpu_torch.models.persist import load_artifact
+
+        load_artifact(str(tmp_path))
     elif name == "BenchmarkRunner":
         from vectordb_retrieval_tpu_torch.bench.runner import BenchmarkRunner
 
@@ -110,7 +150,8 @@ def _entry_point(name, tmp_path):
 @pytest.mark.parametrize(
     "name",
     ["exact_search", "compute_ground_truth", "BruteForceIndexer", "LinearSearcher",
-     "ExactSearch", "artifact_from_numpy", "ExperimentRunner", "BenchmarkRunner"],
+     "ExactSearch", "artifact_from_numpy", "ExperimentRunner", "BenchmarkRunner",
+     "FactoryIndexer", "ANNSearcher", "ApproximateSearch", "load_artifact"],
 )
 def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
     if torch.cuda.is_available():

@@ -1,9 +1,14 @@
-"""The port's dist_blockmin against the JAX Pallas kernel (f32 mode).
+"""The port's kernels against the JAX Pallas kernels: dist_blockmin in its
+f32, bf16 and u8 modes, and the k-means assignment.
 
-On CPU tensors the port's wrapper runs its plain PyTorch version; the JAX
-kernel runs in interpret mode, as its own tests run it. Tolerance: 2e-3
-absolute on finite entries, the JAX test's own bound for its 3-pass bf16
-HIGH split (the port computes in full f32).
+On CPU tensors the port's wrappers run their plain PyTorch versions; the
+JAX kernels run in interpret mode, as their own tests run them.
+Tolerances: f32 mode 2e-3 absolute on finite entries, the JAX test's own
+bound for its 3-pass bf16 HIGH split (the port computes in full f32);
+bf16/u8 modes 1e-5 x max|ref| (both sides form exact bf16 products and
+differ only in the order of their f32 sums); assignment: agreement
+>= 0.999 and minimum distances within 1e-4 relative (the same expansion,
+matrix products summed in another order).
 """
 
 import numpy as np
@@ -12,9 +17,12 @@ import torch
 
 import jax.numpy as jnp
 
+from vectordb_retrieval_tpu.ops.kmeans import kmeans_assign as jax_kmeans_assign
 from vectordb_retrieval_tpu.ops.pallas_kernels import (
+    assign_pallas,
     dist_blockmin_pad_rows as jax_pad_rows,
     dist_blockmin_pallas,
+    kmeans_assign_fused,
 )
 from vectordb_retrieval_tpu_torch.ops import kernels
 
@@ -87,15 +95,131 @@ def test_dist_blockmin_launch_count_untouched_on_cpu(rng):
     assert kernels.LAUNCHES == before
 
 
+def _mode_inputs(rng, n, d, b, w, mode, pen_kind):
+    """Payload of a bf16/u8 mode with dead slots and one all-dead block."""
+    s = jax_pad_rows(n, w)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    if mode == "u8":
+        x = rng.integers(0, 256, (s, d)).astype(np.uint8)
+        xf = x.astype(np.float32)
+    else:
+        x = rng.standard_normal((s, d)).astype(np.float32)
+        xf = np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    pen = (xf * xf).sum(1) if pen_kind == "l2" else np.zeros((s,), np.float32)
+    pen[n:] = np.inf
+    pen[rng.random(s) < 0.1] = np.inf
+    pen[2 * w : 3 * w] = np.inf  # block 2 entirely dead
+    return q, x, pen.astype(np.float32).reshape(s // w, w)
+
+
+@pytest.mark.parametrize("pen_kind", ["l2", "zero"])
+@pytest.mark.parametrize("w", [8, 16, 32])
+@pytest.mark.parametrize("mode", ["bf16", "u8"])
+def test_dist_blockmin_modes_match_pallas(rng, mode, w, pen_kind):
+    n, d, b = 1500, 48, 12
+    q, x, pen = _mode_inputs(rng, n, d, b, w, mode, pen_kind)
+    jx = jnp.asarray(x) if mode == "u8" else jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(
+        dist_blockmin_pallas(
+            jnp.asarray(q).astype(jnp.bfloat16), jx, jnp.asarray(pen), w=w,
+            interpret=True,
+        )
+    )
+    tx = torch.from_numpy(x)
+    if mode == "bf16":
+        tx = tx.to(torch.bfloat16)  # rounds to nearest even, as astype does
+    got = kernels.dist_blockmin(
+        torch.from_numpy(q), tx, torch.from_numpy(pen), w=w
+    ).numpy()
+    assert got.shape == want.shape == (b, pen.shape[0])
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    assert np.isinf(got[:, 2]).all()
+    fin = np.isfinite(want)
+    assert np.abs(got[fin] - want[fin]).max() <= 1e-5 * np.abs(want[fin]).max()
+
+
+def test_dist_blockmin_bf16_queries_are_rounded_once(rng):
+    """f32 queries and the same queries pre-rounded to bf16 score alike."""
+    q, x, pen = _mode_inputs(rng, 256, 16, 3, 8, "u8", "l2")
+    args = (torch.from_numpy(x), torch.from_numpy(pen))
+    a = kernels.dist_blockmin(torch.from_numpy(q), *args, w=8)
+    b = kernels.dist_blockmin(torch.from_numpy(q).to(torch.bfloat16), *args, w=8)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _assign_case(rng, n, k, d, dup):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    if dup:
+        c[7] = c[2]  # exact duplicates: argmin must keep the lower id
+        c[k - 1] = c[0]
+    return x, c
+
+
+@pytest.mark.parametrize(
+    "n,k,d,dup",
+    [(1000, 64, 32, False), (1030, 16, 16, False), (777, 40, 24, True)],
+)
+def test_assign_matches_pallas_and_kmeans_assign(rng, n, k, d, dup):
+    x, c = _assign_case(rng, n, k, d, dup)
+    a_pl, d_pl = (np.asarray(v) for v in assign_pallas(
+        jnp.asarray(x), jnp.asarray(c), interpret=True))
+    a_xla = np.asarray(jax_kmeans_assign(jnp.asarray(x), jnp.asarray(c)))
+    ids, mins = kernels.assign(torch.from_numpy(x), torch.from_numpy(c))
+    ids, mins = ids.numpy(), mins.numpy()
+    assert ids.shape == mins.shape == (n,) and ids.dtype == np.int64
+    assert (ids == a_pl).mean() >= 0.999
+    assert (ids == a_xla).mean() >= 0.999
+    np.testing.assert_allclose(mins, d_pl, rtol=1e-4, atol=1e-4 * np.abs(d_pl).max())
+    if dup:
+        assert not np.isin(ids, [7, k - 1]).any()
+        assert (ids == 2).any() and (ids == 0).any()
+
+
+def test_assign_fused_wrapper_agrees_on_ragged_rows(rng):
+    x, c = _assign_case(rng, 1030, 16, 16, False)
+    a_j, _ = kmeans_assign_fused(jnp.asarray(x), jnp.asarray(c))
+    ids, _ = kernels.assign(torch.from_numpy(x), torch.from_numpy(c), chunk_rows=100)
+    assert (ids.numpy() == np.asarray(a_j)).mean() >= 0.999
+    assert ids.min() >= 0 and ids.max() < 16
+
+
+def test_assign_launch_count_untouched_on_cpu(rng):
+    before = dict(kernels.LAUNCHES)
+    x, c = _assign_case(rng, 50, 4, 8, False)
+    kernels.assign(torch.from_numpy(x), torch.from_numpy(c))
+    assert kernels.LAUNCHES == before
+    assert set(kernels.LAUNCHES) == {
+        "dist_blockmin", "dist_blockmin_bf16", "dist_blockmin_u8", "assign"}
+
+
+@pytest.mark.parametrize("kind", ["f64", "int_points", "dim", "noncontig", "empty"])
+def test_assign_wrapper_rejects(kind):
+    p, c = torch.zeros((10, 4)), torch.zeros((3, 4))
+    exc = ValueError
+    if kind == "f64":
+        p, exc = p.double(), TypeError
+    elif kind == "int_points":
+        c, exc = c.long(), TypeError
+    elif kind == "dim":
+        c = torch.zeros((3, 5))
+    elif kind == "noncontig":
+        p = torch.zeros((4, 10)).T
+    elif kind == "empty":
+        c = torch.zeros((0, 4))
+    with pytest.raises(exc):
+        kernels.assign(p, c)
+
+
 def _bad_call(kind):
     q = torch.zeros((4, 16))
     x = torch.zeros((64, 16))
     pen = torch.zeros((8, 8))
     w = 8
-    if kind == "bf16":
-        x = x.to(torch.bfloat16)
-    elif kind == "u8":
-        x = x.to(torch.uint8)
+    if kind == "bf16":  # f16 queries are no mode's input
+        q, x = q.half(), x.to(torch.bfloat16)
+    elif kind == "u8":  # int queries are no mode's input
+        q, x = q.long(), x.to(torch.uint8)
     elif kind == "f64":
         q, x, pen = q.double(), x.double(), pen.double()
     elif kind == "ragged_s":
@@ -117,8 +241,8 @@ def _bad_call(kind):
 @pytest.mark.parametrize(
     "kind,exc",
     [
-        ("bf16", NotImplementedError),
-        ("u8", NotImplementedError),
+        ("bf16", TypeError),
+        ("u8", TypeError),
         ("f64", TypeError),
         ("ragged_s", ValueError),
         ("pen_shape", ValueError),
@@ -136,12 +260,31 @@ def test_dist_blockmin_wrapper_rejects(kind, exc):
 
 def test_kernel_source_and_build_key():
     """Every kernel's source ships in csrc/; its build directory is keyed
-    by the source and the compiler flags."""
+    by the source, the shared header and the compiler flags."""
     import os
 
     for name in kernels.KERNEL_SOURCES:
-        assert os.path.exists(os.path.join(kernels.CSRC_DIR, f"{name}.cu"))
+        src = os.path.join(kernels.CSRC_DIR, f"{name}.cu")
+        assert os.path.exists(src)
+        with open(src) as f:
+            assert '#include "ffma_tile.cuh"' in f.read()
         path = kernels._lib_path(name)
         assert path.startswith(kernels.BUILD_DIR)
         assert path.endswith(f"lib{name}.so")
+    assert os.path.exists(os.path.join(kernels.CSRC_DIR, "ffma_tile.cuh"))
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+
+
+def test_build_key_follows_the_shared_header(tmp_path, monkeypatch):
+    """A change to ffma_tile.cuh alone moves every kernel's build key, so a
+    stale library is never loaded."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(kernels, "CSRC_DIR", str(csrc))
+    before = {name: kernels._lib_path(name) for name in kernels.KERNEL_SOURCES}
+    with open(csrc / "ffma_tile.cuh", "a") as f:
+        f.write("\n// edited\n")
+    for name in kernels.KERNEL_SOURCES:
+        assert kernels._lib_path(name) != before[name]

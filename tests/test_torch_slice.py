@@ -1,7 +1,8 @@
-"""The exact-search slice of the port, end to end against the JAX package:
-ground truth (dense and blockmin paths), the BenchmarkRunner on the smoke
-config's exact row, and search over a JAX-built index carried across with
-``artifact_from_numpy``. Everything runs on the CPU (``device="cpu"``).
+"""The port's slices, end to end against the JAX package: ground truth
+(dense and blockmin paths), the BenchmarkRunner on the smoke config's
+exact, ivf_flat and ivf_sq8 rows, and search over a JAX-built index carried
+across with ``artifact_from_numpy``. Everything runs on the CPU
+(``device="cpu"``).
 """
 
 import copy
@@ -73,13 +74,15 @@ def test_compute_ground_truth_matches_jax(rng, metric, n, d):
     assert_gt_equal_modulo_ties(got, want, train, queries, metric)
 
 
-def _smoke_exact_config(tmp_path, out_name):
+def _smoke_exact_config(tmp_path, out_name, rows=("exact",)):
     with open(os.path.join(REPO, "configs", "benchmark_config_smoke.yaml")) as f:
         cfg = yaml.safe_load(f)
-    row = cfg["algorithms"]["exact"]
-    cfg["algorithms"] = {"exact": row}
-    cfg["indexers"] = {row["indexer_ref"]: cfg["indexers"][row["indexer_ref"]]}
-    cfg["searchers"] = {row["searcher_ref"]: cfg["searchers"][row["searcher_ref"]]}
+    picked = {name: cfg["algorithms"][name] for name in rows}
+    cfg["algorithms"] = picked
+    cfg["indexers"] = {r["indexer_ref"]: cfg["indexers"][r["indexer_ref"]]
+                       for r in picked.values()}
+    cfg["searchers"] = {r["searcher_ref"]: cfg["searchers"][r["searcher_ref"]]
+                        for r in picked.values()}
     cfg["output_dir"] = str(tmp_path / out_name)
     cfg["data_dir"] = str(tmp_path / "data")
     path = tmp_path / f"{out_name}.yaml"
@@ -119,6 +122,28 @@ def test_benchmark_runner_matches_jax_on_smoke_exact_row(tmp_path):
     with open(os.path.join(out, "benchmark_summary.md")) as f:
         summary = f.read()
     assert "| exact | 1.0000 |" in summary and "v5e" not in summary
+
+
+def test_benchmark_runner_matches_jax_on_smoke_ivf_rows(tmp_path):
+    """The smoke config's ivf_flat (IVF16,Flat, bf16 lists) and ivf_sq8
+    (IVF16,SQ8) rows, nprobe 8 of 16 lists, through both runners. The
+    builds differ only in their random draws (k-means init and sample), so
+    recall@10 is held within 0.05 of JAX's; observed on the CPU: ivf_flat
+    0.8578 vs 0.8563, ivf_sq8 0.8547 vs 0.8578 (port vs JAX), a gap of
+    0.0016-0.0031."""
+    rows = ("ivf_flat", "ivf_sq8")
+    path_j, _ = _smoke_exact_config(tmp_path, "jax", rows)
+    path_t, _ = _smoke_exact_config(tmp_path, "torch", rows)
+    res_j = JaxRunner(path_j).run()["random"]
+    res_t = BenchmarkRunner(path_t, device="cpu").run()["random"]
+    assert set(res_t) == set(res_j)
+    for name in rows:
+        row_j, row_t = res_j[name], res_t[name]
+        assert "error" not in row_t, row_t
+        assert set(row_t) == set(row_j) - ROOFLINE_KEYS
+        assert abs(row_t["recall@10"] - row_j["recall@10"]) <= 0.05
+        assert row_t["recall@10"] > 0.8
+        assert row_t["index_memory_mb"] > 0 and row_t["qps"] > 0
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
@@ -161,6 +186,26 @@ def test_exact_search_algorithm_pads_to_k(rng):
     assert (i[:, 0] == [0, 1]).all()
     assert algo.get_operations()["ndis"] == 12
     assert algo.index_memory_bytes() == 6 * 4 * 4 + 6 * 4
+
+
+@pytest.mark.parametrize("key", ["IVF8,Flat", "IVF8,SQ8", "SQ8"])
+def test_approximate_search_matches_jax(rng, key):
+    from vectordb_retrieval_tpu.models import get_algorithm_instance as jax_get
+
+    train = rng.standard_normal((1200, 16)).astype(np.float32)
+    queries = rng.standard_normal((7, 16)).astype(np.float32)
+    algo = get_algorithm_instance("approx", 16, index_type=key, nprobe=4, device="cpu")
+    jalgo = jax_get("approx", 16, index_type=key, nprobe=4)
+    assert algo.get_parameters() == jalgo.get_parameters()
+    algo.build_index(train)
+    jalgo.build_index(train)
+    d, i = algo.batch_search(queries, 5)
+    jd, ji = jalgo.batch_search(queries, 5)
+    assert d.shape == i.shape == jd.shape == (7, 5) and i.dtype == np.int64
+    # builds differ in their draws: most, not all, ids are shared
+    shared = np.mean([len(set(a) & set(b)) / 5 for a, b in zip(i, ji)])
+    assert shared >= 0.6
+    assert algo.get_operations()["ndis"] > 0
 
 
 @pytest.mark.parametrize("b,buckets", [(5, ()), (8, ()), (3, (4, 16)), (9, (4, 16))])
@@ -209,39 +254,63 @@ def _not_ported(kind, tmp_path):
         LinearSearcher(device="cpu").attach(
             IndexArtifact("flat_sharded", {"vectors": torch.zeros(2, 2)})
         )
-    elif kind == "save_index":
-        ExactSearch(2, device="cpu").save_index(str(tmp_path))
-    elif kind == "persistence_mode":
-        ExperimentRunner._persistence_mode({"persistence": {"mode": "build_only"}})
+    elif kind == "pq_index_key":
+        from vectordb_retrieval_tpu_torch.models.factory import FactoryIndexer
+
+        FactoryIndexer(index_key="IVF4,PQ2", device="cpu").build(
+            np.zeros((16, 4), np.float32), 4)
+    elif kind == "graph_artifact":
+        from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
+
+        ANNSearcher(device="cpu").attach(IndexArtifact("graph", {}))
 
 
 @pytest.mark.parametrize(
     "kind",
-    ["memmap", "dataset", "storage_memmap", "sharded", "save_index",
-     "persistence_mode"],
+    ["memmap", "dataset", "storage_memmap", "sharded", "pq_index_key",
+     "graph_artifact"],
 )
 def test_not_yet_ported_paths_raise(kind, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         _not_ported(kind, tmp_path)
 
 
-def test_persistence_build_and_retrieve_runs_without_saving(tmp_path):
+def _persistence_row(tmp_path, persistence):
     cfg = ExperimentConfig(
         dataset="random", data_dir=str(tmp_path / "data"),
         dataset_options={"dimensions": 8, "train_size": 64, "test_size": 8,
                          "ground_truth_k": 5, "use_cache": False},
         n_queries=8, topk=5, query_batch_size=3, repeat=2,
         algorithms={"exact": {"type": "ExactSearch", "metric": "l2",
-                              "persistence": {"enabled": True}}},
+                              "persistence": persistence}},
     )
     res = ExperimentRunner(cfg, output_dir=str(tmp_path / "out"), device="cpu").run()
-    row = res["exact"]
+    return res["exact"]
+
+
+def test_persistence_build_and_retrieve_runs_without_saving(tmp_path):
+    """A build_and_retrieve mode with persistence not enabled: the row is
+    built and searched as usual, and nothing is written."""
+    row = _persistence_row(tmp_path, {"enabled": False, "mode": "build_and_retrieve"})
+    assert "error" not in row, row
+    assert row["recall"] == 1.0
+    assert row["persistence_mode"] is None and row["persist_dir"] is None
+    assert row["config_hash"] is None
+    assert row["operations_per_query"] == 64
+    assert not os.path.exists(tmp_path / "out" / "artifacts")
+
+
+def test_persistence_build_and_retrieve_saves_and_searches(tmp_path):
+    """build_and_retrieve with persistence on: the row is searched as
+    usual, and the artifact is also saved."""
+    row = _persistence_row(tmp_path, {"enabled": True})
     assert "error" not in row, row
     assert row["recall"] == 1.0
     assert row["persistence_mode"] == "build_and_retrieve"
-    assert row["persist_dir"] is None
+    assert row["persist_dir"] == str(tmp_path / "out" / "artifacts" / "exact")
+    assert row["index_source"] == "built" and row["config_hash"]
     assert row["operations_per_query"] == 64
-    assert not os.path.exists(tmp_path / "out" / "artifacts")
+    assert os.path.exists(tmp_path / "out" / "artifacts" / "exact" / "WRITE_COMPLETE")
 
 
 def test_dataset_cache_roundtrip_uses_own_tag(tmp_path):

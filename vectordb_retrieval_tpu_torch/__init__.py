@@ -4,9 +4,11 @@ Mirrors the layout and names of the JAX package ``vectordb_retrieval_tpu``
 (the reference) and imports nothing from it:
 
   bench/     benchmark orchestration, experiments, evaluation, metrics
-  models/    index families (flat so far)
-  ops/       distances, top-k, exact search; ``ops/kernels.py`` holds the
-             hand-written CUDA kernels (sources in ``csrc/``)
+  models/    index families (exact; IVF-Flat, IVF-SQ8 and SQ8 from the
+             factory grammar) and artifact persistence
+  ops/       distances, top-k, exact search, k-means, IVF, SQ8;
+             ``ops/kernels.py`` holds the hand-written CUDA kernels
+             (sources in ``csrc/``)
   data/      dataset synthesis, ground truth, caching, device upload
   utils/     device resolution, hashing
 

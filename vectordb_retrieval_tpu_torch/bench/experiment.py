@@ -9,9 +9,10 @@ Timing: queries are uploaded before the clock. The clock covers every
 batch of every ``repeat`` pass, then a ``torch.cuda.synchronize()`` and the
 copy of the ids to host, so it stops only once the results are on the host.
 
-Persistence: only ``build_and_retrieve`` runs, and it saves nothing; the
-``build_only`` and ``retrieve_only`` modes raise until persistence is
-ported (ROADMAP queue 1 item 3).
+Persistence: the modes ``build_only`` / ``retrieve_only`` /
+``build_and_retrieve`` with dataset fingerprint and config hash validation,
+as in the JAX package; artifacts are written in its format
+(``models/persist.py``), so either package can load the other's.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from vectordb_retrieval_tpu_torch.utils.device import (
     resolve_device,
     synchronize,
 )
+from vectordb_retrieval_tpu_torch.utils.hashing import stable_hash
 
 logger = logging.getLogger(__name__)
 
@@ -126,23 +128,68 @@ class ExperimentRunner:
             return np.ascontiguousarray(test[idx]), np.ascontiguousarray(gt[idx])
         return test, gt
 
-    @staticmethod
-    def _persistence_mode(algo_config: Dict[str, Any]) -> Optional[str]:
-        """The row's persistence mode, or None when persistence is off."""
+    # -- persistence helpers ---------------------------------------------
+    def _extract_persistence_config(
+        self, algo_config: Dict[str, Any]
+    ) -> Dict[str, Any]:
         p = dict(algo_config.get("persistence") or {})
         mode = p.get("mode", "build_and_retrieve")
         if mode not in PERSISTENCE_MODES:
             raise ValueError(
                 f"invalid persistence mode {mode!r}; expected {PERSISTENCE_MODES}"
             )
-        if not p.get("enabled", bool(algo_config.get("persistence"))):
-            return None
-        if mode != "build_and_retrieve":
-            raise NotImplementedError(
-                f"persistence mode {mode!r} is ported with persistence, "
-                "ROADMAP queue 1 item 3"
-            )
-        return mode
+        p.setdefault("enabled", bool(algo_config.get("persistence")))
+        p.setdefault("path_policy", "fixed")
+        p.setdefault("force_rebuild", False)
+        p.setdefault("fail_if_missing", True)
+        p["mode"] = mode
+        return p
+
+    def _dataset_fingerprint(self, algo_name: str, algo_config: Dict[str, Any]) -> str:
+        assert self.dataset is not None
+        payload = {
+            "dataset": self.config.dataset,
+            "algorithm": algo_name,
+            "metric": algo_config.get("metric", self.config.metric),
+            "dimensions": int(self.dataset.train_vectors.shape[1]),
+            "train_count": int(self.dataset.train_vectors.shape[0]),
+            "dataset_options": self.config.dataset_options,
+        }
+        emb_dir = self.config.dataset_options.get("embedded_dataset_dir")
+        if emb_dir:
+            emb = os.path.join(emb_dir, "passage_embeddings.npy")
+            if os.path.exists(emb):
+                st = os.stat(emb)
+                payload["embeddings_file"] = {
+                    "size": st.st_size,
+                    "mtime": int(st.st_mtime),
+                }
+        return stable_hash(payload)
+
+    def _config_hash(self, algo_config: Dict[str, Any]) -> str:
+        payload = {
+            "algorithm_config": {
+                # repeat only affects timing, never the artifact
+                k: v
+                for k, v in algo_config.items()
+                if k not in ("persistence", "repeat")
+            },
+            "dataset_options": self.config.dataset_options,
+            "topk": self.config.topk,
+            "n_queries": self.config.n_queries,
+            "query_batch_size": self.config.query_batch_size,
+        }
+        return stable_hash(payload)
+
+    def _resolve_persist_dir(
+        self, algo_name: str, p: Dict[str, Any], config_hash: str
+    ) -> str:
+        base = p.get("artifact_dir") or os.path.join(self.output_dir, "artifacts")
+        if p["path_policy"] == "versioned":
+            return os.path.join(base, f"{algo_name}_{config_hash[:12]}")
+        if p["path_policy"] != "fixed":
+            raise ValueError(f"invalid path_policy {p['path_policy']!r}")
+        return os.path.join(base, algo_name)
 
     # -- main loop -------------------------------------------------------
     def run(self) -> Dict[str, Dict[str, Any]]:
@@ -168,14 +215,15 @@ class ExperimentRunner:
                 metrics, indices, query_times = self._run_single_algorithm(
                     name, algo, algo_config, queries
                 )
-                quality = evaluator.evaluate(name, indices, query_times)
-                metrics.update(quality)
-                # the ops-vs-recall plot reads the op counters too
-                evaluator.results[name] = metrics
-                metrics["recall"] = metrics.get(
-                    f"recall@{min(100, self.config.topk)}",
-                    metrics.get("recall@10"),
-                )
+                if metrics.get("status") != "build_only":
+                    quality = evaluator.evaluate(name, indices, query_times)
+                    metrics.update(quality)
+                    # the ops-vs-recall plot reads the op counters too
+                    evaluator.results[name] = metrics
+                    metrics["recall"] = metrics.get(
+                        f"recall@{min(100, self.config.topk)}",
+                        metrics.get("recall@10"),
+                    )
                 self.results[name] = metrics
                 self._save_algorithm_results(name)
             except Exception as exc:
@@ -195,12 +243,49 @@ class ExperimentRunner:
         assert self.dataset is not None
         train = self.dataset.train_vectors
         k = min(self.config.topk, train.shape[0])
-        mode = self._persistence_mode(algo_config)
 
-        start = time.perf_counter()
-        algorithm.build_index(train)
-        synchronize(self.device)
-        build_time = time.perf_counter() - start
+        p = self._extract_persistence_config(algo_config)
+        persistence_enabled = bool(p.get("enabled"))
+        mode = p["mode"]
+        fingerprint = config_hash = persist_dir = None
+        context: Dict[str, Any] = {}
+        if persistence_enabled:
+            fingerprint = self._dataset_fingerprint(name, algo_config)
+            config_hash = self._config_hash(algo_config)
+            persist_dir = self._resolve_persist_dir(name, p, config_hash)
+            context = {
+                "dataset_fingerprint": fingerprint,
+                "config_hash": config_hash,
+            }
+
+        def build() -> float:
+            start = time.perf_counter()
+            algorithm.build_index(train)
+            synchronize(self.device)
+            return time.perf_counter() - start
+
+        build_time = 0.0
+        index_load_time = 0.0
+        index_source = "built"
+        if persistence_enabled and mode == "retrieve_only":
+            if not os.path.isdir(persist_dir):
+                if p["fail_if_missing"]:
+                    raise FileNotFoundError(
+                        f"persisted index missing for {name}: {persist_dir}"
+                    )
+                logger.warning("%s: persisted index missing, rebuilding", name)
+                build_time = build()
+            else:
+                start = time.perf_counter()
+                algorithm.load_index(persist_dir, context)
+                synchronize(self.device)
+                index_load_time = time.perf_counter() - start
+                index_source = "loaded"
+        else:
+            build_time = build()
+            if persistence_enabled and mode in ("build_only", "build_and_retrieve"):
+                if p.get("force_rebuild") or not os.path.isdir(persist_dir):
+                    algorithm.save_index(persist_dir, context)
 
         memory_mb = algorithm.index_memory_bytes() / (1024.0 * 1024.0)
         base_metrics: Dict[str, Any] = {
@@ -213,14 +298,18 @@ class ExperimentRunner:
             "topk": self.config.topk,
             "build_time_s": float(build_time),
             "index_memory_mb": float(memory_mb),
-            "index_load_time_s": 0.0,
-            "index_source": "built",
-            "persistence_mode": mode,
-            "persist_dir": None,
-            "dataset_fingerprint": None,
-            "config_hash": None,
+            "index_load_time_s": float(index_load_time),
+            "index_source": index_source,
+            "persistence_mode": mode if persistence_enabled else None,
+            "persist_dir": persist_dir if persistence_enabled else None,
+            "dataset_fingerprint": fingerprint if persistence_enabled else None,
+            "config_hash": config_hash if persistence_enabled else None,
             "timestamp": datetime.now().isoformat(),
         }
+
+        if persistence_enabled and mode == "build_only":
+            base_metrics["status"] = "build_only"
+            return base_metrics, np.zeros((0, k), np.int64), np.zeros(0)
 
         indices, query_times, warmup_s, total_time = self._timed_search(
             algorithm, queries, k, repeat=algo_config.get("repeat")

@@ -1,7 +1,11 @@
 """Index families and the algorithm registry.
 
-Only the exact family is ported so far; every other name of the JAX
-registry is unknown here and raises the same ``ValueError``.
+Ported so far: the exact family (``exact``/``ExactSearch``, flat
+artifacts) and the factory family for IVF-Flat, IVF-SQ8 and SQ8
+(``approx``/``ApproximateSearch``; ``FactoryIndexer``/``ANNSearcher`` and
+their ``Faiss*`` aliases in the component registries). Every other name of
+the JAX registry (graph, cover tree, LSH) is unknown here and raises the
+same ``ValueError``.
 """
 
 from typing import Any, Dict, Type
@@ -20,13 +24,17 @@ from vectordb_retrieval_tpu_torch.models.base import (  # noqa: F401
 
 # Importing this module populates the indexer/searcher registries.
 from vectordb_retrieval_tpu_torch.models import flat  # noqa: F401,E402
+from vectordb_retrieval_tpu_torch.models import factory  # noqa: F401,E402
 from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm  # noqa: E402
 from vectordb_retrieval_tpu_torch.models.exact import ExactSearch  # noqa: E402
+from vectordb_retrieval_tpu_torch.models.approximate import ApproximateSearch  # noqa: E402
 from vectordb_retrieval_tpu_torch.utils.device import DeviceLike  # noqa: E402
 
 ALGORITHM_REGISTRY: Dict[str, Type[BaseAlgorithm]] = {
     "exact": ExactSearch,
     "ExactSearch": ExactSearch,
+    "approx": ApproximateSearch,
+    "ApproximateSearch": ApproximateSearch,
     "composite": CompositeAlgorithm,
     "CompositeAlgorithm": CompositeAlgorithm,
     "modular": CompositeAlgorithm,

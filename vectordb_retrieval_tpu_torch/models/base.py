@@ -3,7 +3,9 @@
 Counterpart of ``vectordb_retrieval_tpu/models/base.py``. An
 ``IndexArtifact`` holds a dict of tensors on one device plus host metadata;
 :func:`artifact_from_numpy` carries the JAX package's artifacts (their
-leaves taken as numpy arrays) across under the same key names.
+leaves taken as numpy arrays) across under the same key names, and
+``models/persist.py`` saves and loads them in the JAX package's on-disk
+format.
 """
 
 from __future__ import annotations
@@ -36,6 +38,33 @@ class IndexArtifact:
         return sum(int(t.numel() * t.element_size()) for t in self.data.values())
 
 
+BF16_SUFFIX = ".bf16"
+
+
+def leaf_to_tensor(
+    key: str, arr: Any, device: torch.device
+) -> Tuple[str, torch.Tensor]:
+    """One stored leaf as ``(key, tensor on device)``.
+
+    bf16 arrives either as raw 16-bit words under ``key + ".bf16"`` (the
+    persisted format) or as a numpy array whose dtype is named
+    ``bfloat16`` (a JAX array taken with ``np.asarray``); both become
+    ``torch.bfloat16`` through an ``int16`` view of the bits, so no
+    bfloat16 numpy type is needed.
+    """
+    if isinstance(arr, torch.Tensor):
+        return key, arr.to(device)
+    arr = np.ascontiguousarray(arr)
+    if key.endswith(BF16_SUFFIX):
+        key = key[: -len(BF16_SUFFIX)]
+        if arr.dtype.itemsize != 2:
+            raise ValueError(f"{key}{BF16_SUFFIX}: expected 16-bit words, got {arr.dtype}")
+        return key, torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    if arr.dtype.name == "bfloat16":
+        return key, torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return key, torch.as_tensor(arr, device=device)
+
+
 def artifact_from_numpy(
     kind: str,
     data: Dict[str, np.ndarray],
@@ -43,14 +72,12 @@ def artifact_from_numpy(
     device: DeviceLike = None,
 ) -> IndexArtifact:
     """Build an artifact from numpy leaves (e.g. a JAX-built artifact's
-    ``{k: np.asarray(v)}``), uploaded to ``device``."""
+    ``{k: np.asarray(v)}``), uploaded to ``device``. bf16 leaves may be
+    bfloat16 arrays or uint16 views under a ``.bf16`` key suffix."""
     dev = resolve_device(device)
     return IndexArtifact(
         kind=kind,
-        data={
-            k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
-            for k, v in data.items()
-        },
+        data=dict(leaf_to_tensor(k, v, dev) for k, v in data.items()),
         metadata=dict(metadata),
     )
 
@@ -58,7 +85,7 @@ def artifact_from_numpy(
 class BaseAlgorithm(ABC):
     """Common interface every retrieval algorithm implements:
     ``build_index``, ``search``, ``batch_search``, operation counters and
-    the persistence hooks (not ported yet: ROADMAP queue 1 item 3)."""
+    the optional ``save_index``/``load_index`` persistence hooks."""
 
     def __init__(self, dimension: int, metric: str = "l2", **params: Any):
         self.dimension = int(dimension)
@@ -97,14 +124,14 @@ class BaseAlgorithm(ABC):
 
     # -- persistence hooks ----------------------------------------------
     def save_index(self, path: str, context: Optional[Dict[str, Any]] = None) -> None:
-        raise NotImplementedError(
-            f"{self.name}: save_index is ported with persistence, ROADMAP queue 1 item 3"
-        )
+        raise NotImplementedError(f"{self.name} does not support save_index")
 
     def load_index(self, path: str, context: Optional[Dict[str, Any]] = None) -> None:
-        raise NotImplementedError(
-            f"{self.name}: load_index is ported with persistence, ROADMAP queue 1 item 3"
-        )
+        raise NotImplementedError(f"{self.name} does not support load_index")
+
+    @property
+    def supports_persistence(self) -> bool:
+        return type(self).save_index is not BaseAlgorithm.save_index
 
     # -- reporting ------------------------------------------------------
     def get_parameters(self) -> Dict[str, Any]:

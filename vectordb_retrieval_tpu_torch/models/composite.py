@@ -2,9 +2,8 @@
 
 The pair is instantiated from the string-keyed registries via config dicts,
 on the algorithm's device, and both components' ``describe()`` output is
-folded into the reported parameters. ``save_index``/``load_index`` keep the
-base class's ``NotImplementedError`` until persistence is ported (ROADMAP
-queue 1 item 3).
+folded into the reported parameters. ``save_index``/``load_index`` persist
+the artifact in the JAX package's format (``models/persist.py``).
 """
 
 from __future__ import annotations
@@ -94,3 +93,18 @@ class CompositeAlgorithm(BaseAlgorithm):
         p["indexer"] = self.indexer.describe()
         p["searcher"] = self.searcher.describe()
         return p
+
+    # -- persistence (models/persist.py) --------------------------------
+    def save_index(self, path: str, context: Optional[Dict[str, Any]] = None) -> None:
+        from vectordb_retrieval_tpu_torch.models import persist
+
+        if self.artifact is None:
+            raise RuntimeError("nothing to save: index not built")
+        persist.save_artifact(self.artifact, path, context or {})
+
+    def load_index(self, path: str, context: Optional[Dict[str, Any]] = None) -> None:
+        from vectordb_retrieval_tpu_torch.models import persist
+
+        self.artifact = persist.load_artifact(path, context or {}, device=self.device)
+        self.searcher.attach(self.artifact)
+        self.is_built = True

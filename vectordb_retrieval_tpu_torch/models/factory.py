@@ -1,0 +1,388 @@
+"""Factory indexer (IVF/SQ grammar) + the generic ANN searcher.
+
+Counterpart of ``vectordb_retrieval_tpu/models/factory.py`` for the codings
+ported so far: ``IVF{n},Flat`` (bf16 or f32 lists, optional exact
+rescore), ``IVF{n},SQ8`` and bare ``SQ8``. The grammar is parsed in full;
+``PQ{m}``, ``IVF{n},PQ{m}`` and ``OPQ{m},`` keys raise
+``NotImplementedError`` naming their ROADMAP item, as do the streaming
+build of out-of-core corpora and the artifact kinds of unported families
+(graph, LSH, sharded).
+
+``ANNSearcher`` dispatches on artifact kind with runtime params (``nprobe``
+from searcher params or artifact metadata). Registry aliases keep the
+JAX package's YAML configs loadable verbatim: ``FaissFactoryIndexer`` ->
+:class:`FactoryIndexer`, ``FaissIVFIndexer`` -> :class:`IVFIndexer`,
+``FaissSearcher`` -> :class:`ANNSearcher`. Batches are not padded (the JAX
+searcher pads to powers of two only to bound XLA recompiles).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from vectordb_retrieval_tpu_torch.data.storage import corpus_to_device, is_out_of_core
+from vectordb_retrieval_tpu_torch.models.base import (
+    BaseIndexer,
+    BaseSearcher,
+    IndexArtifact,
+    register_indexer,
+    register_searcher,
+)
+from vectordb_retrieval_tpu_torch.ops import distances as dops
+from vectordb_retrieval_tpu_torch.ops import ivf as ivfops
+from vectordb_retrieval_tpu_torch.ops import sq as sqops
+from vectordb_retrieval_tpu_torch.ops.kmeans import (
+    kmeans_assign,
+    kmeans_fit,
+    training_sample,
+)
+
+_FACTORY_RE = re.compile(
+    r"^(?:OPQ(?P<opq>\d+),)?(?:IVF(?P<nlist>\d+),)?(?P<code>Flat|PQ(?P<m>\d+)|SQ8)$"
+)
+
+_PQ_ITEM = "ROADMAP queue 1 item 4 (IVF-PQ, PQ{m} and OPQ)"
+# artifact kinds of families not ported yet -> their ROADMAP item
+_NOT_PORTED_KINDS = {
+    "pq": _PQ_ITEM,
+    "ivf_pq": _PQ_ITEM,
+    "graph": "ROADMAP queue 1 item 5 (graph)",
+    "binary_lsh": "ROADMAP queue 1 item 7 (LSH)",
+    "ivf_flat_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
+    "ivf_pq_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
+    "ivf_sq8_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
+    "graph_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
+}
+
+
+def parse_index_key(index_key: str) -> Dict[str, Any]:
+    """Parse the factory grammar into {opq?, nlist?, coding, m?}."""
+    m = _FACTORY_RE.match(index_key.strip())
+    if not m:
+        raise ValueError(
+            f"unsupported index_key {index_key!r}; expected "
+            "[OPQ{m},][IVF{n},](Flat|PQ{m}|SQ8)"
+        )
+    out: Dict[str, Any] = {
+        "nlist": None, "coding": "flat", "m": None, "opq": None,
+    }
+    if m.group("opq"):
+        out["opq"] = int(m.group("opq"))
+    if m.group("nlist"):
+        out["nlist"] = int(m.group("nlist"))
+    code = m.group("code")
+    if code == "Flat":
+        out["coding"] = "flat"
+    elif code == "SQ8":
+        out["coding"] = "sq8"
+    else:
+        out["coding"] = "pq"
+        out["m"] = int(m.group("m"))
+    if out["nlist"] is None and out["coding"] == "flat":
+        raise ValueError("bare 'Flat' has no quantization; use BruteForceIndexer")
+    return out
+
+
+def _gather_slots(arr: torch.Tensor, slot_ids: np.ndarray) -> torch.Tensor:
+    """Gather rows into the bucket layout ``[n_buckets, L, ...]`` (padding
+    slots read row 0)."""
+    safe = torch.as_tensor(np.where(slot_ids >= 0, slot_ids, 0), device=arr.device)
+    return arr[safe.long()]
+
+
+@register_indexer("FactoryIndexer")
+@register_indexer("FaissFactoryIndexer")
+class FactoryIndexer(BaseIndexer):
+    """Builds quantized artifacts from an ``index_key`` grammar string."""
+
+    def __init__(
+        self,
+        metric: str = "l2",
+        index_key: str = "IVF100,Flat",
+        nprobe: int = 10,
+        train_iters: int = 20,
+        seed: int = 123,
+        list_dtype: str = "bf16",
+        exact_rescore: bool = False,
+        bucket_len: int = 0,
+        **params: Any,
+    ):
+        super().__init__(metric=metric, **params)
+        self.index_key = index_key
+        self.nprobe = int(nprobe)
+        self.train_iters = int(train_iters)
+        self.seed = int(seed)
+        # bucket-length cap of the bucketed layout (0 = per-coding default:
+        # 256 for coded payloads, 2048 for flat lists)
+        self.bucket_len = int(bucket_len)
+        if list_dtype not in ("bf16", "f32"):
+            raise ValueError("list_dtype must be 'bf16' or 'f32'")
+        self.list_dtype = list_dtype
+        # opt-in: keep the f32 corpus for an exact re-rank of the final
+        # candidates of bf16 lists (+1x corpus memory)
+        self.exact_rescore = bool(exact_rescore)
+
+    def build(self, vectors: np.ndarray, dimension: int) -> IndexArtifact:
+        spec = parse_index_key(self.index_key)
+        if spec["opq"] or spec["coding"] == "pq":
+            raise NotImplementedError(
+                f"index_key {self.index_key!r}: PQ codings are ported with {_PQ_ITEM}"
+            )
+        if is_out_of_core(vectors) and spec["nlist"] is not None:
+            raise NotImplementedError(
+                "the streaming IVF build of out-of-core corpora is ported with "
+                "the data layer, ROADMAP queue 1 item 9"
+            )
+        x = corpus_to_device(vectors, device=self.device)
+        if self.metric == "cosine":
+            x = dops.normalize(x)
+        n, d = x.shape
+        meta: Dict[str, Any] = {
+            "metric": self.metric,
+            "dimension": int(d),
+            "n_vectors": int(n),
+            "normalize_queries": self.metric == "cosine",
+            "index_key": self.index_key,
+            "nprobe": self.nprobe,
+        }
+        if spec["nlist"] is None:
+            return self._build_flat_coded(x, meta)
+        return self._build_ivf(x, spec, meta)
+
+    # -- flat-coded (SQ8 without IVF) -----------------------------------
+    def _build_flat_coded(self, x: torch.Tensor, meta: Dict[str, Any]) -> IndexArtifact:
+        vmin, step = sqops.sq_train(x)
+        codes = sqops.sq_encode(x, vmin, step)
+        sqn = dops.sq_norms(sqops.sq_decode(codes, vmin, step))
+        data = {"codes": codes, "vmin": vmin, "step": step, "code_sqnorms": sqn}
+        return IndexArtifact("sq8", data, meta)
+
+    # -- IVF variants ----------------------------------------------------
+    def _build_ivf(
+        self, x: torch.Tensor, spec: Dict[str, Any], meta: Dict[str, Any]
+    ) -> IndexArtifact:
+        n, d = x.shape
+        dev = x.device
+        nlist = min(spec["nlist"], n)
+        sample = training_sample(n, nlist, self.seed)
+        train_x = x if sample is None else x[sample.to(dev)]
+        centroids, _ = kmeans_fit(
+            train_x, nlist, seed=self.seed, iters=self.train_iters
+        )
+        assignments = kmeans_assign(x, centroids).cpu().numpy()
+        cap = self.bucket_len or (256 if spec["coding"] == "sq8" else 2048)
+        slot_ids_np, bucket_lists_np, pad_ratio = ivfops.build_bucketed_lists(
+            assignments, nlist, target_len_cap=cap
+        )
+        meta.update(
+            {
+                "nlist": int(nlist),
+                "n_buckets": int(slot_ids_np.shape[0]),
+                "pad_ratio": pad_ratio,
+                "max_list_len": int(slot_ids_np.shape[1]),
+                "probe_cum": [
+                    int(v)
+                    for v in ivfops.probe_budget_cum(bucket_lists_np, nlist)
+                ],
+            }
+        )
+        data: Dict[str, Any] = {
+            "centroids": ivfops.coarse_table(centroids, bucket_lists_np),
+            "list_centroids": centroids,  # scatter-free exact-probe table
+            "bucket_lists": torch.as_tensor(bucket_lists_np, device=dev),
+            "slot_ids": torch.as_tensor(slot_ids_np, device=dev),
+        }
+
+        if spec["coding"] == "flat":
+            meta["exact_rescore"] = bool(self.exact_rescore)
+            list_vecs = _gather_slots(x, slot_ids_np)
+            data["list_sqnorms"] = dops.sq_norms(list_vecs)
+            if self.list_dtype == "bf16":
+                # bf16 lists halve the payload the search streams
+                data["list_vecs"] = list_vecs.to(torch.bfloat16)
+                del list_vecs
+                if self.exact_rescore:
+                    data["full_vectors"] = x
+            else:
+                data["list_vecs"] = list_vecs
+            kind = "ivf_flat"
+        else:  # sq8
+            vmin, step = sqops.sq_train(x)
+            codes = sqops.sq_encode(x, vmin, step)
+            sqn = dops.sq_norms(sqops.sq_decode(codes, vmin, step))
+            data["vmin"] = vmin
+            data["step"] = step
+            data["list_codes"] = _gather_slots(codes, slot_ids_np)
+            data["list_sqnorms"] = _gather_slots(sqn, slot_ids_np)
+            kind = "ivf_sq8"
+        return IndexArtifact(kind, data, meta)
+
+
+@register_indexer("IVFIndexer")
+@register_indexer("FaissIVFIndexer")
+class IVFIndexer(FactoryIndexer):
+    """Back-compat alias: ``index_type`` -> ``index_key``."""
+
+    def __init__(self, metric: str = "l2", index_type: str = "IVF100,Flat",
+                 **params: Any):
+        params.pop("index_key", None)
+        super().__init__(metric=metric, index_key=index_type, **params)
+
+
+@register_searcher("ANNSearcher")
+@register_searcher("FaissSearcher")
+class ANNSearcher(BaseSearcher):
+    """Serves flat/quantized/IVF artifacts; runtime ``nprobe`` override."""
+
+    SUPPORTED = ("flat", "sq8", "ivf_flat", "ivf_sq8") + tuple(_NOT_PORTED_KINDS)
+
+    def attach(self, artifact: IndexArtifact) -> None:
+        if artifact.kind not in self.SUPPORTED:
+            raise ValueError(
+                f"ANNSearcher cannot serve artifact kind {artifact.kind!r}"
+            )
+        if artifact.kind in _NOT_PORTED_KINDS:
+            raise NotImplementedError(
+                f"artifact kind {artifact.kind!r} is ported with "
+                f"{_NOT_PORTED_KINDS[artifact.kind]}"
+            )
+        for key, t in artifact.data.items():
+            if isinstance(t, torch.Tensor) and t.device != self.device:
+                raise ValueError(
+                    f"artifact tensor {key!r} lives on {t.device}, searcher on "
+                    f"{self.device}"
+                )
+        self.artifact = artifact
+
+    def _nprobe(self) -> int:
+        """Probe budget in buckets: ``probe_cum[nprobe - 1]`` (the sum of the
+        nprobe LARGEST per-list bucket counts) covers every bucket of the
+        nprobe nearest lists under any skew."""
+        nprobe = int(
+            self.params.get("nprobe", self.artifact.metadata.get("nprobe", 10))
+        )
+        meta = self.artifact.metadata
+        nlist = int(meta.get("nlist", 0))
+        n_buckets = int(meta.get("n_buckets", nlist))
+        if nlist and n_buckets > nlist:
+            cum = meta.get("probe_cum")
+            if cum is None:
+                bl = self.artifact.data.get("bucket_lists")
+                if bl is not None:  # legacy artifact: derive once, cache
+                    cum = [
+                        int(v)
+                        for v in ivfops.probe_budget_cum(bl.cpu().numpy(), nlist)
+                    ]
+                    meta["probe_cum"] = cum
+            if cum is not None:
+                nprobe = int(cum[min(nprobe, len(cum)) - 1])
+            else:
+                nprobe = -(-nprobe * n_buckets // nlist)
+        return max(1, min(nprobe, n_buckets or nprobe))
+
+    def _probe_kwargs(self) -> dict:
+        """The reference's "probe the nprobe nearest LISTS" semantics for
+        bucketed layouts (``ops/ivf.exact_probe_mask``); pass
+        ``nprobe_semantics: buckets`` for the generous bucket budget."""
+        meta = self.artifact.metadata
+        nlist = int(meta.get("nlist", 0))
+        n_buckets = int(meta.get("n_buckets", nlist))
+        semantics = str(
+            self.params.get(
+                "nprobe_semantics", meta.get("nprobe_semantics", "lists")
+            )
+        )
+        bl = self.artifact.data.get("bucket_lists")
+        if (
+            semantics != "lists" or not nlist or n_buckets <= nlist
+            or bl is None
+        ):
+            return {}
+        raw = int(self.params.get("nprobe", meta.get("nprobe", 10)))
+        out = {
+            "bucket_lists": bl,
+            "nlist": nlist,
+            "nprobe_lists": max(1, min(raw, nlist)),
+        }
+        lc = self.artifact.data.get("list_centroids")
+        if lc is not None:  # scatter-free list-distance table
+            out["list_centroids"] = lc
+        return out
+
+    def _score_metric(self) -> str:
+        metric = self.artifact.metadata.get("metric", self.metric)
+        return "ip" if metric in ("ip", "cosine") else "l2"
+
+    def device_kernel(self, q: torch.Tensor, k: int):
+        """Device queries in, device ``(dists, ids)`` out; no host copy."""
+        art = self.artifact
+        meta = art.metadata
+        if meta.get("normalize_queries"):
+            q = dops.normalize(q)
+        metric = self._score_metric()
+        eff_k = min(k, meta["n_vectors"])
+        kind = art.kind
+        d = art.data
+        if kind == "flat":
+            dists, ids = dops.exact_search(
+                q, d["vectors"], eff_k, metric=metric,
+                db_sqnorms=d.get("sqnorms"), device=self.device,
+            )
+            row_ids = d.get("row_ids")
+            if row_ids is not None:  # mutable snapshot: stable-id mapping
+                ids = torch.where(ids >= 0, row_ids[ids.clamp(min=0)].long(), -1)
+        elif kind == "sq8":
+            dists, ids = sqops.sq_search(
+                q, d["codes"], d["vmin"], d["step"], d["code_sqnorms"], eff_k,
+                metric=metric,
+            )
+        elif kind == "ivf_flat":
+            dists, ids = ivfops.ivf_flat_search(
+                q, d["centroids"], d["slot_ids"], d["list_vecs"],
+                d["list_sqnorms"], eff_k, self._nprobe(), metric=metric,
+                full_vectors=d.get("full_vectors"), **self._probe_kwargs(),
+            )
+        else:  # ivf_sq8
+            dists, ids = ivfops.ivf_sq_search(
+                q, d["centroids"], d["slot_ids"], d["list_codes"],
+                d["list_sqnorms"], d["vmin"], d["step"], eff_k, self._nprobe(),
+                metric=metric, **self._probe_kwargs(),
+            )
+        return dists, ids
+
+    def device_batch_search(self, queries: np.ndarray, k: int):
+        """Dispatch without waiting: returns (dists_dev, ids_dev, n_rows)."""
+        if self.artifact is None:
+            raise RuntimeError("searcher not attached")
+        q = torch.as_tensor(
+            np.ascontiguousarray(queries, dtype=np.float32), device=self.device
+        )
+        dists, ids = self.device_kernel(q, k)
+        return dists, ids, q.shape[0]
+
+    def batch_search(
+        self, queries: np.ndarray, k: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        dists, ids, _ = self.device_batch_search(queries, k)
+        out_d = dists.cpu().numpy()
+        out_i = ids.cpu().numpy().astype(np.int64)
+        if out_d.shape[1] < k:
+            pad = k - out_d.shape[1]
+            out_d = np.pad(out_d, ((0, 0), (0, pad)), constant_values=np.inf)
+            out_i = np.pad(out_i, ((0, 0), (0, pad)), constant_values=-1)
+        return out_d, out_i
+
+    def estimated_ops_per_query(self, n_database: int) -> int:
+        if self.artifact is None:
+            return n_database
+        meta = self.artifact.metadata
+        if self.artifact.kind.startswith("ivf"):
+            return int(
+                meta.get("n_buckets", meta.get("nlist", 0))
+                + self._nprobe() * meta.get("max_list_len", 0)
+            )
+        return int(n_database)

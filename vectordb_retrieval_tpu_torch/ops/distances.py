@@ -45,6 +45,12 @@ def _check_metric(metric: str) -> None:
         raise ValueError(f"unknown metric {metric!r}; expected one of {METRICS}")
 
 
+def clamp_chunk(chunk: int, n: int, align: int = 512) -> int:
+    """Never let a streaming chunk exceed the (aligned) dataset size."""
+    aligned_n = -(-max(n, 1) // align) * align
+    return max(align, min(chunk, aligned_n))
+
+
 def _to_device(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
 

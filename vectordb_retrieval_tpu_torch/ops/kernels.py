@@ -1,19 +1,25 @@
 """Hand-written CUDA kernels of the port, their plain versions and wrappers.
 
-Current kernels:
-  * :func:`dist_blockmin` — fused distance + per-block minimum, f32 payloads
-    (exact-search stage 1). Replaces the TPU kernel
-    ``vectordb_retrieval_tpu/ops/pallas_kernels.py`` ``dist_blockmin_pallas``
-    in its f32 mode. CUDA C++ source: ``csrc/dist_blockmin.cu``.
+Kernels (each replaces one TPU kernel of
+``vectordb_retrieval_tpu/ops/pallas_kernels.py``):
+  * :func:`dist_blockmin` — fused distance + per-block minimum over f32,
+    bf16 or u8 payloads (exact-search stage 1; the IVF-Flat and IVF-SQ8
+    fused probed stream). Replaces ``dist_blockmin_pallas`` in all three
+    of its modes. CUDA C++ source: ``csrc/dist_blockmin.cu``.
+  * :func:`assign` — nearest-centroid (argmin, min) for k-means fitting and
+    IVF list assignment. Replaces ``assign_pallas``. CUDA C++ source:
+    ``csrc/assign.cu``.
 
 Each wrapper routes by the device of its tensors: a CUDA tensor goes to the
 kernel (or the wrapper raises), a CPU tensor goes to the plain PyTorch
 version beside it. Nothing falls back from one to the other.
 
-Kernels are compiled from ``csrc/`` with ``nvcc`` for ``sm_90a`` at first
-use, into ``_build/<hash of source and flags>/``, and loaded with
+Kernels are compiled from ``csrc/`` (each source includes the FFMA tile
+they share, ``csrc/ffma_tile.cuh``) with ``nvcc`` for ``sm_90a`` at first
+use, into ``_build/<hash of source, headers and flags>/``, and loaded with
 ``ctypes`` through a plain C interface. Every launch adds one to
-``LAUNCHES[name]``; nothing else touches the counts.
+``LAUNCHES[name]`` (one name per kernel mode); nothing else touches the
+counts.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -32,15 +38,23 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNEL_SOURCES = ("dist_blockmin",)
+KERNEL_SOURCES = ("dist_blockmin", "assign")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
-# launches per kernel, counted by the wrappers where they launch
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+# dist_blockmin's payload dtype -> (launch-count name, C entry point)
+_DBM_MODES = {
+    torch.float32: ("dist_blockmin", "vrt_dist_blockmin_f32"),
+    torch.bfloat16: ("dist_blockmin_bf16", "vrt_dist_blockmin_bf16"),
+    torch.uint8: ("dist_blockmin_u8", "vrt_dist_blockmin_u8"),
+}
+KERNELS = tuple(name for name, _ in _DBM_MODES.values()) + ("assign",)
+
+# launches per kernel mode, counted by the wrappers where they launch
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # compiler output (registers, spills, shared memory) of the builds this
 # process made; empty for libraries found already built
 BUILD_LOG: Dict[str, str] = {}
@@ -67,9 +81,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read())
+    # keyed by the source, every header of csrc/ and the flags
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, h.hexdigest()[:16], f"lib{name}.so")
 
@@ -77,14 +94,18 @@ def _lib_path(name: str) -> str:
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "dist_blockmin":
-        lib.vrt_dist_blockmin_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
-        lib.vrt_dist_blockmin_f32.restype = ci
+        for _, fn in _DBM_MODES.values():
+            getattr(lib, fn).argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+            getattr(lib, fn).restype = ci
+    elif name == "assign":
+        lib.vrt_assign_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.vrt_assign_f32.restype = ci
     lib.vrt_cuda_error_string.argtypes = [ci]
     lib.vrt_cuda_error_string.restype = ctypes.c_char_p
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> float:
-    """Compile (where not already built) and load the named kernels.
+    """Compile (where not already built) and load the named kernel sources.
 
     One ``nvcc`` process per source, all started together. Returns the
     wall-clock seconds spent.
@@ -129,13 +150,27 @@ def _lib(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def _check_launch(name: str, rc: int) -> None:
+def _check_launch(source: str, name: str, rc: int) -> None:
     if rc != 0:
-        msg = _LIBS[name].vrt_cuda_error_string(rc).decode()
+        msg = _LIBS[source].vrt_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
 
 
-# ---- K1: fused distance + per-block minimum (f32 payloads) -------------
+def _check_2d(fn: str, what: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    if t.dim() != 2:
+        raise ValueError(f"{fn}: {what} must be 2-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {what} must be contiguous")
+    if t.device != like.device:
+        raise ValueError(f"{fn}: {what} on {t.device}, expected {like.device}")
+
+
+def _check_device(fn: str, t: torch.Tensor) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn}: unsupported device {t.device}")
+
+
+# ---- K1: fused distance + per-block minimum ------------------------------
 
 
 def dist_blockmin_pad_rows(n: int, w: int) -> int:
@@ -155,6 +190,14 @@ def _default_chunk_rows(b: int) -> int:
     return max(4096, (1 << 26) // max(b, 1))
 
 
+def _kernel_queries(queries: torch.Tensor, payload: torch.Tensor) -> torch.Tensor:
+    """The queries the kernel reads: f32 for f32 payloads, else bf16
+    (rounded to nearest even from f32, as the TPU kernel casts them)."""
+    if payload.dtype == torch.float32:
+        return queries
+    return queries.to(torch.bfloat16).contiguous()
+
+
 def dist_blockmin_reference(
     queries: torch.Tensor,
     payload: torch.Tensor,
@@ -166,16 +209,18 @@ def dist_blockmin_reference(
 
     ``pen - 2 * (q @ payload.T)`` in f32, then the min over each ``w``
     consecutive rows, in row chunks of at most ``chunk_rows`` so the full
-    ``[B, S]`` score matrix is never held at once.
+    ``[B, S]`` score matrix is never held at once. bf16 and u8 payloads
+    are widened to f32 (exactly) and dotted with the bf16-rounded queries.
     """
     b, s = queries.shape[0], payload.shape[0]
     chunk = chunk_rows or _default_chunk_rows(b)
     chunk = max(w, (chunk // w) * w)
+    q = _kernel_queries(queries, payload).float()
     pen_flat = pen.reshape(-1)
     outs = []
     for c0 in range(0, s, chunk):
         c1 = min(c0 + chunk, s)
-        sc = pen_flat[c0:c1] - 2.0 * (queries @ payload[c0:c1].T)
+        sc = pen_flat[c0:c1] - 2.0 * (q @ payload[c0:c1].float().T)
         outs.append(sc.reshape(b, (c1 - c0) // w, w).amin(dim=-1))
     if not outs:
         return torch.empty((b, 0), dtype=torch.float32, device=payload.device)
@@ -185,45 +230,42 @@ def dist_blockmin_reference(
 def _check_dist_blockmin(
     queries: torch.Tensor, payload: torch.Tensor, pen: torch.Tensor, w: int
 ) -> None:
-    if payload.dtype in (torch.bfloat16, torch.uint8):
-        raise NotImplementedError(
-            f"dist_blockmin: {payload.dtype} payloads (the bf16/u8 modes) are "
-            "ported with the IVF slice, ROADMAP queue 1 item 4"
+    fn = "dist_blockmin"
+    if payload.dtype not in _DBM_MODES:
+        raise TypeError(
+            f"{fn}: payload must be float32, bfloat16 or uint8, got {payload.dtype}"
         )
+    q_ok = (torch.float32,) if payload.dtype == torch.float32 else (
+        torch.float32, torch.bfloat16)
+    if queries.dtype not in q_ok:
+        raise TypeError(
+            f"{fn}: queries for a {payload.dtype} payload must be one of "
+            f"{q_ok}, got {queries.dtype}"
+        )
+    if pen.dtype != torch.float32:
+        raise TypeError(f"{fn}: pen must be float32, got {pen.dtype}")
     for t, what in ((queries, "queries"), (payload, "payload"), (pen, "pen")):
-        if t.dtype != torch.float32:
-            raise TypeError(f"dist_blockmin: {what} must be float32, got {t.dtype}")
-        if t.dim() != 2:
-            raise ValueError(f"dist_blockmin: {what} must be 2-D, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"dist_blockmin: {what} must be contiguous")
-        if t.device != payload.device:
-            raise ValueError(
-                f"dist_blockmin: {what} on {t.device}, payload on {payload.device}"
-            )
+        _check_2d(fn, what, t, payload)
     if w < 1 or w > 128 or w & (w - 1):
-        raise ValueError(f"dist_blockmin: w={w} must be a power of two <= 128")
+        raise ValueError(f"{fn}: w={w} must be a power of two <= 128")
     s, d = payload.shape
     if queries.shape[1] != d:
-        raise ValueError(
-            f"dist_blockmin: queries have d={queries.shape[1]}, payload d={d}"
-        )
+        raise ValueError(f"{fn}: queries have d={queries.shape[1]}, payload d={d}")
     if s % w:
         raise ValueError(
-            f"dist_blockmin: S={s} must be a multiple of w={w} "
+            f"{fn}: S={s} must be a multiple of w={w} "
             "(pad with +inf-pen rows, dist_blockmin_pad_rows)"
         )
     if tuple(pen.shape) != (s // w, w):
         raise ValueError(
-            f"dist_blockmin: pen shape {tuple(pen.shape)} != (S/w, w) = {(s // w, w)}"
+            f"{fn}: pen shape {tuple(pen.shape)} != (S/w, w) = {(s // w, w)}"
         )
-    if payload.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"dist_blockmin: unsupported device {payload.device}")
+    _check_device(fn, payload)
 
 
 def dist_blockmin(
-    queries: torch.Tensor,  # [B, d] f32
-    payload: torch.Tensor,  # [S, d] f32, S % w == 0
+    queries: torch.Tensor,  # [B, d] f32 (bf16 also taken for bf16/u8 payloads)
+    payload: torch.Tensor,  # [S, d] f32 | bf16 | u8, S % w == 0
     pen: torch.Tensor,  # [S/w, w] f32 per-slot constant; +inf = dead slot
     w: int = 8,
     chunk_rows: Optional[int] = None,
@@ -231,15 +273,18 @@ def dist_blockmin(
     """Shifted per-block minima ``[B, S/w]``:
     ``out[q, g] = min_{j<w}(pen[g, j] - 2 * dot(payload[g*w+j], queries[q]))``.
 
-    Per-query constants (``||q||^2``) are omitted: top-k block selection
-    does not need them and the selected candidates are rescored exactly.
-    ``pen`` holds ``||x||^2`` for l2, 0 for ip/cosine and +inf for dead or
-    padding slots; a block whose slots are all dead yields +inf.
+    Per-query constants (``||q||^2``, SQ8's ``q.vmin``) are omitted: top-k
+    block selection does not need them and the selected candidates are
+    rescored exactly. ``pen`` holds ``||x||^2`` for l2, 0 for ip/cosine and
+    +inf for dead or padding slots; a block whose slots are all dead yields
+    +inf. The payload's dtype picks the mode: f32 (f32 queries), bf16 or
+    u8 (queries cast to bf16 here when given as f32).
 
-    CUDA tensors launch the kernel of ``csrc/dist_blockmin.cu`` (FP32 FFMA,
-    bound by FP32 throughput at B = 256; see the source note) on the current
-    stream. CPU tensors take :func:`dist_blockmin_reference`, with
-    ``chunk_rows`` bounding its score block.
+    CUDA tensors launch the kernel of ``csrc/dist_blockmin.cu`` (FP32 FFMA
+    in every mode; see the source note) on the current stream and count
+    under ``LAUNCHES['dist_blockmin' | 'dist_blockmin_bf16' |
+    'dist_blockmin_u8']``. CPU tensors take :func:`dist_blockmin_reference`,
+    with ``chunk_rows`` bounding its score block.
     """
     _check_dist_blockmin(queries, payload, pen, w)
     if payload.device.type == "cpu":
@@ -250,13 +295,96 @@ def dist_blockmin(
         return out
     if b > _MAX_GRID_Y * 128 or s >= 2**31:
         raise ValueError(f"dist_blockmin: B={b}, S={s} exceed the launch grid")
+    q = _kernel_queries(queries, payload)
+    count_as, entry = _DBM_MODES[payload.dtype]
     lib = _lib("dist_blockmin")
     with torch.cuda.device(payload.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vrt_dist_blockmin_f32(
-            queries.data_ptr(), payload.data_ptr(), pen.data_ptr(),
+        rc = getattr(lib, entry)(
+            q.data_ptr(), payload.data_ptr(), pen.data_ptr(),
             out.data_ptr(), b, s, payload.shape[1], w, stream,
         )
-    _check_launch("dist_blockmin", rc)
-    LAUNCHES["dist_blockmin"] += 1
+    _check_launch("dist_blockmin", count_as, rc)
+    LAUNCHES[count_as] += 1
     return out
+
+
+# ---- K3: nearest-centroid assignment -------------------------------------
+
+
+def _default_assign_chunk(k: int) -> int:
+    # the [chunk, K] distance block of the plain version stays near 256 MB
+    return max(1024, (1 << 26) // max(k, 1))
+
+
+def assign_reference(
+    points: torch.Tensor,
+    centroids: torch.Tensor,
+    chunk_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`assign` (same contract): per row
+    chunk, ``||p||^2 + ||c||^2 - 2 p.c`` then ``argmin`` (first minimum)
+    and ``min`` — the JAX package's ``_chunk_l2`` assignment."""
+    n = points.shape[0]
+    chunk = chunk_rows or _default_assign_chunk(centroids.shape[0])
+    cn = torch.sum(centroids * centroids, dim=-1)
+    ids, mins = [], []
+    for c0 in range(0, n, chunk):
+        pc = points[c0 : c0 + chunk]
+        pn = torch.sum(pc * pc, dim=-1)
+        dist = pn[:, None] + cn[None, :] - 2.0 * (pc @ centroids.T)
+        ids.append(torch.argmin(dist, dim=1))  # first minimum, as jnp.argmin
+        mins.append(torch.amin(dist, dim=1))
+    if not ids:
+        return (torch.empty((0,), dtype=torch.int64, device=points.device),
+                torch.empty((0,), dtype=torch.float32, device=points.device))
+    return torch.cat(ids), torch.cat(mins)
+
+
+def assign(
+    points: torch.Tensor,  # [N, d] f32
+    centroids: torch.Tensor,  # [K, d] f32
+    chunk_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest centroid per point: ``(ids int64 [N], min_dist f32 [N])``
+    under ``||p||^2 + ||c||^2 - 2 p.c``; equal distances resolve to the
+    lowest centroid id.
+
+    CUDA tensors launch the kernel of ``csrc/assign.cu`` (FP32 FFMA GEMM
+    with an argmin/min epilogue; the [N, K] matrix is never written) and
+    count under ``LAUNCHES['assign']``. CPU tensors take
+    :func:`assign_reference`, with ``chunk_rows`` bounding its block.
+    """
+    fn = "assign"
+    for t, what in ((points, "points"), (centroids, "centroids")):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {what} must be float32, got {t.dtype}")
+        _check_2d(fn, what, t, points)
+    if centroids.shape[1] != points.shape[1]:
+        raise ValueError(
+            f"{fn}: points have d={points.shape[1]}, centroids d={centroids.shape[1]}"
+        )
+    if centroids.shape[0] < 1:
+        raise ValueError(f"{fn}: need at least one centroid")
+    _check_device(fn, points)
+    if points.device.type == "cpu":
+        return assign_reference(points, centroids, chunk_rows)
+    n, d = points.shape
+    k = centroids.shape[0]
+    ids = torch.empty((n,), dtype=torch.int64, device=points.device)
+    mins = torch.empty((n,), dtype=torch.float32, device=points.device)
+    if n == 0:
+        return ids, mins
+    if n >= 2**31 or k >= 2**31:
+        raise ValueError(f"{fn}: N={n}, K={k} exceed the launch grid")
+    cn = torch.sum(centroids * centroids, dim=-1)
+    lib = _lib("assign")
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vrt_assign_f32(
+            points.data_ptr(), centroids.data_ptr(), cn.data_ptr(),
+            ids.data_ptr(), mins.data_ptr(), n, k, d, stream,
+        )
+    _check_launch("assign", "assign", rc)
+    LAUNCHES["assign"] += 1
+    return ids, mins
