@@ -12,8 +12,10 @@ on failure:
                    and shared memory per kernel
   3. kernels     - each kernel against its plain PyTorch version on the card:
                    dist_blockmin in its f32, bf16 and u8 modes (flagship,
-                   ragged and 10%-dead shapes) and assign (the IVF1024
+                   ragged and 10%-dead shapes), assign (the IVF1024
                    k-means sample and corpus, a ragged shape, a tie case)
+                   and slab_dots (the two graph rows' wave shapes, an f32
+                   shape, a ragged case with repeated and end ids)
   4. exact path  - the port's BenchmarkRunner (exact row: BruteForceIndexer +
                    LinearSearcher) on 100k x 384 random data, l2 and cosine;
                    ground truth, timed batched search, recall@20 == 1.0, the
@@ -28,7 +30,17 @@ on failure:
                    card against the host (64 queries searched with the plain
                    versions on the CPU), and a build_only -> retrieve_only
                    round trip of one row
-     In 4 and 5 every kernel launch of the main path is also held against
+  5b. graph path - the BenchmarkRunner's hnsw rows: configs/msmarco_surrogate
+                   .yaml on the msmarco_surrogate corpus (100k x 384, cosine,
+                   top-20, auto mode: must build block mode, recall@20 >=
+                   0.90), configs/sift1m.yaml's block-mode row added to the
+                   SIFT1M-shape configuration, and a node-mode row added to
+                   the MS MARCO-shape one; build time, index memory, recall
+                   and slab_dots launches per row (the block rows must launch
+                   it). The graph rows join the card-against-host check
+                   (ids >= 0.99) and the block-mode MS MARCO row the round
+                   trip
+     In 4, 5 and 5b every kernel launch of the main path is also held against
      its plain version on the very inputs it was launched with (the last
      launch of each kernel mode, shape and stage: ground truth, each build's
      k-means sample and corpus with its centroids, each timed search), after
@@ -37,8 +49,12 @@ on failure:
                    top-20, batches of 256) and at 1M x 128 (w = 32); each IVF
                    row's QPS and its per-batch device time by stage (coarse
                    probe, K1, probed selection, rescore, rest); the
-                   assignment at 1M x 1024 x 128; each kernel's time beside
-                   its plain version, one library call and the card's bound
+                   assignment at 1M x 1024 x 128; each graph row's QPS and
+                   per-batch device time by stage (block beam: entry scan
+                   and seed, per wave pop, slab_dots, merge, push; node
+                   beam: seed, per iteration, rescore); each kernel's time
+                   beside its plain version, one library call and the
+                   card's bound
   7. the kernels line, the nvidia-smi line, and last the result line.
 
 Imports nothing of JAX. Writes its YAML and the runner's outputs under
@@ -88,6 +104,14 @@ GT_REL_TOL = 1e-5
 # another order on each device).
 HOST_MIN_AGREE = 0.999
 HOST_REL_TOL = 1e-5
+# Graph rows: a beam pops the nearest frontier entries, so where two
+# entries tie to matmul rounding the card and the host may walk on through
+# different blocks; ids agree on >= 99 %, distances are compared on the
+# queries whose id sets agree.
+GRAPH_HOST_MIN_AGREE = 0.99
+# the MS MARCO surrogate's hnsw row must reach this recall@20 (the JAX
+# package recorded 0.9869 at the same parameters)
+GRAPH_MIN_RECALL = 0.90
 
 BATCH = 256
 TOPK = 20
@@ -197,6 +221,18 @@ K3_SHAPES = (
     (1_000_000, 1024, 128, False),
     (1030, 16, 16, False),
     (5000, 300, 40, True),
+)
+# (B, W, L, d, Nb, slab dtype): the MS MARCO surrogate row's wave (512
+# queries x 96 popped slabs of 128 x 384) and the SIFT-shape row's (256 x 62
+# slabs of 256 x 128), both bf16; an f32 shape; a ragged case (W = 5,
+# L = 100, d = 50) with ids 0 and Nb - 1 and repeated ids. Every graph
+# row's own launches are checked in phase 5b (check_launched).
+K2_SHAPES = (
+    (512, 96, 128, 384, 782, "bf16"),
+    (256, 62, 256, 128, 3907, "bf16"),
+    (256, 40, 128, 384, 782, "f32"),
+    (7, 5, 100, 50, 13, "bf16"),
+    (7, 5, 100, 50, 13, "f32"),
 )
 _MODE_NAME = {"f32": "dist_blockmin", "bf16": "dist_blockmin_bf16",
               "u8": "dist_blockmin_u8"}
@@ -309,6 +345,52 @@ def check_assign_on(p, c, where, dup=False) -> float:
     return err
 
 
+def check_slab_dots(q, lv, sel, where) -> float:
+    """One slab_dots launch against its plain version on the same inputs:
+    no NaN, max error <= 1e-5 x max|plain| (both sum f32 products of the
+    f32 query with the exactly widened stored values, in another order).
+    Emits the check and returns the max abs error."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    got = kernels.slab_dots(q, lv, sel)
+    want = kernels.slab_dots_reference(q, lv, sel)
+    torch.cuda.synchronize()
+    nan = bool(torch.isnan(got).any())
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = float(want.abs().max()) if got.numel() else 0.0
+    ok = not nan and err <= KERNEL_REL_TOL * scale
+    b, w = sel.shape
+    emit({"phase": "kernel_check", "kernel": "slab_dots", "at": where,
+          "shape": [b, w, lv.shape[1], lv.shape[2]], "n_blocks": lv.shape[0],
+          "slab_dtype": str(lv.dtype).split(".")[-1],
+          "distinct_blocks": int(torch.unique(sel).numel()),
+          "max_abs_err": err, "max_abs_plain": scale,
+          "tol": KERNEL_REL_TOL * scale, "nan": nan, "ok": ok})
+    if not ok:
+        raise AssertionError(f"slab_dots {where}: err {err}, nan {nan}")
+    return err
+
+
+def check_slab_dots_shape(b, w, length, d, nb, dtype, seed) -> float:
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((b, d), generator=g, device=DEV)
+    lv = torch.randn((nb, length, d), generator=g, device=DEV)
+    if dtype == "bf16":
+        lv = lv.to(torch.bfloat16)
+    sel = torch.randint(0, nb, (b, w), generator=g, device=DEV, dtype=torch.int32)
+    sel[0, 0], sel[-1, -1] = 0, nb - 1  # both ends of the id range
+    sel[:, 1] = sel[:, 0]  # a block popped twice in a row
+    sel[1] = sel[0]  # two queries popping the same blocks
+    err = check_slab_dots(q, lv, sel, f"synthetic/{dtype}")
+    del lv
+    torch.cuda.empty_cache()
+    return err
+
+
 @contextlib.contextmanager
 def capture_launch_inputs(store: dict, stage: list):
     """While active, keep in ``store`` the inputs of the last launch of
@@ -320,6 +402,7 @@ def capture_launch_inputs(store: dict, stage: list):
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     orig_dbm, orig_assign = kernels.dist_blockmin, kernels.assign
+    orig_slab = kernels.slab_dots
     modes = _dtype_modes()
 
     def dist_blockmin(queries, payload, pen, w=8, chunk_rows=None):
@@ -335,11 +418,20 @@ def capture_launch_inputs(store: dict, stage: list):
         store[key] = (points, centroids)
         return out
 
+    def slab_dots(queries, list_vecs, sel):
+        out = orig_slab(queries, list_vecs, sel)
+        key = (stage[0], "slab_dots", tuple(queries.shape), tuple(list_vecs.shape),
+               tuple(sel.shape))
+        store[key] = (queries, list_vecs, sel)
+        return out
+
     kernels.dist_blockmin, kernels.assign = dist_blockmin, assign
+    kernels.slab_dots = slab_dots
     try:
         yield store
     finally:
         kernels.dist_blockmin, kernels.assign = orig_dbm, orig_assign
+        kernels.slab_dots = orig_slab
 
 
 def check_launched(store: dict, prefix: str, worst: dict) -> None:
@@ -351,6 +443,8 @@ def check_launched(store: dict, prefix: str, worst: dict) -> None:
         where = f"{prefix}/{key[0]}"
         if key[1] == "assign":
             err = check_assign_on(*args, where)
+        elif key[1] == "slab_dots":
+            err = check_slab_dots(*args, where)
         else:
             q, x, pen, w = args
             err = check_dist_blockmin(q, x, pen, w, where)
@@ -361,7 +455,7 @@ def check_launched(store: dict, prefix: str, worst: dict) -> None:
 
 def phase_kernels() -> dict:
     """Worst max abs error per kernel name."""
-    worst = {name: 0.0 for name in (*_MODE_NAME.values(), "assign")}
+    worst = {name: 0.0 for name in (*_MODE_NAME.values(), "assign", "slab_dots")}
     for i, (b, n, d, w, dead) in enumerate(K1_SHAPES):
         for pen_kind in ("l2", "zero"):
             q, x, pen = _k1_inputs(b, n, d, w, dead, pen_kind, SEED + i)
@@ -375,6 +469,8 @@ def phase_kernels() -> dict:
                 worst[_MODE_NAME[mode]] = max(worst[_MODE_NAME[mode]], err)
     for i, (n, k, d, dup) in enumerate(K3_SHAPES):
         worst["assign"] = max(worst["assign"], check_assign(n, k, d, dup, SEED + i))
+    for i, shape in enumerate(K2_SHAPES):
+        worst["slab_dots"] = max(worst["slab_dots"], check_slab_dots_shape(*shape, SEED + i))
     return worst
 
 
@@ -522,38 +618,64 @@ def phase_main_path(card: str, worst: dict) -> int:
     return total
 
 
-# ---- 5. IVF path -------------------------------------------------------
+# ---- 5. IVF path and 5b. graph path ----------------------------------------
 
-# Two configurations of the repo's own configs, with random data at the
-# published shapes. Rows: (indexer, searcher nprobe).
+# Configurations of the repo's own configs. The first two use random data at
+# the published shapes; the third is configs/msmarco_surrogate.yaml's hnsw
+# row on the msmarco_surrogate corpus. Rows: (indexer, searcher nprobe).
 IVF_CONFIGS = (
     {
-        "name": "sift1m_shape", "source": "configs/sift1m.yaml ivf_flat, ivf_sq8",
+        "name": "sift1m_shape",
+        "source": "configs/sift1m.yaml ivf_flat, ivf_sq8, hnsw (graph_l2, mode block)",
         "metric": "l2", "n": 1_000_000, "d": 128, "topk": 100,
         "rows": {
             "ivf_flat": ({"type": "FactoryIndexer", "index_key": "IVF1024,Flat",
                           "nprobe": 32}, 32),
             "ivf_sq8": ({"type": "FactoryIndexer", "index_key": "IVF1024,SQ8",
                          "nprobe": 64}, 64),
+            "hnsw": ({"type": "GraphIndexer", "M": 16, "efConstruction": 200,
+                      "efSearch": 64, "mode": "block"}, 32),
         },
     },
     {
         "name": "msmarco_shape",
-        "source": "configs/benchmark_config.yaml msmarco ivf_flat, ivf_sq8",
+        "source": ("configs/benchmark_config.yaml msmarco ivf_flat, ivf_sq8; "
+                   "hnsw_node: GraphIndexer M 16 efSearch 100 in node mode"),
         "metric": "cosine", "n": 100_000, "d": 384, "topk": 20,
         "rows": {
             "ivf_flat": ({"type": "IVFIndexer", "index_type": "IVF100,Flat",
                           "nprobe": 10}, 32),
             "ivf_sq8": ({"type": "FactoryIndexer", "index_key": "IVF256,SQ8",
                          "nprobe": 48}, 48),
+            "hnsw_node": ({"type": "GraphIndexer", "M": 16, "efConstruction": 200,
+                           "efSearch": 100, "mode": "node"}, 10),
         },
     },
 )
+SURROGATE_CONFIG = {
+    "name": "msmarco_surrogate",
+    "source": "configs/msmarco_surrogate.yaml hnsw (graph_cosine, ann_cosine)",
+    "dataset": "msmarco_surrogate", "metric": "cosine", "n": 100_000, "d": 384,
+    "topk": 20, "queries": 512, "batch": 512, "gt_k": 200, "repeat": 16,
+    "rows": {
+        "hnsw": ({"type": "GraphIndexer", "M": 16, "efConstruction": 200,
+                  "efSearch": 100}, 10),
+    },
+}
+RUNNER_CONFIGS = IVF_CONFIGS + (SURROGATE_CONFIG,)
 IVF_QUERIES = 2048
 HOST_QUERIES = 64
 
 
 def _ivf_dataset(cfg) -> dict:
+    if cfg.get("dataset") == "msmarco_surrogate":
+        return {
+            "name": "msmarco_surrogate", "metric": cfg["metric"],
+            "dataset_options": {
+                "train_limit": cfg["n"], "test_size": cfg["queries"],
+                "ground_truth_k": cfg["gt_k"], "use_cache": False,
+            },
+        }
     return {
         "name": "random", "metric": cfg["metric"],
         "dataset_options": {
@@ -576,7 +698,8 @@ def _ivf_runner_config(cfg) -> dict:
     return {
         "indexers": indexers, "searchers": searchers, "algorithms": algorithms,
         "datasets": [_ivf_dataset(cfg)],
-        "topk": cfg["topk"], "n_queries": IVF_QUERIES, "query_batch_size": BATCH,
+        "topk": cfg["topk"], "n_queries": cfg.get("queries", IVF_QUERIES),
+        "query_batch_size": cfg.get("batch", BATCH), "repeat": cfg.get("repeat", 1),
         "output_dir": os.path.join(OUT_DIR, "runs"),
         "data_dir": os.path.join(OUT_DIR, "data"),
         "output_prefix": cfg["name"], "seed": 42,
@@ -587,8 +710,15 @@ def _row_mode(algo) -> str:
     return "dist_blockmin_bf16" if algo.artifact.kind == "ivf_flat" else "dist_blockmin_u8"
 
 
-def phase_ivf_main_path(card: str, cfg, worst: dict) -> dict:
-    """Drive the runner over one configuration's IVF rows with the launch
+def _row_kernel(algo):
+    """The kernel a row's timed search must launch (None: a node beam)."""
+    if algo.artifact.kind != "graph":
+        return _row_mode(algo)
+    return "slab_dots" if algo.artifact.metadata.get("mode") == "block" else None
+
+
+def phase_runner_path(card: str, cfg, worst: dict) -> dict:
+    """Drive the runner over one configuration's rows with the launch
     counts set to 0 just before and read just after; then hold every kernel
     launch against its plain version on its own inputs; keep each row's
     algorithm (artifact, searcher) and queries for the later phases."""
@@ -650,7 +780,8 @@ def phase_ivf_main_path(card: str, cfg, worst: dict) -> dict:
         experiment.ExperimentRunner._timed_search = orig_search
     check_launched(launched, cfg["name"], worst)
 
-    ds = results["random"]
+    ds_name = _ivf_dataset(cfg)["name"]
+    ds = results[ds_name]
     if "error" in ds:
         raise AssertionError(f"{cfg['name']}: dataset error {ds['error']}")
     if launches["dist_blockmin"] < 1:
@@ -664,30 +795,58 @@ def phase_ivf_main_path(card: str, cfg, worst: dict) -> dict:
         if "error" in res:
             raise AssertionError(f"{cfg['name']}/{row}: row error {res['error']}")
         algo = runner.algorithms[row]
-        mode = _row_mode(algo)
+        kernel = _row_kernel(algo)
         b, s = builds.get(row, {}), searches.get(row, {})
         if b.get("assign", 0) < 1:
             raise AssertionError(f"{cfg['name']}/{row}: the build did not launch assign")
-        if s.get(mode, 0) < 1:
-            raise AssertionError(f"{cfg['name']}/{row}: the timed search did not launch {mode}")
+        if kernel is not None and s.get(kernel, 0) < 1:
+            raise AssertionError(f"{cfg['name']}/{row}: the timed search did not launch {kernel}")
         recall = res.get(f"recall@{topk}")
         if recall is None or not 0.0 <= recall <= 1.0:
             raise AssertionError(f"{cfg['name']}/{row}: recall@{topk} = {recall}")
         meta = algo.artifact.metadata
-        emit({
-            "phase": "ivf_main_path", "config": cfg["name"], "source": cfg["source"],
-            "row": row, "index_key": meta["index_key"], "nprobe": nprobe,
+        line = {
+            "config": cfg["name"], "source": cfg["source"], "row": row,
             "shape": [cfg["n"], cfg["d"]], "metric": cfg["metric"], "card": card,
             f"recall@{topk}": recall, "qps": res["qps"],
             "build_time_s": res["build_time_s"],
             "index_memory_mb": res["index_memory_mb"],
-            "n_buckets": meta["n_buckets"], "bucket_len": meta["max_list_len"],
-            "slots": meta["n_buckets"] * meta["max_list_len"],
-            "pad_ratio": meta["pad_ratio"],
             "launches_build": b, "launches_timed_search": s,
-        })
-        rows[row] = {"algo": algo, "queries": queries, "k": min(topk, cfg["n"])}
-    emit({"phase": "ivf_main_path_run", "config": cfg["name"], "card": card,
+        }
+        if algo.artifact.kind == "graph":
+            line.update({
+                "phase": "graph_main_path", "mode": meta.get("mode", "node"),
+                "M": meta["M"], "degree": meta["degree"],
+                "efSearch": meta["efSearch"],
+                "selfcheck_recall": meta.get("selfcheck_recall"),
+            })
+            if meta.get("mode") == "block":
+                line.update({
+                    "n_blocks": meta["n_blocks"], "block_len": meta["block_len"],
+                    "n_entries": meta["n_entries"], "slab_dtype": meta["slab_dtype"],
+                })
+            else:
+                line["nbr_table"] = meta["nbr_table"]
+            line["slab_dots_launches"] = b.get("slab_dots", 0) + s.get("slab_dots", 0)
+        else:
+            line.update({
+                "phase": "ivf_main_path", "index_key": meta["index_key"],
+                "nprobe": nprobe, "n_buckets": meta["n_buckets"],
+                "bucket_len": meta["max_list_len"],
+                "slots": meta["n_buckets"] * meta["max_list_len"],
+                "pad_ratio": meta["pad_ratio"],
+            })
+        emit(line)
+        rows[row] = {"algo": algo, "queries": queries, "k": min(topk, cfg["n"]),
+                     "batch": cfg.get("batch", BATCH)}
+    if cfg is SURROGATE_CONFIG:
+        meta = rows["hnsw"]["algo"].artifact.metadata
+        recall = ds["hnsw"][f"recall@{topk}"]
+        if meta.get("mode") != "block" or recall < GRAPH_MIN_RECALL:
+            raise AssertionError(
+                f"msmarco_surrogate/hnsw: mode {meta.get('mode')}, self-check "
+                f"{meta.get('selfcheck_recall')}, recall@{topk} {recall}")
+    emit({"phase": "main_path_run", "config": cfg["name"], "card": card,
           "runner_seconds": seconds, "launches": launches})
     return {"name": cfg["name"], "launches": launches, "rows": rows}
 
@@ -765,13 +924,19 @@ def phase_card_vs_host(card: str, paths) -> None:
             hd, hi = host.batch_search(q, k)
             host_s = time.perf_counter() - t0
             cd, ci = algo.searcher.batch_search(q, k)
+            same = [set(a) == set(b) for a, b in zip(ci, hi)]
             agree = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ci, hi)]))
+            min_agree = GRAPH_HOST_MIN_AGREE if art.kind == "graph" else HOST_MIN_AGREE
+            # distances on the queries whose id sets agree (all of them for
+            # the IVF rows, which must agree on >= 99.9 %)
+            rows_ok = np.asarray(same) if art.kind == "graph" else np.ones(len(q), bool)
             scale = float(np.abs(hd).max())
-            err = float(np.abs(np.sort(cd, 1) - np.sort(hd, 1)).max())
-            ok = agree >= HOST_MIN_AGREE and err <= HOST_REL_TOL * scale
+            err = float(np.abs(np.sort(cd, 1) - np.sort(hd, 1))[rows_ok].max()) if rows_ok.any() else 0.0
+            ok = agree >= min_agree and err <= HOST_REL_TOL * scale
             emit({"phase": "card_vs_host", "config": path["name"], "row": row,
                   "queries": len(q), "k": k, "id_agreement": agree,
-                  "min_agreement": HOST_MIN_AGREE, "max_abs_dist_err": err,
+                  "queries_with_equal_ids": int(np.sum(same)),
+                  "min_agreement": min_agree, "max_abs_dist_err": err,
                   "tol": HOST_REL_TOL * scale, "host_seconds": host_s,
                   "card": card, "ok": ok})
             if not ok:
@@ -779,26 +944,27 @@ def phase_card_vs_host(card: str, paths) -> None:
                     f"card vs host {path['name']}/{row}: agreement {agree}, err {err}")
 
 
-def phase_persistence_round_trip(card: str) -> None:
-    """build_only then retrieve_only of the MS MARCO-shape IVF-SQ8 row on
-    the card: the loaded index returns the built index's ids exactly."""
+def phase_persistence_round_trip(card: str, cfg, row: str) -> None:
+    """build_only then retrieve_only of one row on the card: the loaded
+    index returns the built index's ids exactly."""
     import numpy as np
     import torch
 
     from vectordb_retrieval_tpu_torch.bench import experiment
     from vectordb_retrieval_tpu_torch.bench.config import ExperimentConfig
 
-    cfg = IVF_CONFIGS[1]
-    indexer, nprobe = cfg["rows"]["ivf_sq8"]
+    indexer, nprobe = cfg["rows"][row]
     ds = _ivf_dataset(cfg)
     art_dir = os.path.join(OUT_DIR, "artifacts")
+    batch = cfg.get("batch", BATCH)
 
     def config(mode):
         return ExperimentConfig(
-            dataset="random", data_dir=os.path.join(OUT_DIR, "data"),
+            dataset=ds["name"], data_dir=os.path.join(OUT_DIR, "data"),
             dataset_options=ds["dataset_options"], metric=cfg["metric"],
-            n_queries=IVF_QUERIES, topk=cfg["topk"], query_batch_size=BATCH,
-            algorithms={"ivf_sq8": {
+            n_queries=cfg.get("queries", IVF_QUERIES), topk=cfg["topk"],
+            query_batch_size=batch,
+            algorithms={row: {
                 "indexer": dict(indexer), "metric": cfg["metric"],
                 "searcher": {"type": "ANNSearcher", "nprobe": nprobe},
                 "persistence": {"enabled": True, "mode": mode,
@@ -816,31 +982,34 @@ def phase_persistence_round_trip(card: str) -> None:
 
     built = experiment.ExperimentRunner(config("build_only"),
                                         output_dir=os.path.join(OUT_DIR, "rt_build"))
-    res_b = built.run()["ivf_sq8"]
+    res_b = built.run()[row]
     if res_b.get("status") != "build_only":
         raise AssertionError(f"build_only row: {res_b}")
     experiment.ExperimentRunner._timed_search = kept_search
     try:
         loaded = experiment.ExperimentRunner(
             config("retrieve_only"), output_dir=os.path.join(OUT_DIR, "rt_load"))
-        res_l = loaded.run()["ivf_sq8"]
+        res_l = loaded.run()[row]
     finally:
         experiment.ExperimentRunner._timed_search = orig_search
     if "error" in res_l or res_l.get("index_source") != "loaded" or len(seen) != 1:
         raise AssertionError(f"retrieve_only row: {res_l}")
-    algo = built.algorithms["ivf_sq8"]
+    algo = built.algorithms[row]
     queries, _ = loaded._select_query_subset()
     q = torch.as_tensor(queries, device=DEV)
     k = cfg["topk"]
-    direct = torch.cat([algo.device_kernel(q[s : s + BATCH], k)[1]
-                        for s in range(0, len(queries), BATCH)]).cpu().numpy()
+    direct = torch.cat([algo.device_kernel(q[s : s + batch], k)[1]
+                        for s in range(0, len(queries), batch)]).cpu().numpy()
     same = bool(np.array_equal(direct, seen[0][:, :k]))
-    emit({"phase": "persistence_round_trip", "config": cfg["name"], "row": "ivf_sq8",
+    emit({"phase": "persistence_round_trip", "config": cfg["name"], "row": row,
+          "kind": algo.artifact.kind, "mode": algo.artifact.metadata.get("mode"),
           "persist_dir": res_b["persist_dir"], "index_source": res_l["index_source"],
           "index_load_time_s": res_l["index_load_time_s"],
           f"recall@{k}": res_l[f"recall@{k}"], "ids_identical": same, "card": card})
     if not same:
-        raise AssertionError("retrieve_only ids differ from the built index's")
+        raise AssertionError(f"{cfg['name']}/{row}: retrieve_only ids differ from the built index's")
+    del built, loaded, algo
+    torch.cuda.empty_cache()
 
 
 # ---- 6. throughput -----------------------------------------------------
@@ -993,6 +1162,152 @@ def phase_ivf_throughput(card: str, path_name: str, row: str, info) -> dict:
     return out
 
 
+def _slab_dots_numbers(q, lv, sel) -> dict:
+    """slab_dots on one wave's own inputs: the kernel, its plain version,
+    the library product and the gather it needs, and the card's bound."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    b, w = sel.shape
+    _, length, d = lv.shape
+    ms = time_ms(lambda: kernels.slab_dots(q, lv, sel), prime=True)
+    plain_ms = time_ms(lambda: kernels.slab_dots_reference(q, lv, sel), reps=3, warmup=1)
+    idx = sel.long()
+    # the library yardstick: one FP32 batched product of the gathered slabs
+    # (widened to f32 outside the clock) with the queries; the gather timed
+    # on its own
+    gather_ms = time_ms(lambda: lv[idx].float(), reps=5, warmup=1)
+    gathered = lv[idx].float().reshape(b, w * length, d)
+    library_ms = time_ms(lambda: torch.bmm(gathered, q[:, :, None]), reps=5, warmup=1)
+    del gathered
+    torch.cuda.empty_cache()
+    distinct = int(torch.unique(sel).numel())
+    esize = lv.element_size()
+    flops = 2.0 * b * w * length * d
+    nbytes = (distinct * length * d * esize + 4.0 * b * d + 4.0 * b * w
+              + 4.0 * b * w * length)
+    peak = BF16_PEAK_FLOPS if lv.dtype == torch.bfloat16 else FP32_PEAK_FLOPS
+    flop_ms = flops / peak * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    pair_bytes = float(b * w * length * d * esize)
+    return {
+        "slab_dots_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "gather_ms": gather_ms, "bound_ms": max(flop_ms, byte_ms),
+        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "flops": flops, "bytes": nbytes, "distinct_blocks": distinct,
+        "per_pair_bytes": pair_bytes,
+        "per_pair_bytes_ms": pair_bytes / HBM_BYTES_PER_S * 1e3,
+        "shape": [b, w, length, d],
+    }
+
+
+def phase_graph_throughput(card: str, path_name: str, row: str, info) -> dict:
+    """One graph row: QPS over its queries (the clock stops with the ids on
+    the host), then one batch's device time by stage, each stage timed on
+    the inputs the search gives it (primed events), and slab_dots on every
+    wave's own inputs beside its plain version, the library product and the
+    card's bound."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.models import graph as gm
+    from vectordb_retrieval_tpu_torch.ops import distances as dops
+    from vectordb_retrieval_tpu_torch.ops import graph as gops
+
+    algo = info["algo"]
+    searcher, art = algo.searcher, algo.artifact
+    meta, data = art.metadata, art.data
+    bsz, k = info["batch"], min(info["k"], meta["n_vectors"])
+    qs = torch.as_tensor(info["queries"], device=DEV)
+    batches = qs.shape[0] // bsz
+    passes = max(1, -(-8 // batches))  # at least 8 batches on the clock
+    searcher.device_kernel(qs[:bsz], k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        ids = [searcher.device_kernel(qs[i * bsz : (i + 1) * bsz], k)[1]
+               for i in range(batches)]
+        torch.cuda.synchronize()
+        ids_host = torch.cat(ids).cpu().numpy()
+    elapsed = (time.perf_counter() - t0) / passes
+    if ids_host.shape != (batches * bsz, k) or ids_host.max() >= meta["n_vectors"]:
+        raise AssertionError(f"{path_name}/{row}: ids malformed {ids_host.shape}")
+
+    q_raw = qs[:bsz]
+    q = dops.normalize(q_raw) if meta.get("normalize_queries") else q_raw
+    metric = searcher._score_metric()
+    ef = int(searcher.params.get("efSearch", meta.get("efSearch", 100)))
+    out = {"phase": "graph_throughput", "config": path_name, "row": row,
+           "mode": meta.get("mode", "node"), "card": card,
+           "qps": batches * bsz / elapsed, "seconds": elapsed, "batches": batches,
+           "passes": passes, "batch": bsz, "ms_per_batch": elapsed / batches * 1e3}
+    stage_sum = 0.0
+    if meta.get("mode") == "block":
+        efb, expand, iters = gm.block_geometry(
+            int(meta["n_blocks"]), ef, k, block_len=int(meta["block_len"]))
+        beam = gops.BlockBeam(
+            q, data["entries"], data["entry_block"], data["slot_ids"],
+            data["list_vecs"], data["list_sqnorms"], data["entry_adj"],
+            data.get("list_mu"), k=k, efb=efb, expand=expand, iters=iters,
+            metric=metric, dedup=float(meta.get("spill", 0.0)) > 0.0)
+        seed_ms = time_ms(beam.seed, prime=True)
+        stage_sum += seed_ms
+        st = beam.seed()
+        waves = []
+        for t in range(iters):
+            pop_ms = time_ms(lambda: beam.pop(st, t), prime=True)
+            st, p = beam.pop(st, t)
+            k2 = _slab_dots_numbers(q, data["list_vecs"], p.safe_blk)
+            dots = beam.score(p)
+            merge_ms = time_ms(lambda: beam.merge(st, p, dots), prime=True)
+            st = beam.merge(st, p, dots)
+            push_ms = 0.0
+            if t < iters - 1:
+                push_ms = time_ms(lambda: beam.push(st, p), prime=True)
+                st = beam.push(st, p)
+            stage_sum += pop_ms + k2["slab_dots_ms"] + merge_ms + push_ms
+            waves.append(dict(k2, wave=t, pop_ms=pop_ms, merge_ms=merge_ms,
+                              push_ms=push_ms))
+        result_ms = time_ms(lambda: beam.result(st), prime=True)
+        stage_sum += result_ms
+        stage_ids = beam.result(st)[1]
+        out.update({"efb": efb, "expand": expand, "iters": iters,
+                    "seed_ms": seed_ms, "waves": waves, "result_ms": result_ms})
+    else:
+        n = int(meta["n_vectors"])
+        degree = int(meta.get("degree", data["adjacency"].shape[1]))
+        ef_n, expand, keep, iters = gm.beam_geometry(n, degree, ef, k)
+        nbr_vecs = data.get("nbr_vecs")
+        beam = gops.NodeBeam(
+            q, data["vectors"], data["adjacency"], data["entry_ids"], k, ef=ef_n,
+            expand=expand, iters=iters, metric=metric, sqnorms=data.get("sqnorms"),
+            cand_keep=keep, nbr_vecs=nbr_vecs, nbr_sqn=data.get("nbr_sqn"),
+            rescore=nbr_vecs is not None, nbr_vmin=data.get("nbr_vmin"),
+            nbr_step=data.get("nbr_step"))
+        seed_ms = time_ms(beam.seed, prime=True)
+        st = beam.seed()
+        step_ms = []
+        for _ in range(iters):
+            step_ms.append(time_ms(lambda: beam.step(st), prime=True))
+            st = beam.step(st)
+        result_ms = time_ms(lambda: beam.result(st), prime=True)
+        stage_sum = seed_ms + sum(step_ms) + result_ms
+        stage_ids = beam.result(st)[1]
+        out.update({"ef": ef_n, "expand": expand, "keep": keep, "iters": iters,
+                    "degree": degree, "seed_ms": seed_ms, "step_ms": step_ms,
+                    "result_ms": result_ms})
+    batch_ms = time_ms(lambda: searcher.device_kernel(q_raw, k), prime=True)
+    batch_unprimed_ms = time_ms(lambda: searcher.device_kernel(q_raw, k))
+    if not torch.equal(stage_ids, searcher.device_kernel(q_raw, k)[1]):
+        raise AssertionError(f"{path_name}/{row}: the stage split differs from the search")
+    out.update({"batch_device_ms": batch_ms, "batch_events_unprimed_ms": batch_unprimed_ms,
+                "rest_ms": batch_ms - stage_sum})
+    emit(out)
+    del qs
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_assign_throughput(card: str, n=1_000_000, k=1024, d=128) -> dict:
     """The IVF1024 corpus assignment at the SIFT1M shape: kernel, plain
     version, one FP32 library product (TF32 off) and the card's bound."""
@@ -1038,12 +1353,13 @@ def main() -> int:
     worst = phase_kernels()
     launches = {name: 0 for name in worst}
     launches["dist_blockmin"] += phase_main_path(card, worst)
-    paths = [phase_ivf_main_path(card, cfg, worst) for cfg in IVF_CONFIGS]
+    paths = [phase_runner_path(card, cfg, worst) for cfg in RUNNER_CONFIGS]
     for path in paths:
         for name, n in path["launches"].items():
             launches[name] += n
     phase_card_vs_host(card, paths)
-    phase_persistence_round_trip(card)
+    phase_persistence_round_trip(card, IVF_CONFIGS[1], "ivf_sq8")
+    phase_persistence_round_trip(card, SURROGATE_CONFIG, "hnsw")
     flagship = phase_throughput(card, 100_000, 384, 96)
     phase_throughput(card, 1_000_000, 128, 96)
     sift = paths[0]["rows"]
@@ -1051,8 +1367,14 @@ def main() -> int:
         "dist_blockmin_bf16": phase_ivf_throughput(card, paths[0]["name"], "ivf_flat", sift["ivf_flat"]),
         "dist_blockmin_u8": phase_ivf_throughput(card, paths[0]["name"], "ivf_sq8", sift["ivf_sq8"]),
     }
-    for row, info in paths[1]["rows"].items():
-        phase_ivf_throughput(card, paths[1]["name"], row, info)
+    for row in ("ivf_flat", "ivf_sq8"):
+        phase_ivf_throughput(card, paths[1]["name"], row, paths[1]["rows"][row])
+    graph = {
+        (path["name"], row): phase_graph_throughput(card, path["name"], row, info)
+        for path in paths for row, info in path["rows"].items()
+        if info["algo"].artifact.kind == "graph"
+    }
+    k2 = graph[(SURROGATE_CONFIG["name"], "hnsw")]["waves"][0]
     k3 = phase_assign_throughput(card)
 
     src = "vectordb_retrieval_tpu_torch/csrc/"
@@ -1081,6 +1403,15 @@ def main() -> int:
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
         "shape": k3["shape"],
+    })
+    entries.append({
+        "name": "slab_dots", "route": "cuda", "source": src + "slab_dots.cu",
+        "replaces": f"{tpu}:653", "also_replaces": f"{tpu}:460",
+        "launches": launches["slab_dots"], "max_abs_err": worst["slab_dots"],
+        "ms": k2["slab_dots_ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"], "gather_ms": k2["gather_ms"],
+        "shape": k2["shape"],
     })
     for e in entries:
         if e["launches"] < 1:

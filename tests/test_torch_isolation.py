@@ -139,6 +139,19 @@ def _entry_point(name, tmp_path):
         from vectordb_retrieval_tpu_torch.models.persist import load_artifact
 
         load_artifact(str(tmp_path))
+    elif name == "GraphIndexer":
+        from vectordb_retrieval_tpu_torch.models.graph import GraphIndexer
+
+        GraphIndexer()
+    elif name == "HNSW":
+        from vectordb_retrieval_tpu_torch.models import get_algorithm_instance
+
+        get_algorithm_instance("hnsw", 4)
+    elif name == "msmarco_surrogate":
+        from vectordb_retrieval_tpu_torch.data.datasets import Dataset
+
+        Dataset("msmarco_surrogate", str(tmp_path),
+                {"train_limit": 32, "test_size": 2, "ground_truth_k": 1}).load()
     elif name == "BenchmarkRunner":
         from vectordb_retrieval_tpu_torch.bench.runner import BenchmarkRunner
 
@@ -151,7 +164,8 @@ def _entry_point(name, tmp_path):
     "name",
     ["exact_search", "compute_ground_truth", "BruteForceIndexer", "LinearSearcher",
      "ExactSearch", "artifact_from_numpy", "ExperimentRunner", "BenchmarkRunner",
-     "FactoryIndexer", "ANNSearcher", "ApproximateSearch", "load_artifact"],
+     "FactoryIndexer", "ANNSearcher", "ApproximateSearch", "load_artifact",
+     "GraphIndexer", "HNSW", "msmarco_surrogate"],
 )
 def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
     if torch.cuda.is_available():

@@ -1,5 +1,6 @@
 """The port's kernels against the JAX Pallas kernels: dist_blockmin in its
-f32, bf16 and u8 modes, and the k-means assignment.
+f32, bf16 and u8 modes, the k-means assignment, and the graph beam's slab
+dot products.
 
 On CPU tensors the port's wrappers run their plain PyTorch versions; the
 JAX kernels run in interpret mode, as their own tests run them.
@@ -8,7 +9,10 @@ bound for its 3-pass bf16 HIGH split (the port computes in full f32);
 bf16/u8 modes 1e-5 x max|ref| (both sides form exact bf16 products and
 differ only in the order of their f32 sums); assignment: agreement
 >= 0.999 and minimum distances within 1e-4 relative (the same expansion,
-matrix products summed in another order).
+matrix products summed in another order); slab dot products: 1e-5 x
+max|ref| on f32 slabs (f32 sums in another order) and 1e-4 x (|ref| + 1) on
+bf16 slabs (the JAX kernel's split query is the f32 query to ~2^-16; its
+own test allows 1e-3).
 """
 
 import numpy as np
@@ -23,6 +27,8 @@ from vectordb_retrieval_tpu.ops.pallas_kernels import (
     dist_blockmin_pad_rows as jax_pad_rows,
     dist_blockmin_pallas,
     kmeans_assign_fused,
+    slab_dots_manual,
+    slab_dots_pallas,
 )
 from vectordb_retrieval_tpu_torch.ops import kernels
 
@@ -190,7 +196,8 @@ def test_assign_launch_count_untouched_on_cpu(rng):
     kernels.assign(torch.from_numpy(x), torch.from_numpy(c))
     assert kernels.LAUNCHES == before
     assert set(kernels.LAUNCHES) == {
-        "dist_blockmin", "dist_blockmin_bf16", "dist_blockmin_u8", "assign"}
+        "dist_blockmin", "dist_blockmin_bf16", "dist_blockmin_u8", "assign",
+        "slab_dots"}
 
 
 @pytest.mark.parametrize("kind", ["f64", "int_points", "dim", "noncontig", "empty"])
@@ -288,3 +295,101 @@ def test_build_key_follows_the_shared_header(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     for name in kernels.KERNEL_SOURCES:
         assert kernels._lib_path(name) != before[name]
+
+
+# ---- K2: slab dot products ------------------------------------------------
+
+# (B, W, Nb, L, d): the JAX tests' shapes (W = 4 and the W = 5 padding
+# case), and L not a multiple of 8 at a narrow d
+SLAB_SHAPES = [(16, 4, 12, 8, 128), (8, 5, 7, 8, 128), (6, 5, 9, 12, 40)]
+
+
+def _slab_case(rng, b, w, nb, length, d, repeat):
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    lv = rng.standard_normal((nb, length, d)).astype(np.float32)
+    sel = rng.integers(0, nb, (b, w)).astype(np.int32)
+    sel[0, 0], sel[-1, -1] = 0, nb - 1  # both ends of the id range
+    if repeat:  # the same block popped twice in a row, and by two queries
+        sel[:, 1] = sel[:, 0]
+        sel[1] = sel[0]
+    return q, lv, sel
+
+
+@pytest.mark.parametrize("repeat", [False, True])
+@pytest.mark.parametrize("slab", ["f32", "bf16"])
+@pytest.mark.parametrize("variant", ["pallas", "manual"])
+@pytest.mark.parametrize("b,w,nb,length,d", SLAB_SHAPES)
+def test_slab_dots_matches_pallas(rng, b, w, nb, length, d, variant, slab, repeat):
+    q, lv, sel = _slab_case(rng, b, w, nb, length, d, repeat)
+    jlv = jnp.asarray(lv) if slab == "f32" else jnp.asarray(lv).astype(jnp.bfloat16)
+    if variant == "pallas":
+        want = slab_dots_pallas(jnp.asarray(q), jlv, jnp.asarray(sel), interpret=True)
+    else:
+        want = slab_dots_manual(jnp.asarray(q), jlv, jnp.asarray(sel), interpret=True, depth=8)
+    want = np.asarray(want)
+    tlv = torch.from_numpy(lv)
+    if slab == "bf16":  # the same bf16 bits on both sides
+        tlv = torch.from_numpy(np.asarray(jlv).view(np.int16)).view(torch.bfloat16)
+    got = kernels.slab_dots(torch.from_numpy(q), tlv, torch.from_numpy(sel))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (b, w, length)
+    got = got.numpy()
+    if slab == "f32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+    else:
+        assert np.max(np.abs(got - want) / (np.abs(want) + 1.0)) <= 1e-4
+    if repeat:  # a repeated id gives the same dots
+        np.testing.assert_array_equal(got[:, 1], got[:, 0])
+
+
+def test_slab_dots_plain_version_chunks_alike(rng):
+    """The plain version's W chunking gives the same dots (to f32 sums in
+    another order), and an int64 sel gives what int32 gives."""
+    q, lv, sel = _slab_case(rng, 5, 7, 6, 10, 24, True)
+    tq, tlv, tsel = torch.from_numpy(q), torch.from_numpy(lv), torch.from_numpy(sel)
+    whole = kernels.slab_dots_reference(tq, tlv, tsel)
+    want = np.einsum("bwld,bd->bwl", lv[sel], q)
+    tol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(whole.numpy(), want, rtol=0, atol=tol)
+    for chunk in (1, 5 * 10 * 24 * 4 * 3):  # one slab, then three at a time
+        part = kernels.slab_dots_reference(tq, tlv, tsel, chunk_bytes=chunk)
+        np.testing.assert_allclose(part.numpy(), want, rtol=0, atol=tol)
+    assert torch.equal(kernels.slab_dots(tq, tlv, tsel.long()), whole)
+
+
+def test_slab_dots_launch_count_untouched_on_cpu(rng):
+    before = dict(kernels.LAUNCHES)
+    q, lv, sel = _slab_case(rng, 3, 2, 4, 8, 16, False)
+    kernels.slab_dots(torch.from_numpy(q), torch.from_numpy(lv), torch.from_numpy(sel))
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize(
+    "kind,exc",
+    [
+        ("int16_slabs", TypeError),
+        ("f64_queries", TypeError),
+        ("float_sel", TypeError),
+        ("dim", ValueError),
+        ("rows", ValueError),
+        ("rank", ValueError),
+        ("noncontig", ValueError),
+    ],
+)
+def test_slab_dots_wrapper_rejects(kind, exc):
+    q, lv, sel = torch.zeros((4, 16)), torch.zeros((5, 8, 16)), torch.zeros((4, 3), dtype=torch.int32)
+    if kind == "int16_slabs":  # raw bf16 bits must arrive viewed as bfloat16
+        lv = lv.to(torch.int16)
+    elif kind == "f64_queries":
+        q = q.double()
+    elif kind == "float_sel":
+        sel = sel.float()
+    elif kind == "dim":
+        q = torch.zeros((4, 12))
+    elif kind == "rows":
+        sel = torch.zeros((3, 3), dtype=torch.int32)
+    elif kind == "rank":
+        lv = torch.zeros((40, 16))
+    elif kind == "noncontig":
+        lv = torch.zeros((5, 16, 8)).transpose(1, 2)
+    with pytest.raises(exc):
+        kernels.slab_dots(q, lv, sel)

@@ -1,9 +1,10 @@
 """Artifacts cross between the packages through models/persist.py.
 
-JAX-built IVF-Flat / IVF-SQ8 / SQ8 artifacts saved by the JAX package are
-loaded and searched by the port, and the port's own builds are loaded and
-searched by the JAX package: ids must equal the other side's as sorted
-sets per query (tie-free random data). The manifest checks fire alike, and
+JAX-built IVF-Flat / IVF-SQ8 / SQ8 and graph (block mode, and node mode
+without and with a bf16 or SQ8 neighbour table) artifacts saved by the JAX
+package are loaded and searched by the port, and the port's own builds are
+loaded and searched by the JAX package: ids must equal the other side's as
+sorted sets per query (tie-free random or clustered data). The manifest checks fire alike, and
 the port's ExperimentRunner runs ``build_only`` then ``retrieve_only``.
 Everything runs on the CPU.
 """
@@ -20,12 +21,14 @@ from vectordb_retrieval_tpu.models.factory import (
     ANNSearcher as JaxSearcher,
     FactoryIndexer as JaxIndexer,
 )
+from vectordb_retrieval_tpu.models.graph import GraphIndexer as JaxGraphIndexer
 from vectordb_retrieval_tpu_torch.bench import experiment as texp
 from vectordb_retrieval_tpu_torch.bench.config import ExperimentConfig
 from vectordb_retrieval_tpu_torch.models import persist as tpersist
 from vectordb_retrieval_tpu_torch.models.base import IndexArtifact
 from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm
 from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher, FactoryIndexer
+from vectordb_retrieval_tpu_torch.models.graph import GraphIndexer
 
 torch.set_num_threads(2)
 K = 10
@@ -103,6 +106,86 @@ def test_port_built_artifact_searches_alike_in_jax(tmp_path, data, key, opts):
     want_d, want_i = js.batch_search(q, K)
     _same_ids(got_i, want_i)
     # and back into the port: a round trip changes no bit
+    again = tpersist.load_artifact(path, device="cpu")
+    for k_, v in art.data.items():
+        assert again.data[k_].dtype == v.dtype and torch.equal(again.data[k_], v)
+
+
+# graph artifacts: (indexer knobs, searcher efSearch); block mode at 16-row
+# blocks so its beam runs two waves
+GRAPH_CASES = {
+    "block": ({"M": 8, "mode": "block", "block_size": 16}, 8),
+    "node": ({"M": 8, "mode": "node", "nbr_table": "off"}, 40),
+    "node_bf16": ({"M": 8, "mode": "node", "nbr_table": "on", "nbr_table_dtype": "bf16"}, 40),
+    "node_int8": ({"M": 8, "mode": "node", "nbr_table": "on", "nbr_table_dtype": "int8"}, 40),
+}
+
+
+@pytest.fixture(scope="module")
+def clustered():
+    rng = np.random.default_rng(22)
+    centers = rng.standard_normal((30, 32)).astype(np.float32) * 1.5
+    x = centers[rng.integers(0, 30, 3000)] + 0.6 * rng.standard_normal((3000, 32))
+    q = x[:24] + 0.3 * rng.standard_normal((24, 32))
+    return x.astype(np.float32), q.astype(np.float32)
+
+
+def _graph_keys(case):
+    if case == "block":
+        return {"entries", "entry_block", "slot_ids", "list_vecs", "list_sqnorms",
+                "entry_adj", "list_mu"}
+    keys = {"vectors", "sqnorms", "adjacency", "entry_ids"}
+    if case != "node":
+        keys |= {"nbr_vecs", "nbr_sqn"}
+    if case == "node_int8":
+        keys |= {"nbr_vmin", "nbr_step"}
+    return keys
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_jax_built_graph_artifact_searches_alike_in_the_port(tmp_path, clustered, case, metric):
+    x, q = clustered
+    knobs, ef = GRAPH_CASES[case]
+    jart = JaxGraphIndexer(metric=metric, **knobs).build(x, 32)
+    path = str(tmp_path / "jax_graph")
+    jpersist.save_artifact(jart, path)
+    art = tpersist.load_artifact(path, device="cpu")
+    assert art.kind == "graph" and art.metadata == jart.metadata
+    assert set(art.data) == set(jart.data) == _graph_keys(case)
+    if case == "block":
+        assert art.data["list_vecs"].dtype == torch.bfloat16
+    js = JaxSearcher(metric=metric, efSearch=ef)
+    js.attach(jart)
+    want_d, want_i = js.batch_search(q, K)
+    ts = ANNSearcher(metric=metric, efSearch=ef, device="cpu")
+    ts.attach(art)
+    got_d, got_i = ts.batch_search(q, K)
+    _same_ids(got_i, want_i)
+    np.testing.assert_allclose(np.sort(got_d, 1), np.sort(want_d, 1),
+                               rtol=0, atol=1e-5 * np.abs(want_d).max())
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_port_built_graph_artifact_searches_alike_in_jax(tmp_path, clustered, case):
+    x, q = clustered
+    knobs, ef = GRAPH_CASES[case]
+    art = GraphIndexer(device="cpu", **knobs).build(x, 32)
+    assert set(art.data) == _graph_keys(case)
+    for key in ("slot_ids", "entry_block", "entry_adj", "adjacency", "entry_ids"):
+        if key in art.data:  # ids stored as the JAX package stores them
+            assert art.data[key].dtype == torch.int32
+    ts = ANNSearcher(efSearch=ef, device="cpu")
+    ts.attach(art)
+    got_d, got_i = ts.batch_search(q, K)
+    path = str(tmp_path / "torch_graph")
+    tpersist.save_artifact(art, path)
+    jart = jpersist.load_artifact(path)
+    assert jart.kind == "graph" and jart.metadata == art.metadata
+    js = JaxSearcher(efSearch=ef)
+    js.attach(jart)
+    want_d, want_i = js.batch_search(q, K)
+    _same_ids(got_i, want_i)
     again = tpersist.load_artifact(path, device="cpu")
     for k_, v in art.data.items():
         assert again.data[k_].dtype == v.dtype and torch.equal(again.data[k_], v)

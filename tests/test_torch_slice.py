@@ -232,8 +232,8 @@ def test_unknown_algorithm_type_raises_like_jax():
     from vectordb_retrieval_tpu.models import get_algorithm_instance as jax_get
 
     # not ported yet: unknown to the port's registry
-    with pytest.raises(ValueError, match="unknown algorithm type 'hnsw'"):
-        get_algorithm_instance("hnsw", 8, device="cpu")
+    with pytest.raises(ValueError, match="unknown algorithm type 'covertree'"):
+        get_algorithm_instance("covertree", 8, device="cpu")
     with pytest.raises(ValueError, match="unknown algorithm type 'nope'; known: ") as t:
         get_algorithm_instance("nope", 8, device="cpu")
     with pytest.raises(ValueError, match="unknown algorithm type 'nope'; known: "):
@@ -262,7 +262,7 @@ def _not_ported(kind, tmp_path):
     elif kind == "graph_artifact":
         from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
 
-        ANNSearcher(device="cpu").attach(IndexArtifact("graph", {}))
+        ANNSearcher(device="cpu").attach(IndexArtifact("graph_sharded", {}))
 
 
 @pytest.mark.parametrize(

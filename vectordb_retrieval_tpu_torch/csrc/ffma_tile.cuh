@@ -1,5 +1,6 @@
 // The FP32 FFMA tile that the port's CUDA kernels share (dist_blockmin.cu,
-// assign.cu); each adds only its own epilogue.
+// assign.cu); each adds only its own epilogue. slab_dots.cu uses only the
+// element loaders and the error-string entry point.
 //
 // One thread block computes the 128 x 128 dot products of 128 rows of an
 // operand A against 128 rows of an operand B, both row-major [rows, d]. The

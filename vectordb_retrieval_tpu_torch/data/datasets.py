@@ -1,8 +1,10 @@
-"""Dataset manager: seeded random synthesis, exact ground truth, npz cache.
+"""Dataset manager: seeded synthesis, exact ground truth, npz cache.
 
 Counterpart of ``vectordb_retrieval_tpu/data/datasets.py``. Ground truth is
-computed on the device with the port's exact search. The other loaders of
-the catalog (glove50, sift1m, msmarco, surrogates, manifold) and the
+computed on the device with the port's exact search. Ported loaders:
+``random`` and ``msmarco_surrogate`` (numpy only, so the same seed gives
+the same vectors bit for bit in both packages). The other loaders of the
+catalog (glove50, glove50_surrogate, sift1m, msmarco, manifold) and the
 out-of-core ``storage: memmap`` staging come with the data-layer slice,
 ROADMAP queue 1 item 9.
 """
@@ -69,6 +71,7 @@ class Dataset:
         "random", "glove50", "glove50_surrogate", "sift1m", "msmarco",
         "msmarco_surrogate", "manifold",
     )
+    PORTED = ("random", "msmarco_surrogate")
 
     def __init__(
         self,
@@ -138,12 +141,12 @@ class Dataset:
             raise ValueError(
                 f"unknown dataset {self.name!r}; known: {self.CATALOG}"
             )
-        if self.name != "random":
+        if self.name not in self.PORTED:
             raise NotImplementedError(f"dataset {self.name!r} {_NOT_PORTED}")
         use_cache = bool(self.options.get("use_cache", True))
         if use_cache and self._load_cache():
             return self
-        self._load_random()
+        getattr(self, f"_load_{self.name}")()
         self.metadata.update(
             {
                 "name": self.name,
@@ -173,6 +176,201 @@ class Dataset:
         rng = np.random.default_rng(seed)
         self.train_vectors = rng.standard_normal((n_train, dim), dtype=np.float32)
         self.test_vectors = rng.standard_normal((n_test, dim), dtype=np.float32)
+        self.ground_truth = compute_ground_truth(
+            self.train_vectors, self.test_vectors, self._gt_k(), self.metric,
+            device=self.device,
+        )
+
+    def _load_msmarco_surrogate(self) -> None:
+        """Difficulty-calibrated MiniLM-384d stand-in (NOT real data).
+
+        Real MS MARCO MiniLM embeddings need an egress-enabled host
+        (data/download_attempts.log; reference embed_msmarco.py:149-172).
+        This generator synthesises unit vectors with the structural
+        statistics that set quantisation difficulty for sentence-encoder
+        embeddings:
+
+          * power-law anisotropic spectrum (variance ~ (i+1)^-alpha) in a
+            random rotated basis — transformer embeddings concentrate
+            variance in a few hundred directions (Ethayarajh 2019);
+          * Zipf-occupied hierarchical topic clusters (parents + children)
+            — passages cluster by topic with frequency skew;
+          * queries drawn NEAR passage clusters with extra spread (real
+            queries are short texts embedded into the same space).
+
+        Knobs are calibrated (scripts/calibrate_msmarco_surrogate.py) so
+        the framework's algorithms, configured EXACTLY like the
+        reference's msmarco rows (IVF100,Flat np10 / IVF256,PQ64 np48 /
+        IVF256,SQ8 np48 / PQ64 / hnsw M16 ef100), land near the
+        reference's real-MiniLM recalls
+        (benchmark_20260305_070532/benchmark_summary.md:43-50).
+        Results on this dataset are labelled surrogate in benchmark
+        metadata — difficulty-matched, not real-MiniLM numbers.
+        """
+        d = int(self.options.get("dim", 384))
+        n_train = int(self.options.get("train_limit", 100_000))
+        n_test = int(self.options.get("test_size", 200))
+        seed = int(self.options.get("seed", 13))
+        # Shipped defaults = the round-3 calibration winner (TPU grid,
+        # exact nprobe semantics): identically-configured ivf_flat /
+        # ivf_pq / ivf_sq8 / pq land within max|err| = 0.042 of the
+        # reference's real-MiniLM recalls (0.9529 / 0.6986 / 0.9471 /
+        # 0.7757 — reference benchmark_20260305_070532/
+        # benchmark_summary.md:43-50; measured -0.006 / +0.040 / +0.007 /
+        # -0.042). The residual +-0.04 on the PQ pair is a FAMILY limit:
+        # in any energy-preserving gaussian-mixture surrogate, residual
+        # coding is at least as easy as global coding, so the reference's
+        # pq (0.776) > ivf_pq (0.699) inequality can only be approached,
+        # not reproduced — every knob moves the pair together (grid logs:
+        # scripts/calibrate_msmarco_surrogate.py).
+        alpha = float(self.options.get("anisotropy", 0.45))
+        n_parents = int(self.options.get("n_parents", 384))
+        children_per = int(self.options.get("children_per_parent", 8))
+        child_scale = float(self.options.get("child_scale", 0.9))
+        point_scale = float(self.options.get("point_scale", 0.55))
+        query_scale = float(self.options.get("query_scale", 0.8))
+        # Topic-frequency skew: occupancy of child cluster rank r ~ r^-zipf.
+        # High values over-crowd the head clusters (thousands of
+        # near-duplicates -> vanishing neighbour margins -> flat-PQ recall
+        # collapses far below the real-MiniLM level); the calibrated value
+        # keeps the skew without the pile-up.
+        zipf = float(self.options.get("zipf", 0.45))
+
+        # Degree to which the variance spectrum stays in the NATIVE
+        # coordinate basis (0 = fully random-rotated, 1 = axis-aligned).
+        # Measured direction (calibration grid): alignment HURTS global
+        # PQ (0.63 -> 0.58 at 0.5, -> 0.36 at 0.75) — with the spectrum
+        # axis-aligned the first consecutive 6-dim PQ group carries the
+        # dominant variance with only 256 centroids, while a random
+        # rotation spreads variance evenly over all groups (the same
+        # balancing OPQ's rotation performs). Kept at 0 for the shipped
+        # calibration; the knob remains for sensitivity studies.
+        align = float(self.options.get("spectrum_align", 0.0))
+
+        # Per-cluster covariance heterogeneity: each child cluster's
+        # scatter gets its own per-dimension lognormal scale vector
+        # (sigma = cluster_var), rms-normalised per cluster so total
+        # scatter energy — and hence coarse-quantiser / flat / graph
+        # difficulty — is unchanged. What it changes is the SHAPE of the
+        # residual distribution per list: IVF-PQ trains one shared
+        # residual codebook over all lists (ops/pq.py), so heterogeneous
+        # residual covariances make residual coding strictly harder,
+        # mirroring real sentence embeddings where residual IVF-PQ
+        # (ref 0.699) underperforms global PQ (ref 0.776). Without this
+        # knob the surrogate had the inequality BACKWARDS (ivf_pq 0.81 >
+        # pq 0.78 at the otherwise-best setting).
+        cluster_var = float(self.options.get("cluster_var", 0.0))
+
+        # Per-cluster RADIUS heterogeneity: each child cluster's scatter
+        # gets one lognormal scale (sigma = radius_var), mean-energy
+        # normalised so the corpus-level scatter budget is unchanged.
+        # Distinct from ``cluster_var`` (per-dimension SHAPE, rms-fixed):
+        # radius spread is the axis that makes residual IVF-PQ
+        # specifically hard — the shared residual codebook's cell size is
+        # set by the GLOBAL residual energy, so tight topics (small
+        # radius, small neighbour margins) get quantised at a spacing
+        # tuned for diffuse ones, scrambling their rankings. Real MiniLM
+        # shows exactly this signature: residual coding (ivf_pq/ivf_sq8 =
+        # 0.738) UNDERPERFORMS global coding (pq = 0.776), which no
+        # energy-preserving shape knob reproduced.
+        radius_var = float(self.options.get("radius_var", 0.85))
+
+        # Heavy-tailed point scatter: student-t with ``tail_df`` degrees
+        # of freedom (variance-normalised; 0 = gaussian). Quantiser-
+        # SELECTIVE difficulty: exact scoring (ivf_flat lists, graph) is
+        # indifferent to the coordinate value distribution, but 8-bit
+        # affine SQ ranges and 256-codeword PQ cells are stretched by
+        # outliers, inflating quantisation error relative to neighbour
+        # margins — the axis the round-2 surrogate had uniformly too easy
+        # (sq8 +0.05, pq +0.05, ivf_pq +0.11 vs the real-MiniLM targets
+        # while ivf_flat sat ON target).
+        tail_df = float(self.options.get("tail_df", 0.0))
+
+        # Stray points: a fraction of passages displaced ``outlier_scale``
+        # x the point scatter. Their coarse-list assignment is then weakly
+        # coupled to the topic geometry, so when a stray IS a true
+        # neighbour it tends to live in a list the query ranks poorly —
+        # fattening the tail of the neighbour-list-rank CDF. This is the
+        # coverage axis the gaussian surrogate lacks: its CDF saturates by
+        # ~10% of lists probed (ivf_sq8 0.99 at nprobe 48/256 vs the
+        # real-MiniLM 0.947), while real embeddings keep paying for more
+        # probes. Exact search is unaffected (GT includes strays).
+        outlier_frac = float(self.options.get("outlier_frac", 0.03))
+        outlier_scale = float(self.options.get("outlier_scale", 6.0))
+
+        rng = np.random.default_rng(seed)
+
+        def scatter(*shape: int) -> np.ndarray:
+            if tail_df > 2.0:
+                out = rng.standard_t(tail_df, size=shape)
+                out /= np.sqrt(tail_df / (tail_df - 2.0))
+                return out.astype(np.float32)
+            return rng.standard_normal(shape).astype(np.float32)
+        spectrum = (np.arange(1, d + 1, dtype=np.float32)) ** (-alpha)
+        spectrum /= np.sqrt(np.mean(spectrum**2))
+        # random rotation so the spectrum is not trivially axis-aligned;
+        # ``align`` interpolates back toward the identity (columns
+        # renormalised so each spectrum component keeps its scale)
+        basis, _ = np.linalg.qr(rng.standard_normal((d, d)))
+        if align:
+            basis = (1.0 - align) * basis + align * np.eye(d)
+            basis /= np.maximum(
+                np.linalg.norm(basis, axis=0, keepdims=True), 1e-12
+            )
+        basis = (basis * spectrum[None, :]).astype(np.float32)  # scaled
+
+        parents = rng.standard_normal((n_parents, d)).astype(np.float32)
+        children = (
+            parents[:, None, :]
+            + child_scale
+            * rng.standard_normal((n_parents, children_per, d)).astype(
+                np.float32
+            )
+        ).reshape(n_parents * children_per, d)
+        ranks = np.arange(1, children.shape[0] + 1, dtype=np.float64)
+        probs = ranks**-zipf
+        probs /= probs.sum()
+        if cluster_var:
+            shapes = np.exp(
+                cluster_var
+                * rng.standard_normal((children.shape[0], d))
+            ).astype(np.float32)
+            shapes /= np.sqrt(
+                np.mean(shapes**2, axis=1, keepdims=True)
+            )  # per-cluster energy preserved
+        else:
+            shapes = np.ones((children.shape[0], d), np.float32)
+        if radius_var:
+            radii = np.exp(
+                radius_var * rng.standard_normal(children.shape[0])
+            ).astype(np.float32)
+            radii /= np.sqrt(np.mean(radii**2))  # corpus energy preserved
+            shapes = shapes * radii[:, None]
+        assign = rng.choice(children.shape[0], size=n_train, p=probs)
+        point_mult = np.ones((n_train, 1), np.float32)
+        if outlier_frac > 0.0:
+            stray = rng.random(n_train) < outlier_frac
+            point_mult[stray] = outlier_scale
+        pts = children[assign] + point_scale * point_mult * shapes[
+            assign
+        ] * scatter(n_train, d)
+        # queries: near passage clusters, wider spread, same cluster shapes
+        q_assign = rng.choice(children.shape[0], size=n_test, p=probs)
+        qs = children[q_assign] + query_scale * shapes[
+            q_assign
+        ] * scatter(n_test, d)
+
+        def shape(v: np.ndarray) -> np.ndarray:
+            v = v @ basis.T  # impose the anisotropic spectrum
+            return v / np.maximum(
+                np.linalg.norm(v, axis=1, keepdims=True), 1e-12
+            )
+
+        self.train_vectors = np.ascontiguousarray(shape(pts))
+        self.test_vectors = np.ascontiguousarray(shape(qs))
+        self.metric = self.options.get("metric", "cosine")
+        self.metadata["surrogate"] = True
+        self.metadata["surrogate_for"] = "msmarco (MiniLM-L6-v2 384d)"
         self.ground_truth = compute_ground_truth(
             self.train_vectors, self.test_vectors, self._gt_k(), self.metric,
             device=self.device,

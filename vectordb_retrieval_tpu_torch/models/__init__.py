@@ -1,11 +1,12 @@
 """Index families and the algorithm registry.
 
 Ported so far: the exact family (``exact``/``ExactSearch``, flat
-artifacts) and the factory family for IVF-Flat, IVF-SQ8 and SQ8
+artifacts), the factory family for IVF-Flat, IVF-SQ8 and SQ8
 (``approx``/``ApproximateSearch``; ``FactoryIndexer``/``ANNSearcher`` and
-their ``Faiss*`` aliases in the component registries). Every other name of
-the JAX registry (graph, cover tree, LSH) is unknown here and raises the
-same ``ValueError``.
+their ``Faiss*`` aliases in the component registries) and the graph family
+(``hnsw``/``HNSW``; ``GraphIndexer``/``HNSWIndexer``). Every other name of
+the JAX registry (cover tree, LSH) is unknown here and raises the same
+``ValueError``.
 """
 
 from typing import Any, Dict, Type
@@ -25,6 +26,7 @@ from vectordb_retrieval_tpu_torch.models.base import (  # noqa: F401
 # Importing this module populates the indexer/searcher registries.
 from vectordb_retrieval_tpu_torch.models import flat  # noqa: F401,E402
 from vectordb_retrieval_tpu_torch.models import factory  # noqa: F401,E402
+from vectordb_retrieval_tpu_torch.models import graph as _graph  # noqa: E402
 from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm  # noqa: E402
 from vectordb_retrieval_tpu_torch.models.exact import ExactSearch  # noqa: E402
 from vectordb_retrieval_tpu_torch.models.approximate import ApproximateSearch  # noqa: E402
@@ -38,6 +40,8 @@ ALGORITHM_REGISTRY: Dict[str, Type[BaseAlgorithm]] = {
     "composite": CompositeAlgorithm,
     "CompositeAlgorithm": CompositeAlgorithm,
     "modular": CompositeAlgorithm,
+    "hnsw": _graph.HNSW,
+    "HNSW": _graph.HNSW,
 }
 
 

@@ -6,10 +6,11 @@ rescore), ``IVF{n},SQ8`` and bare ``SQ8``. The grammar is parsed in full;
 ``PQ{m}``, ``IVF{n},PQ{m}`` and ``OPQ{m},`` keys raise
 ``NotImplementedError`` naming their ROADMAP item, as do the streaming
 build of out-of-core corpora and the artifact kinds of unported families
-(graph, LSH, sharded).
+(LSH, sharded).
 
 ``ANNSearcher`` dispatches on artifact kind with runtime params (``nprobe``
-from searcher params or artifact metadata). Registry aliases keep the
+from searcher params or artifact metadata; ``efSearch`` for ``graph``
+artifacts, ``models/graph.py``). Registry aliases keep the
 JAX package's YAML configs loadable verbatim: ``FaissFactoryIndexer`` ->
 :class:`FactoryIndexer`, ``FaissIVFIndexer`` -> :class:`IVFIndexer`,
 ``FaissSearcher`` -> :class:`ANNSearcher`. Batches are not padded (the JAX
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from vectordb_retrieval_tpu_torch.data.storage import corpus_to_device, is_out_of_core
+from vectordb_retrieval_tpu_torch.models import graph as graph_models
 from vectordb_retrieval_tpu_torch.models.base import (
     BaseIndexer,
     BaseSearcher,
@@ -50,7 +52,6 @@ _PQ_ITEM = "ROADMAP queue 1 item 4 (IVF-PQ, PQ{m} and OPQ)"
 _NOT_PORTED_KINDS = {
     "pq": _PQ_ITEM,
     "ivf_pq": _PQ_ITEM,
-    "graph": "ROADMAP queue 1 item 5 (graph)",
     "binary_lsh": "ROADMAP queue 1 item 7 (LSH)",
     "ivf_flat_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
     "ivf_pq_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
@@ -236,9 +237,10 @@ class IVFIndexer(FactoryIndexer):
 @register_searcher("ANNSearcher")
 @register_searcher("FaissSearcher")
 class ANNSearcher(BaseSearcher):
-    """Serves flat/quantized/IVF artifacts; runtime ``nprobe`` override."""
+    """Serves flat/quantized/IVF/graph artifacts; runtime ``nprobe`` and
+    ``efSearch`` overrides."""
 
-    SUPPORTED = ("flat", "sq8", "ivf_flat", "ivf_sq8") + tuple(_NOT_PORTED_KINDS)
+    SUPPORTED = ("flat", "sq8", "ivf_flat", "ivf_sq8", "graph") + tuple(_NOT_PORTED_KINDS)
 
     def attach(self, artifact: IndexArtifact) -> None:
         if artifact.kind not in self.SUPPORTED:
@@ -346,6 +348,9 @@ class ANNSearcher(BaseSearcher):
                 d["list_sqnorms"], eff_k, self._nprobe(), metric=metric,
                 full_vectors=d.get("full_vectors"), **self._probe_kwargs(),
             )
+        elif kind == "graph":
+            ef = int(self.params.get("efSearch", meta.get("efSearch", 100)))
+            dists, ids = graph_models.graph_artifact_search(art, q, eff_k, metric, ef)
         else:  # ivf_sq8
             dists, ids = ivfops.ivf_sq_search(
                 q, d["centroids"], d["slot_ids"], d["list_codes"],
@@ -385,4 +390,20 @@ class ANNSearcher(BaseSearcher):
                 meta.get("n_buckets", meta.get("nlist", 0))
                 + self._nprobe() * meta.get("max_list_len", 0)
             )
+        if self.artifact.kind == "graph":
+            ef_search = int(self.params.get("efSearch", meta.get("efSearch", 100)))
+            if meta.get("mode") == "block":
+                _, expand, iters = graph_models.block_geometry(
+                    int(meta["n_blocks"]), ef_search, 10,
+                    block_len=int(meta.get("block_len", 128)),
+                )
+                return int(meta["n_blocks"]) + int(
+                    expand * iters * meta.get("block_len", 0)
+                )
+            degree = int(meta.get("degree", 32) or 32)
+            n = int(meta.get("n_vectors", n_database))
+            _, expand, _, iters = graph_models.beam_geometry(n, degree, ef_search, 10)
+            return int(
+                meta.get("n_entry", 0) or min(2048, max(16, n // 10))
+            ) + int(iters * expand * degree)
         return int(n_database)

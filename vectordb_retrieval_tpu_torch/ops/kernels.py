@@ -9,12 +9,16 @@ Kernels (each replaces one TPU kernel of
   * :func:`assign` — nearest-centroid (argmin, min) for k-means fitting and
     IVF list assignment. Replaces ``assign_pallas``. CUDA C++ source:
     ``csrc/assign.cu``.
+  * :func:`slab_dots` — dot products of each query with the member slabs of
+    the blocks its graph beam popped (the block beam's wave probe). Replaces
+    ``slab_dots_manual`` and ``slab_dots_pallas``, which share one contract.
+    CUDA C++ source: ``csrc/slab_dots.cu``.
 
 Each wrapper routes by the device of its tensors: a CUDA tensor goes to the
 kernel (or the wrapper raises), a CPU tensor goes to the plain PyTorch
 version beside it. Nothing falls back from one to the other.
 
-Kernels are compiled from ``csrc/`` (each source includes the FFMA tile
+Kernels are compiled from ``csrc/`` (each source includes the header
 they share, ``csrc/ffma_tile.cuh``) with ``nvcc`` for ``sm_90a`` at first
 use, into ``_build/<hash of source, headers and flags>/``, and loaded with
 ``ctypes`` through a plain C interface. Every launch adds one to
@@ -38,7 +42,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNEL_SOURCES = ("dist_blockmin", "assign")
+KERNEL_SOURCES = ("dist_blockmin", "assign", "slab_dots")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -51,7 +55,12 @@ _DBM_MODES = {
     torch.bfloat16: ("dist_blockmin_bf16", "vrt_dist_blockmin_bf16"),
     torch.uint8: ("dist_blockmin_u8", "vrt_dist_blockmin_u8"),
 }
-KERNELS = tuple(name for name, _ in _DBM_MODES.values()) + ("assign",)
+# slab_dots' slab dtype -> C entry point (one launch count for both)
+_SLAB_MODES = {
+    torch.float32: "vrt_slab_dots_f32",
+    torch.bfloat16: "vrt_slab_dots_bf16",
+}
+KERNELS = tuple(name for name, _ in _DBM_MODES.values()) + ("assign", "slab_dots")
 
 # launches per kernel mode, counted by the wrappers where they launch
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -100,6 +109,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "assign":
         lib.vrt_assign_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.vrt_assign_f32.restype = ci
+    elif name == "slab_dots":
+        for fn in _SLAB_MODES.values():
+            getattr(lib, fn).argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            getattr(lib, fn).restype = ci
     lib.vrt_cuda_error_string.argtypes = [ci]
     lib.vrt_cuda_error_string.restype = ctypes.c_char_p
 
@@ -388,3 +401,102 @@ def assign(
     _check_launch("assign", "assign", rc)
     LAUNCHES["assign"] += 1
     return ids, mins
+
+
+# ---- K2: block-slab dot products -----------------------------------------
+
+# the [B, w, L, d] f32 gather of the plain version stays near this
+_SLAB_PLAIN_BYTES = 256 << 20
+
+
+def slab_dots_reference(
+    queries: torch.Tensor,
+    list_vecs: torch.Tensor,
+    sel: torch.Tensor,
+    chunk_bytes: int = _SLAB_PLAIN_BYTES,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`slab_dots` (same contract):
+    ``einsum("bwld,bd->bwl", list_vecs[sel].float(), queries)`` in chunks
+    of popped slabs, so the gathered ``[B, w, L, d]`` f32 copy stays near
+    ``chunk_bytes`` — what the JAX package computes off the TPU."""
+    b, w = sel.shape
+    _, length, d = list_vecs.shape
+    per_slab = max(b * length * d * 4, 1)
+    step = max(1, min(w, chunk_bytes // per_slab))
+    idx = sel.long()
+    q = queries.float()
+    outs = [
+        torch.einsum("bwld,bd->bwl", list_vecs[idx[:, c0 : c0 + step]].float(), q)
+        for c0 in range(0, w, step)
+    ]
+    if not outs:
+        return torch.empty((b, 0, length), dtype=torch.float32, device=queries.device)
+    return torch.cat(outs, dim=1)
+
+
+def _check_slab_dots(queries: torch.Tensor, list_vecs: torch.Tensor, sel: torch.Tensor) -> None:
+    fn = "slab_dots"
+    if queries.dtype != torch.float32:
+        raise TypeError(f"{fn}: queries must be float32, got {queries.dtype}")
+    if list_vecs.dtype not in _SLAB_MODES:
+        raise TypeError(
+            f"{fn}: list_vecs must be float32 or bfloat16, got {list_vecs.dtype}"
+        )
+    if sel.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{fn}: sel must be int32 or int64, got {sel.dtype}")
+    if queries.dim() != 2 or list_vecs.dim() != 3 or sel.dim() != 2:
+        raise ValueError(
+            f"{fn}: expected queries [B, d], list_vecs [Nb, L, d], sel [B, W]; got "
+            f"{tuple(queries.shape)}, {tuple(list_vecs.shape)}, {tuple(sel.shape)}"
+        )
+    if queries.shape[1] != list_vecs.shape[2]:
+        raise ValueError(
+            f"{fn}: queries have d={queries.shape[1]}, list_vecs d={list_vecs.shape[2]}"
+        )
+    if sel.shape[0] != queries.shape[0]:
+        raise ValueError(f"{fn}: sel has {sel.shape[0]} rows, queries {queries.shape[0]}")
+    for t, what in ((queries, "queries"), (list_vecs, "list_vecs"), (sel, "sel")):
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {what} must be contiguous")
+        if t.device != list_vecs.device:
+            raise ValueError(f"{fn}: {what} on {t.device}, expected {list_vecs.device}")
+    _check_device(fn, list_vecs)
+
+
+def slab_dots(
+    queries: torch.Tensor,  # [B, d] f32
+    list_vecs: torch.Tensor,  # [Nb, L, d] f32 | bf16 member slabs
+    sel: torch.Tensor,  # [B, W] int32 | int64 block ids, clamped to [0, Nb)
+) -> torch.Tensor:
+    """``dots[b, w, :] = list_vecs[sel[b, w]] @ queries[b]``, ``[B, W, L]`` f32.
+
+    Stored bf16 values are widened to f32 exactly and multiplied by the f32
+    query (the f32 query against the stored values). ``sel`` must already
+    be clamped to ``[0, Nb)``: the kernel does not read an id outside it
+    and writes NaN for it instead; repeated ids are fine.
+
+    CUDA tensors launch the kernel of ``csrc/slab_dots.cu`` on the current
+    stream and count under ``LAUNCHES['slab_dots']``. CPU tensors take
+    :func:`slab_dots_reference`.
+    """
+    _check_slab_dots(queries, list_vecs, sel)
+    if list_vecs.device.type == "cpu":
+        return slab_dots_reference(queries, list_vecs, sel)
+    b, w = sel.shape
+    nb, length, d = list_vecs.shape
+    out = torch.empty((b, w, length), dtype=torch.float32, device=list_vecs.device)
+    if out.numel() == 0:
+        return out
+    if b >= 2**31 or w >= 2**31 or nb >= 2**31 or length * d >= 2**31:
+        raise ValueError(f"slab_dots: B={b}, W={w}, Nb={nb}, L*d={length * d} exceed int32")
+    idx = sel.to(torch.int32).contiguous()
+    lib = _lib("slab_dots")
+    with torch.cuda.device(list_vecs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, _SLAB_MODES[list_vecs.dtype])(
+            queries.data_ptr(), list_vecs.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), b, w, length, d, nb, stream,
+        )
+    _check_launch("slab_dots", "slab_dots", rc)
+    LAUNCHES["slab_dots"] += 1
+    return out

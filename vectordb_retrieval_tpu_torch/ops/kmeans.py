@@ -104,6 +104,38 @@ def kmeans_assign(
     return kernels.assign(x, centroids, chunk_rows=chunk)[0]
 
 
+def kmeans_assign2(
+    x: torch.Tensor, centroids: torch.Tensor, chunk: int = _CHUNK
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Two nearest centroids per row: ``(a1 [n], a2 [n], margin [n])``.
+
+    ``margin = d2 - d1``, the squared-L2 gap between the runner-up and the
+    winner (the block graph's spilled assignment clones the rows with the
+    smallest margin). Plain chunked PyTorch, as the JAX package's is XLA:
+    ``||x||^2 + ||c||^2 - 2 x.c`` per chunk, the winner the first minimum
+    and the runner-up the first minimum of the rest (``lax.top_k``'s order
+    among equal distances). Ids are int64.
+    """
+    n = x.shape[0]
+    cn = torch.sum(centroids * centroids, dim=-1)
+    a1s, a2s, margins = [], [], []
+    for c0 in range(0, n, max(1, chunk)):
+        xc = x[c0 : c0 + chunk]
+        dist = torch.sum(xc * xc, dim=-1)[:, None] + cn[None, :] - 2.0 * (xc @ centroids.T)
+        a1 = torch.argmin(dist, dim=1)
+        d1 = torch.gather(dist, 1, a1[:, None])
+        rest = dist.scatter(1, a1[:, None], float("inf"))
+        a2 = torch.argmin(rest, dim=1)
+        d2 = torch.gather(rest, 1, a2[:, None])
+        a1s.append(a1)
+        a2s.append(a2)
+        margins.append((d2 - d1)[:, 0])
+    if not a1s:
+        empty = torch.empty((0,), dtype=torch.int64, device=x.device)
+        return empty, empty.clone(), torch.empty((0,), dtype=torch.float32, device=x.device)
+    return torch.cat(a1s), torch.cat(a2s), torch.cat(margins)
+
+
 def training_sample(
     n: int, k: int, seed: int, max_ppc: int = MAX_POINTS_PER_CENTROID
 ) -> Optional[torch.Tensor]:
