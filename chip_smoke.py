@@ -14,8 +14,11 @@ on failure:
                    dist_blockmin in its f32, bf16 and u8 modes (flagship,
                    ragged and 10%-dead shapes), assign (the IVF1024
                    k-means sample and corpus, a ragged shape, a tie case)
-                   and slab_dots (the two graph rows' wave shapes, an f32
-                   shape, a ragged case with repeated and end ids)
+                   slab_dots (the two graph rows' wave shapes, an f32
+                   shape, a ragged case with repeated and end ids) and
+                   blockmin (the JAX oracle's shape, w = 32, a ragged B, and
+                   exact search's flagship padded with rows of 1e6; no path
+                   of the system calls it, so these checks are its launches)
   4. exact path  - the port's BenchmarkRunner (exact row: BruteForceIndexer +
                    LinearSearcher) on 100k x 384 random data, l2 and cosine;
                    ground truth, timed batched search, recall@20 == 1.0, the
@@ -40,11 +43,25 @@ on failure:
                    it). The graph rows join the card-against-host check
                    (ids >= 0.99) and the block-mode MS MARCO row the round
                    trip
-     In 4, 5 and 5b every kernel launch of the main path is also held against
-     its plain version on the very inputs it was launched with (the last
-     launch of each kernel mode, shape and stage: ground truth, each build's
-     k-means sample and corpus with its centroids, each timed search), after
-     the launch counts are read
+  5c. cover tree - the BenchmarkRunner's two CoverTreeV2_2 rows of
+                   configs/covertree_refresh.yaml: msmarco_surrogate (100k x
+                   384 unit vectors, cosine, top-20, 512 queries in one batch,
+                   repeat 16; auto descent: must take the block walk and
+                   launch dist_blockmin_bf16 twice per batch) and random (20k
+                   x 64, l2, top-20, 256 queries); recall@20 == 1.0, build
+                   time by part, nodes, depths, w, index bytes, ndis, overflowed
+                   queries. Then, on the first row's artifact, the block walk
+                   against the stream walk; a forced fallback (a 40k-row tree
+                   at err_c = 10: flagged, answered by exact search through
+                   dist_blockmin f32, still exact); both rows joining the
+                   card-against-host check (the host runs the block walk on
+                   the plain versions) and the first row a round trip
+     In 4, 5, 5b and 5c every kernel launch of the main path is also held
+     against its plain version on the very inputs it was launched with (the
+     last launch of each kernel mode, shape and stage: ground truth, each
+     build's k-means sample and corpus with its centroids, each timed
+     search; in 5c each of the block walk's two pens), after the launch
+     counts are read
   6. throughput  - exact search QPS at the flagship shape (100k x 384, l2,
                    top-20, batches of 256) and at 1M x 128 (w = 32); each IVF
                    row's QPS and its per-batch device time by stage (coarse
@@ -52,9 +69,12 @@ on failure:
                    assignment at 1M x 1024 x 128; each graph row's QPS and
                    per-batch device time by stage (block beam: entry scan
                    and seed, per wave pop, slab_dots, merge, push; node
-                   beam: seed, per iteration, rescore); each kernel's time
-                   beside its plain version, one library call and the
-                   card's bound
+                   beam: seed, per iteration, rescore); the cover tree's
+                   first row: QPS and per-batch device time by stage (the two
+                   K1 launches, descent, selection, rescore, overflow read)
+                   beside the host clock, and K1 bf16 at its shape; each
+                   kernel's time beside its plain version, one library call
+                   and the card's bound
   7. the kernels line, the nvidia-smi line, and last the result line.
 
 Imports nothing of JAX. Writes its YAML and the runner's outputs under
@@ -96,6 +116,9 @@ KERNEL_REL_TOL = 1e-5
 # nearest centroids tie to f32 rounding may go either way), minimum
 # distances within 1e-5 of the largest (f32 sums in another order).
 ASSIGN_MIN_AGREE = 0.999
+# blockmin vs its plain version: both form ||q||^2 + ||x||^2 - 2 q.x with
+# full-f32 products summed in another order, so they differ by f32
+# roundings of the largest terms: 1e-5 of the largest ||q||^2 + ||x||^2.
 # Ground truth vs float64: f32 rounding of a 384-term distance sum.
 GT_REL_TOL = 1e-5
 # Card against host: sorted ids agree on >= 99.9 % of entries (a coarse
@@ -233,6 +256,14 @@ K2_SHAPES = (
     (256, 40, 128, 384, 782, "f32"),
     (7, 5, 100, 50, 13, "bf16"),
     (7, 5, 100, 50, 13, "f32"),
+)
+# (B, N, d, w, padding rows of 1e6): the JAX oracle's shape, w = 32
+# (seg = 64), a ragged B, and exact search's flagship padded to 49 tiles
+K4_SHAPES = (
+    (8, 4096, 32, 8, 0),
+    (8, 4096, 32, 32, 0),
+    (7, 4096, 17, 16, 0),
+    (256, 100_352, 384, 8, 352),
 )
 _MODE_NAME = {"f32": "dist_blockmin", "bf16": "dist_blockmin_bf16",
               "u8": "dist_blockmin_u8"}
@@ -392,13 +423,17 @@ def check_slab_dots_shape(b, w, length, d, nb, dtype, seed) -> float:
 
 
 @contextlib.contextmanager
-def capture_launch_inputs(store: dict, stage: list):
+def capture_launch_inputs(store: dict, stage: list, by_pen: bool = False):
     """While active, keep in ``store`` the inputs of the last launch of
     each kernel mode at each shape in each stage (``stage[0]``, set by the
     caller), so that ``check_launched`` can hold every kernel against its
     plain version on the main path's own inputs (the kernels use no
-    atomics, so a launch on the same inputs gives the same output). The
+    atomics, so a launch on the same inputs gives the same output). With
+    ``by_pen``, bf16 dist_blockmin launches are also told apart by their
+    pen tensor (the cover tree's two streams over one bf16 slab). The
     launches themselves and their counts are the wrappers' own."""
+    import torch
+
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     orig_dbm, orig_assign = kernels.dist_blockmin, kernels.assign
@@ -409,6 +444,8 @@ def capture_launch_inputs(store: dict, stage: list):
         out = orig_dbm(queries, payload, pen, w=w, chunk_rows=chunk_rows)
         name = _MODE_NAME[modes[payload.dtype]]
         key = (stage[0], name, tuple(queries.shape), tuple(payload.shape), w)
+        if by_pen and payload.dtype == torch.bfloat16:
+            key += (pen.data_ptr(),)
         store[key] = (queries, payload, pen, w)
         return out
 
@@ -453,9 +490,44 @@ def check_launched(store: dict, prefix: str, worst: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def _k4_inputs(b, n, d, pad, seed):
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((b, d), generator=g, device=DEV)
+    x = torch.randn((n, d), generator=g, device=DEV)
+    if pad:
+        x[n - pad:] = 1e6
+    return q, x
+
+
+def check_blockmin(q, x, w, n_real, where) -> float:
+    """One blockmin launch against its plain version on the same inputs: no
+    NaN, max error <= 1e-5 x the largest ||q||^2 + ||x||^2 over real rows.
+    Emits the check and returns the max abs error."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    got = kernels.blockmin(q, x, w=w)
+    want = kernels.blockmin_reference(q, x, w=w)
+    torch.cuda.synchronize()
+    scale = float((q * q).sum(1).max() + (x[:n_real] * x[:n_real]).sum(1).max())
+    nan = bool(torch.isnan(got).any())
+    err = float((got - want).abs().max())
+    ok = not nan and err <= KERNEL_REL_TOL * scale
+    emit({"phase": "kernel_check", "kernel": "blockmin", "at": where,
+          "shape": [q.shape[0], x.shape[0], x.shape[1], w],
+          "padding_rows": x.shape[0] - n_real, "max_abs_err": err,
+          "max_norm_sum": scale, "tol": KERNEL_REL_TOL * scale, "nan": nan, "ok": ok})
+    if not ok:
+        raise AssertionError(f"blockmin {where}: err {err}, nan {nan}")
+    return err
+
+
 def phase_kernels() -> dict:
     """Worst max abs error per kernel name."""
-    worst = {name: 0.0 for name in (*_MODE_NAME.values(), "assign", "slab_dots")}
+    worst = {name: 0.0 for name in (*_MODE_NAME.values(), "assign", "slab_dots", "blockmin")}
     for i, (b, n, d, w, dead) in enumerate(K1_SHAPES):
         for pen_kind in ("l2", "zero"):
             q, x, pen = _k1_inputs(b, n, d, w, dead, pen_kind, SEED + i)
@@ -471,6 +543,10 @@ def phase_kernels() -> dict:
         worst["assign"] = max(worst["assign"], check_assign(n, k, d, dup, SEED + i))
     for i, shape in enumerate(K2_SHAPES):
         worst["slab_dots"] = max(worst["slab_dots"], check_slab_dots_shape(*shape, SEED + i))
+    for i, (b, n, d, w, pad) in enumerate(K4_SHAPES):
+        q, x = _k4_inputs(b, n, d, pad, SEED + i)
+        err = check_blockmin(q, x, w, n - pad, "synthetic")
+        worst["blockmin"] = max(worst["blockmin"], err)
     return worst
 
 
@@ -680,7 +756,8 @@ def _ivf_dataset(cfg) -> dict:
         "name": "random", "metric": cfg["metric"],
         "dataset_options": {
             "dimensions": cfg["d"], "train_size": cfg["n"],
-            "test_size": IVF_QUERIES, "ground_truth_k": cfg["topk"],
+            "test_size": cfg.get("test_size", IVF_QUERIES),
+            "ground_truth_k": cfg.get("gt_k", cfg["topk"]),
             "seed": SEED, "use_cache": False,
         },
     }
@@ -903,27 +980,36 @@ def _ivf_stages(info):
 
 def phase_card_vs_host(card: str, paths) -> None:
     """Each built artifact copied to the CPU and searched there by the port
-    (the kernels' plain versions) for 64 queries, against the card."""
+    (the kernels' plain versions) for 64 queries, against the card; the
+    cover tree's host side runs the block walk, as the card does."""
     import numpy as np
 
     from vectordb_retrieval_tpu_torch.models.base import IndexArtifact
+    from vectordb_retrieval_tpu_torch.models.covertree import CoverTree
     from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
 
     for path in paths:
         for row, info in path["rows"].items():
             algo = info["algo"]
             art = algo.artifact
-            host = ANNSearcher(metric=algo.searcher.metric, device="cpu",
-                               **algo.searcher.params)
-            host.attach(IndexArtifact(
-                art.kind, {k: v.cpu() for k, v in art.data.items()},
-                dict(art.metadata)))
+            host_art = IndexArtifact(
+                art.kind, {k: v.cpu() for k, v in art.data.items()}, dict(art.metadata))
+            if art.kind == "covertree":
+                host = CoverTree(algo.dimension, metric=algo.metric, err_c=algo.err_c,
+                                 descent="blockwalk", device="cpu")
+                host.artifact, host.is_built = host_art, True
+                card_search = algo.batch_search
+            else:
+                host = ANNSearcher(metric=algo.searcher.metric, device="cpu",
+                                   **algo.searcher.params)
+                host.attach(host_art)
+                card_search = algo.searcher.batch_search
             q = info["queries"][:HOST_QUERIES]
             k = info["k"]
             t0 = time.perf_counter()
             hd, hi = host.batch_search(q, k)
             host_s = time.perf_counter() - t0
-            cd, ci = algo.searcher.batch_search(q, k)
+            cd, ci = card_search(q, k)
             same = [set(a) == set(b) for a, b in zip(ci, hi)]
             agree = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ci, hi)]))
             min_agree = GRAPH_HOST_MIN_AGREE if art.kind == "graph" else HOST_MIN_AGREE
@@ -953,7 +1039,13 @@ def phase_persistence_round_trip(card: str, cfg, row: str) -> None:
     from vectordb_retrieval_tpu_torch.bench import experiment
     from vectordb_retrieval_tpu_torch.bench.config import ExperimentConfig
 
-    indexer, nprobe = cfg["rows"][row]
+    spec = cfg["rows"][row]
+    if isinstance(spec, dict):  # a registry algorithm (the cover tree)
+        algo_cfg = dict(spec)
+    else:
+        indexer, nprobe = spec
+        algo_cfg = {"indexer": dict(indexer), "metric": cfg["metric"],
+                    "searcher": {"type": "ANNSearcher", "nprobe": nprobe}}
     ds = _ivf_dataset(cfg)
     art_dir = os.path.join(OUT_DIR, "artifacts")
     batch = cfg.get("batch", BATCH)
@@ -964,12 +1056,9 @@ def phase_persistence_round_trip(card: str, cfg, row: str) -> None:
             dataset_options=ds["dataset_options"], metric=cfg["metric"],
             n_queries=cfg.get("queries", IVF_QUERIES), topk=cfg["topk"],
             query_batch_size=batch,
-            algorithms={row: {
-                "indexer": dict(indexer), "metric": cfg["metric"],
-                "searcher": {"type": "ANNSearcher", "nprobe": nprobe},
-                "persistence": {"enabled": True, "mode": mode,
-                                "artifact_dir": art_dir, "force_rebuild": True},
-            }},
+            algorithms={row: dict(algo_cfg, persistence={
+                "enabled": True, "mode": mode, "artifact_dir": art_dir,
+                "force_rebuild": True})},
         )
 
     seen = []
@@ -1010,6 +1099,253 @@ def phase_persistence_round_trip(card: str, cfg, row: str) -> None:
         raise AssertionError(f"{cfg['name']}/{row}: retrieve_only ids differ from the built index's")
     del built, loaded, algo
     torch.cuda.empty_cache()
+
+
+# ---- 5c. cover-tree path --------------------------------------------------
+
+# Two CoverTreeV2_2 rows of configs/covertree_refresh.yaml: the MS MARCO
+# MiniLM shape and the file's random row. Its glove50_surrogate row waits for
+# the port's copy of that generator; its sift1m row reads files.
+COVERTREE_CONFIGS = (
+    {
+        "name": "covertree_msmarco",
+        "source": "configs/covertree_refresh.yaml msmarco_surrogate (CoverTreeV2_2)",
+        "dataset": "msmarco_surrogate", "metric": "cosine", "n": 100_000, "d": 384,
+        "topk": 20, "queries": 512, "batch": 512, "gt_k": 200, "repeat": 16,
+        "rows": {"covertree_v2_2": {"type": "CoverTreeV2_2", "metric": "cosine"}},
+    },
+    {
+        "name": "covertree_random",
+        "source": "configs/covertree_refresh.yaml random (CoverTreeV2_2)",
+        "metric": "l2", "n": 20_000, "d": 64, "topk": 20, "queries": 256,
+        "batch": 256, "test_size": 512, "gt_k": 200, "repeat": 16,
+        "rows": {"covertree_v2_2": {"type": "CoverTreeV2_2", "metric": "l2"}},
+    },
+)
+# the forced fallback's tree: over exact search's dense-path limit (32,768
+# rows), so its exact search launches dist_blockmin f32
+FALLBACK_SHAPE = (40_000, 16)
+FALLBACK_ERR_C = 10.0
+# block walk vs stream walk on one artifact: sorted distances within this
+# relative tolerance (both rescore exactly; they may select other blocks)
+WALKS_RTOL = 1e-4
+
+
+def _ct_runner_config(cfg) -> dict:
+    return {
+        "algorithms": {row: dict(spec, repeat=cfg["repeat"]) for row, spec in cfg["rows"].items()},
+        "datasets": [_ivf_dataset(cfg)],
+        "topk": cfg["topk"], "n_queries": cfg["queries"],
+        "query_batch_size": cfg["batch"], "repeat": cfg["repeat"],
+        "output_dir": os.path.join(OUT_DIR, "runs"),
+        "data_dir": os.path.join(OUT_DIR, "data"),
+        "output_prefix": cfg["name"], "seed": 42,
+    }
+
+
+def _ct_queries(algo, queries):
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import distances as dops
+
+    q = torch.as_tensor(queries, device=DEV)
+    return dops.normalize(q) if algo.metric == "cosine" else q
+
+
+def phase_covertree_path(card: str, cfg, worst: dict) -> dict:
+    """One cover-tree row through the BenchmarkRunner with the launch counts
+    set to 0 just before and read just after: exact recall, the block walk
+    and its two dist_blockmin_bf16 launches per batch; then every launch
+    held against its plain version on its own inputs (both pens)."""
+    import torch
+    import yaml
+
+    from vectordb_retrieval_tpu_torch.bench import experiment
+    from vectordb_retrieval_tpu_torch.bench.runner import BenchmarkRunner
+    from vectordb_retrieval_tpu_torch.models.covertree import CoverTree
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    runners, builds, searches = [], {}, {}
+    launched, stage = {}, ["ground_truth"]
+    orig_run = experiment.ExperimentRunner.run
+    orig_build = CoverTree.build_index
+    orig_search = experiment.ExperimentRunner._timed_search
+
+    def delta(before):
+        return {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+
+    def kept_run(self):
+        out = orig_run(self)
+        runners.append(self)
+        return out
+
+    def counted_build(self, vectors):
+        before = dict(kernels.LAUNCHES)
+        stage[0] = f"{self.name}/build"
+        orig_build(self, vectors)
+        stage[0] = "runner"
+        builds[self.name] = delta(before)
+
+    def counted_search(self, algorithm, *args, **kwargs):
+        before = dict(kernels.LAUNCHES)
+        stage[0] = f"{algorithm.name}/search"
+        out = orig_search(self, algorithm, *args, **kwargs)
+        stage[0] = "runner"
+        searches[algorithm.name] = delta(before)
+        return out
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"{cfg['name']}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(_ct_runner_config(cfg), f)
+    experiment.ExperimentRunner.run = kept_run
+    CoverTree.build_index = counted_build
+    experiment.ExperimentRunner._timed_search = counted_search
+    try:
+        with capture_launch_inputs(launched, stage, by_pen=True):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            results = BenchmarkRunner(path).run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        experiment.ExperimentRunner.run = orig_run
+        CoverTree.build_index = orig_build
+        experiment.ExperimentRunner._timed_search = orig_search
+    n_checked = len(launched)
+    check_launched(launched, cfg["name"], worst)
+
+    ds = results[_ivf_dataset(cfg)["name"]]
+    if "error" in ds:
+        raise AssertionError(f"{cfg['name']}: dataset error {ds['error']}")
+    runner = runners[-1]
+    queries, _ = runner._select_query_subset()
+    topk, bsz = cfg["topk"], cfg["batch"]
+    rows = {}
+    for row in cfg["rows"]:
+        res = ds[row]
+        if "error" in res:
+            raise AssertionError(f"{cfg['name']}/{row}: row error {res['error']}")
+        algo = runner.algorithms[row]
+        recall = res.get(f"recall@{topk}")
+        if recall != 1.0:
+            raise AssertionError(f"{cfg['name']}/{row}: recall@{topk} = {recall}")
+        b, s = builds.get(row, {}), searches.get(row, {})
+        batches = -(-len(queries) // bsz)
+        calls = 1 + cfg["repeat"] * batches  # the warm-up batch + the timed passes
+        if not algo.uses_blockwalk() or s.get("dist_blockmin_bf16") != 2 * calls:
+            raise AssertionError(
+                f"{cfg['name']}/{row}: block walk {algo.uses_blockwalk()}, "
+                f"dist_blockmin_bf16 launches {s.get('dist_blockmin_bf16')} != {2 * calls}")
+        k = min(topk, cfg["n"])
+        q = _ct_queries(algo, queries)
+        overflowed = sum(int(algo._search(q[i : i + bsz], k).overflow.sum())
+                         for i in range(0, len(queries), bsz))
+        prep = algo.blockwalk_prep()
+        meta = algo.artifact.metadata
+        emit({
+            "phase": "covertree_main_path", "config": cfg["name"],
+            "source": cfg["source"], "row": row, "shape": [cfg["n"], cfg["d"]],
+            "metric": cfg["metric"], "card": card, f"recall@{topk}": recall,
+            "qps": res["qps"], "build_time_s": res["build_time_s"],
+            "build_seconds": algo.build_seconds, "n_nodes": meta["n_nodes"],
+            "depths": len(meta["depth_sizes"]), "max_depth_width": max(meta["depth_sizes"]),
+            "w": prep.w, "index_memory_mb": res["index_memory_mb"],
+            "index_bytes": algo.artifact.device_nbytes(), "prep_bytes": prep.nbytes(),
+            "fallback_rows_bytes": sum(t.numel() * t.element_size()
+                                       for t in algo._derived.get("rows", ())),
+            "ndis_per_query": res.get("operations_per_query"),
+            "queries": len(queries), "overflowed_queries": overflowed,
+            "launches_build": b, "launches_timed_search": s,
+            "dist_blockmin_bf16_per_batch": s["dist_blockmin_bf16"] / calls,
+            "launch_inputs_checked": n_checked,
+        })
+        rows[row] = {"algo": algo, "queries": queries, "k": k, "batch": bsz}
+    emit({"phase": "main_path_run", "config": cfg["name"], "card": card,
+          "runner_seconds": seconds, "launches": launches})
+    return {"name": cfg["name"], "launches": launches, "rows": rows}
+
+
+def phase_covertree_walks(card: str, info) -> None:
+    """The block walk and the stream walk over one artifact on the card:
+    the same sorted distances from the search (each walk's flagged rows
+    answered by exact search), and the same raw distances on the rows that
+    both walks certified."""
+    import torch
+
+    algo, k, bsz = info["algo"], info["k"], info["batch"]
+    q_raw = torch.as_tensor(info["queries"], device=DEV)
+    q = _ct_queries(algo, q_raw)
+    out = {}
+    try:
+        for descent in ("blockwalk", "stream"):
+            algo.descent = descent
+            raw = [algo._search(q[i : i + bsz], k) for i in range(0, len(q), bsz)]
+            exact = [algo.device_kernel(q_raw[i : i + bsz], k)[0] for i in range(0, len(q), bsz)]
+            out[descent] = (torch.cat([r.dists for r in raw]), torch.cat([r.overflow for r in raw]),
+                            float(sum(int(r.ndis.sum()) for r in raw)) / len(q),
+                            torch.cat(exact).sort(dim=1).values)
+    finally:
+        algo.descent = "auto"
+    (rb, ob, nb, eb), (rs, os_, ns, es) = out["blockwalk"], out["stream"]
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs().clamp_min(1e-12)).max()) if a.numel() else 0.0
+
+    both = ~(ob | os_)
+    rel_search = rel(eb, es)
+    rel_certified = rel(rb[both].sort(dim=1).values, rs[both].sort(dim=1).values)
+    ok = rel_search <= WALKS_RTOL and rel_certified <= WALKS_RTOL
+    emit({"phase": "covertree_walks", "card": card, "queries": len(q), "k": k,
+          "max_rel_diff": rel_search, "max_rel_diff_certified": rel_certified,
+          "rtol": WALKS_RTOL, "overflowed_blockwalk": int(ob.sum()),
+          "overflowed_stream": int(os_.sum()), "certified_by_both": int(both.sum()),
+          "ndis_per_query_blockwalk": nb, "ndis_per_query_stream": ns, "ok": ok})
+    if not ok:
+        raise AssertionError(f"block walk vs stream walk: rel {rel_search}, "
+                             f"certified rows {rel_certified}")
+
+
+def phase_covertree_fallback(card: str) -> dict:
+    """A tree searched with an absurd band: every certificate fails, the
+    batch is answered by exact search (dist_blockmin f32) and stays exact.
+    Returns the launches of the run (counts set to 0 just before)."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.models import get_algorithm_instance
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    n, d = FALLBACK_SHAPE
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    qn = rng.standard_normal((HOST_QUERIES, d), dtype=np.float32)
+    algo = get_algorithm_instance("covertree", d, err_c=FALLBACK_ERR_C)
+    algo.build_index(x)
+    q = torch.as_tensor(qn, device=DEV)
+    kernels.reset_launch_counts()
+    flagged = int(algo._search(q, TOPK).overflow.sum())
+    dist, ids = algo.device_kernel(q, TOPK)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    xd = torch.as_tensor(x, device=DEV, dtype=torch.float64)
+    full = torch.cdist(q.double(), xd)
+    want = full.topk(TOPK, dim=1, largest=False).values
+    got_rows = torch.gather(full, 1, ids)
+    scale = float(want.abs().max())
+    err = max(float((dist.double().sort(1).values - want).abs().max()),
+              float((got_rows - dist.double()).abs().max()))
+    ok = flagged >= 1 and launches["dist_blockmin"] >= 1 and err <= HOST_REL_TOL * scale
+    emit({"phase": "covertree_fallback", "card": card, "shape": [n, d],
+          "err_c": FALLBACK_ERR_C, "queries": HOST_QUERIES, "flagged": flagged,
+          "launches": launches, "max_abs_dist_err": err, "tol": HOST_REL_TOL * scale,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"cover-tree fallback: flagged {flagged}, launches "
+                             f"{launches}, err {err}")
+    del algo, xd, full
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---- 6. throughput -----------------------------------------------------
@@ -1308,6 +1644,133 @@ def phase_graph_throughput(card: str, path_name: str, row: str, info) -> dict:
     return out
 
 
+def phase_covertree_throughput(card: str, path_name: str, info) -> dict:
+    """The cover tree's row: QPS over its queries (the clock stops with the
+    ids on the host), then one batch's device time by stage, each stage
+    timed on the inputs the search gives it (primed events): the two K1
+    launches, the descent, the selection, the gather, rescore and
+    certificate, and the exact search of the flagged rows; the host read of
+    the flags on the host clock; and K1 bf16 at this shape beside its plain
+    version, one library call and the card's bound."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import covertree as ctops
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    algo = info["algo"]
+    meta, data = algo.artifact.metadata, algo.artifact.data
+    bsz, k = info["batch"], info["k"]
+    qs = torch.as_tensor(info["queries"], device=DEV)
+    batches = qs.shape[0] // bsz
+    passes = max(1, -(-8 // batches))  # at least 8 batches on the clock
+    algo.device_kernel(qs[:bsz], k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        ids = [algo.device_kernel(qs[i * bsz : (i + 1) * bsz], k)[1] for i in range(batches)]
+        torch.cuda.synchronize()
+        ids_host = torch.cat(ids).cpu().numpy()
+    elapsed = (time.perf_counter() - t0) / passes
+    if ids_host.shape != (batches * bsz, k) or ids_host.max() >= meta["n_vectors"]:
+        raise AssertionError(f"{path_name}: ids malformed {ids_host.shape}")
+
+    q_raw = qs[:bsz]
+    q = _ct_queries(algo, q_raw)
+    prep = algo.blockwalk_prep()
+    kp = algo._kprime(k, meta["n_vectors"])
+    k1_ms = time_ms(lambda: ctops.blockwalk_stage1(q, prep), prime=True)
+    bm_all, bm_real = ctops.blockwalk_stage1(q, prep)
+    descent_ms = time_ms(
+        lambda: ctops.blockwalk_descent(q, bm_all, bm_real, prep, k, kp, algo.err_c), prime=True)
+    cand, _ = ctops.blockwalk_descent(q, bm_all, bm_real, prep, k, kp, algo.err_c)
+    select_ms = time_ms(lambda: ctops.blockwalk_select(cand, k), prime=True)
+    bm_sel, blk = ctops.blockwalk_select(cand, k)
+    qn = torch.sqrt(torch.sum(q * q, dim=-1))
+
+    def rescore():
+        out_d, out_i = ctops.rescore_blocks(q, data["slab"], data["is_real"],
+                                            data["point_ids"], blk, prep.w, k)
+        return out_d, out_i, ctops.certify(out_d, bm_sel[:, -1], qn, prep.max_xn, algo.err_c, k)
+
+    rescore_ms = time_ms(rescore, prime=True)
+    _, stage_ids, overflow = rescore()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        flagged = overflow.nonzero()[:, 0]  # the batch's one host read
+    read_host_ms = (time.perf_counter() - t1) / 20 * 1e3
+    fallback_ms = time_ms(lambda: algo._exact(q[flagged], k), prime=True) if flagged.numel() else 0.0
+    search_ms = time_ms(lambda: algo._search(q, k), prime=True)
+    batch_events_ms = time_ms(lambda: algo.device_kernel(q_raw, k))
+    kept = ~overflow
+    if not torch.equal(stage_ids.long()[kept], algo.device_kernel(q_raw, k)[1][kept]):
+        raise AssertionError(f"{path_name}: the stage split differs from the search")
+    stages_ms = k1_ms + descent_ms + select_ms + rescore_ms
+    out = {
+        "phase": "covertree_throughput", "config": path_name, "card": card,
+        "qps": batches * bsz / elapsed, "seconds": elapsed, "batches": batches,
+        "passes": passes, "batch": bsz, "ms_per_batch": elapsed / batches * 1e3,
+        "depths": len(prep.depth_sizes), "w": prep.w, "blocks": prep.pen_all.shape[0],
+        "k1_two_launches_ms": k1_ms, "descent_ms": descent_ms, "select_ms": select_ms,
+        "rescore_certify_ms": rescore_ms, "overflow_read_host_ms": read_host_ms,
+        "flagged_queries": int(flagged.numel()), "fallback_exact_ms": fallback_ms,
+        "stages_device_ms": stages_ms, "search_device_ms": search_ms,
+        "batch_events_ms": batch_events_ms,
+    }
+    emit(out)
+
+    # K1 bf16 at this shape: one launch (pen_all)
+    slab_bf, pen = prep.slab_bf, prep.pen_all
+    ms = time_ms(lambda: kernels.dist_blockmin(q, slab_bf, pen, w=prep.w))
+    plain_ms = time_ms(lambda: kernels.dist_blockmin_reference(q, slab_bf, pen, w=prep.w),
+                       reps=3, warmup=1)
+    qb = q.to(torch.bfloat16)
+    library_ms = time_ms(lambda: torch.matmul(qb, slab_bf.T), reps=10)
+    m, dim = slab_bf.shape
+    flops = 2.0 * bsz * m * dim
+    nbytes = 2.0 * bsz * dim + 2.0 * m * dim + 4.0 * m + 4.0 * bsz * (m // prep.w)
+    flop_ms = flops / BF16_PEAK_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "covertree_k1_bf16", "config": path_name, "card": card,
+          "shape": [bsz, m, dim, prep.w], "dist_blockmin_ms": ms, "plain_ms": plain_ms,
+          "library_ms": library_ms, "bound_ms": max(flop_ms, byte_ms),
+          "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+          "flops": flops, "bytes": nbytes})
+    del qs, bm_all, bm_real, cand
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_blockmin_throughput(card: str) -> dict:
+    """K4 at exact search's flagship shape (256 x 100,352 x 384, w = 8, the
+    last 352 rows of 1e6): kernel, plain version, one FP32 library product
+    (TF32 off) and the card's bound."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    b, n, d, w, pad = K4_SHAPES[-1]
+    q, x = _k4_inputs(b, n, d, pad, SEED)
+    ms = time_ms(lambda: kernels.blockmin(q, x, w=w))
+    plain_ms = time_ms(lambda: kernels.blockmin_reference(q, x, w=w), reps=5, warmup=1)
+    library_ms = time_ms(lambda: torch.matmul(q, x.T), reps=10)
+    flops = 2.0 * b * n * d
+    nbytes = 4.0 * (b * d + n * d + b * (n // w))
+    flop_ms = flops / FP32_PEAK_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {
+        "phase": "blockmin_throughput", "shape": [b, n, d, w], "card": card,
+        "blockmin_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(flop_ms, byte_ms),
+        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+    emit(out)
+    del q, x
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_assign_throughput(card: str, n=1_000_000, k=1024, d=128) -> dict:
     """The IVF1024 corpus assignment at the SIFT1M shape: kernel, plain
     version, one FP32 library product (TF32 off) and the card's bound."""
@@ -1348,18 +1811,30 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import vectordb_retrieval_tpu_torch  # noqa: F401
 
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
     card = phase_device()
     phase_build()
     worst = phase_kernels()
     launches = {name: 0 for name in worst}
+    # no path of the system calls blockmin: its launches are phase 3's
+    launches["blockmin"] = kernels.LAUNCHES["blockmin"]
     launches["dist_blockmin"] += phase_main_path(card, worst)
     paths = [phase_runner_path(card, cfg, worst) for cfg in RUNNER_CONFIGS]
-    for path in paths:
+    ct_paths = [phase_covertree_path(card, cfg, worst) for cfg in COVERTREE_CONFIGS]
+    for path in paths + ct_paths:
         for name, n in path["launches"].items():
+            if name != "blockmin":
+                launches[name] += n
+    ct_row = ct_paths[0]["rows"]["covertree_v2_2"]
+    phase_covertree_walks(card, ct_row)
+    for name, n in phase_covertree_fallback(card).items():
+        if name != "blockmin":
             launches[name] += n
-    phase_card_vs_host(card, paths)
+    phase_card_vs_host(card, paths + ct_paths)
     phase_persistence_round_trip(card, IVF_CONFIGS[1], "ivf_sq8")
     phase_persistence_round_trip(card, SURROGATE_CONFIG, "hnsw")
+    phase_persistence_round_trip(card, COVERTREE_CONFIGS[0], "covertree_v2_2")
     flagship = phase_throughput(card, 100_000, 384, 96)
     phase_throughput(card, 1_000_000, 128, 96)
     sift = paths[0]["rows"]
@@ -1375,7 +1850,9 @@ def main() -> int:
         if info["algo"].artifact.kind == "graph"
     }
     k2 = graph[(SURROGATE_CONFIG["name"], "hnsw")]["waves"][0]
+    phase_covertree_throughput(card, ct_paths[0]["name"], ct_row)
     k3 = phase_assign_throughput(card)
+    k4 = phase_blockmin_throughput(card)
 
     src = "vectordb_retrieval_tpu_torch/csrc/"
     tpu = "vectordb_retrieval_tpu/ops/pallas_kernels.py"
@@ -1412,6 +1889,14 @@ def main() -> int:
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"], "gather_ms": k2["gather_ms"],
         "shape": k2["shape"],
+    })
+    entries.append({
+        "name": "blockmin", "route": "cuda", "source": src + "blockmin.cu",
+        "replaces": f"{tpu}:337", "launches": launches["blockmin"],
+        "max_abs_err": worst["blockmin"], "ms": k4["blockmin_ms"],
+        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+        "shape": k4["shape"],
     })
     for e in entries:
         if e["launches"] < 1:

@@ -147,6 +147,10 @@ def _entry_point(name, tmp_path):
         from vectordb_retrieval_tpu_torch.models import get_algorithm_instance
 
         get_algorithm_instance("hnsw", 4)
+    elif name == "CoverTree":
+        from vectordb_retrieval_tpu_torch.models import get_algorithm_instance
+
+        get_algorithm_instance("covertree", 4)
     elif name == "msmarco_surrogate":
         from vectordb_retrieval_tpu_torch.data.datasets import Dataset
 
@@ -165,7 +169,7 @@ def _entry_point(name, tmp_path):
     ["exact_search", "compute_ground_truth", "BruteForceIndexer", "LinearSearcher",
      "ExactSearch", "artifact_from_numpy", "ExperimentRunner", "BenchmarkRunner",
      "FactoryIndexer", "ANNSearcher", "ApproximateSearch", "load_artifact",
-     "GraphIndexer", "HNSW", "msmarco_surrogate"],
+     "GraphIndexer", "HNSW", "CoverTree", "msmarco_surrogate"],
 )
 def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
     if torch.cuda.is_available():

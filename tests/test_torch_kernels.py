@@ -1,6 +1,6 @@
 """The port's kernels against the JAX Pallas kernels: dist_blockmin in its
-f32, bf16 and u8 modes, the k-means assignment, and the graph beam's slab
-dot products.
+f32, bf16 and u8 modes, the k-means assignment, the graph beam's slab
+dot products, and the interleaved full-L2 blockmin (K4).
 
 On CPU tensors the port's wrappers run their plain PyTorch versions; the
 JAX kernels run in interpret mode, as their own tests run them.
@@ -12,7 +12,9 @@ differ only in the order of their f32 sums); assignment: agreement
 matrix products summed in another order); slab dot products: 1e-5 x
 max|ref| on f32 slabs (f32 sums in another order) and 1e-4 x (|ref| + 1) on
 bf16 slabs (the JAX kernel's split query is the f32 query to ~2^-16; its
-own test allows 1e-3).
+own test allows 1e-3); K4: 1e-5 x max|ref| (both compute ||q||^2 +
+||x||^2 - 2 q.x with full-f32 products, summed in another order), and the
+JAX oracle test's 1e-3 against float64.
 """
 
 import numpy as np
@@ -23,7 +25,9 @@ import jax.numpy as jnp
 
 from vectordb_retrieval_tpu.ops.kmeans import kmeans_assign as jax_kmeans_assign
 from vectordb_retrieval_tpu.ops.pallas_kernels import (
+    _BM_TILE,
     assign_pallas,
+    blockmin_pallas,
     dist_blockmin_pad_rows as jax_pad_rows,
     dist_blockmin_pallas,
     kmeans_assign_fused,
@@ -197,7 +201,7 @@ def test_assign_launch_count_untouched_on_cpu(rng):
     assert kernels.LAUNCHES == before
     assert set(kernels.LAUNCHES) == {
         "dist_blockmin", "dist_blockmin_bf16", "dist_blockmin_u8", "assign",
-        "slab_dots"}
+        "slab_dots", "blockmin"}
 
 
 @pytest.mark.parametrize("kind", ["f64", "int_points", "dim", "noncontig", "empty"])
@@ -393,3 +397,95 @@ def test_slab_dots_wrapper_rejects(kind, exc):
         lv = torch.zeros((5, 16, 8)).transpose(1, 2)
     with pytest.raises(exc):
         kernels.slab_dots(q, lv, sel)
+
+
+# ---- K4: interleaved full-L2 blockmin ------------------------------------
+
+# (N, d, B, w): the JAX oracle test's shape, w = 32 (seg = 64), a ragged B,
+# two tiles at w = 16, and a database under one tile (TILE = N, seg = 32)
+K4_SHAPES = [(4096, 32, 8, 8), (4096, 32, 8, 32), (4096, 24, 5, 8), (4096, 17, 3, 16),
+             (256, 16, 4, 8)]
+
+
+def _k4_oracle(q, x, w):
+    """The JAX test's float64 oracle of the interleaved membership."""
+    n = x.shape[0]
+    tile = min(_BM_TILE, n)
+    seg = tile // w
+    full = ((q[:, None, :].astype(np.float64) - x[None].astype(np.float64)) ** 2).sum(-1)
+    out = np.empty((q.shape[0], n // w))
+    for g in range(n // w):
+        ti, j = g // seg, g % seg
+        out[:, g] = full[:, [ti * tile + j + i * seg for i in range(w)]].min(-1)
+    return out
+
+
+@pytest.mark.parametrize("n,d,b,w", K4_SHAPES)
+def test_blockmin_matches_pallas(rng, n, d, b, w):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    want = np.asarray(blockmin_pallas(jnp.asarray(q), jnp.asarray(x), w=w, interpret=True))
+    got = kernels.blockmin(torch.from_numpy(q), torch.from_numpy(x), w=w)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (b, n // w)
+    got = got.numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(got, _k4_oracle(q, x, w), rtol=1e-3, atol=1e-3)
+
+
+def test_blockmin_plain_version_chunks_by_tile(rng):
+    """Chunking the plain version by whole tiles changes nothing, and padding
+    rows of 1e6 never win a minimum."""
+    x = rng.standard_normal((6144, 12)).astype(np.float32)
+    q = rng.standard_normal((4, 12)).astype(np.float32)
+    x[5000:] = 1e6
+    tq, tx = torch.from_numpy(q), torch.from_numpy(x)
+    whole = kernels.blockmin_reference(tq, tx, w=8)
+    for chunk in (1, 2048, 4096, 5000):
+        assert torch.equal(kernels.blockmin_reference(tq, tx, w=8, chunk_rows=chunk), whole)
+    assert float(whole.max()) < 1e3  # every block keeps a real row
+    np.testing.assert_allclose(whole.numpy(), _k4_oracle(q, x, 8), rtol=1e-3, atol=1e-3)
+
+
+def test_blockmin_launch_count_untouched_on_cpu(rng):
+    before = dict(kernels.LAUNCHES)
+    kernels.blockmin(torch.zeros((2, 8)), torch.ones((64, 8)), w=8)
+    assert kernels.LAUNCHES == before
+    assert "blockmin" in kernels.LAUNCHES and "blockmin" in kernels.KERNEL_SOURCES
+
+
+@pytest.mark.parametrize(
+    "kind,exc",
+    [
+        ("f64", TypeError),
+        ("bf16", TypeError),
+        ("dim", ValueError),
+        ("rank", ValueError),
+        ("noncontig", ValueError),
+        ("ragged_tiles", ValueError),
+        ("w", ValueError),
+        ("w_over_tile", ValueError),
+        ("empty", ValueError),
+    ],
+)
+def test_blockmin_wrapper_rejects(kind, exc):
+    q, x, w = torch.zeros((4, 16)), torch.zeros((4096, 16)), 8
+    if kind == "f64":
+        x = x.double()
+    elif kind == "bf16":
+        q = q.to(torch.bfloat16)
+    elif kind == "dim":
+        q = torch.zeros((4, 12))
+    elif kind == "rank":
+        q = torch.zeros(16)
+    elif kind == "noncontig":
+        x = torch.zeros((16, 4096)).T
+    elif kind == "ragged_tiles":  # N % 2048 != 0 above one tile
+        x = torch.zeros((3000, 16))
+    elif kind == "w":
+        w = 12
+    elif kind == "w_over_tile":  # a 4-row tile cannot hold w = 8 members
+        x = torch.zeros((4, 16))
+    elif kind == "empty":
+        x = torch.zeros((0, 16))
+    with pytest.raises(exc):
+        kernels.blockmin(q, x, w=w)

@@ -232,8 +232,8 @@ def test_unknown_algorithm_type_raises_like_jax():
     from vectordb_retrieval_tpu.models import get_algorithm_instance as jax_get
 
     # not ported yet: unknown to the port's registry
-    with pytest.raises(ValueError, match="unknown algorithm type 'covertree'"):
-        get_algorithm_instance("covertree", 8, device="cpu")
+    with pytest.raises(ValueError, match="unknown algorithm type 'lsh'"):
+        get_algorithm_instance("lsh", 8, device="cpu")
     with pytest.raises(ValueError, match="unknown algorithm type 'nope'; known: ") as t:
         get_algorithm_instance("nope", 8, device="cpu")
     with pytest.raises(ValueError, match="unknown algorithm type 'nope'; known: "):

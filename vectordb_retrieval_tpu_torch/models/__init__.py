@@ -3,10 +3,10 @@
 Ported so far: the exact family (``exact``/``ExactSearch``, flat
 artifacts), the factory family for IVF-Flat, IVF-SQ8 and SQ8
 (``approx``/``ApproximateSearch``; ``FactoryIndexer``/``ANNSearcher`` and
-their ``Faiss*`` aliases in the component registries) and the graph family
-(``hnsw``/``HNSW``; ``GraphIndexer``/``HNSWIndexer``). Every other name of
-the JAX registry (cover tree, LSH) is unknown here and raises the same
-``ValueError``.
+their ``Faiss*`` aliases in the component registries), the graph family
+(``hnsw``/``HNSW``; ``GraphIndexer``/``HNSWIndexer``) and the cover tree
+(``covertree``/``CoverTree``/``CoverTreeV2_2``). The other name of the JAX
+registry (LSH) is unknown here and raises the same ``ValueError``.
 """
 
 from typing import Any, Dict, Type
@@ -28,6 +28,7 @@ from vectordb_retrieval_tpu_torch.models import flat  # noqa: F401,E402
 from vectordb_retrieval_tpu_torch.models import factory  # noqa: F401,E402
 from vectordb_retrieval_tpu_torch.models import graph as _graph  # noqa: E402
 from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm  # noqa: E402
+from vectordb_retrieval_tpu_torch.models.covertree import CoverTree  # noqa: E402
 from vectordb_retrieval_tpu_torch.models.exact import ExactSearch  # noqa: E402
 from vectordb_retrieval_tpu_torch.models.approximate import ApproximateSearch  # noqa: E402
 from vectordb_retrieval_tpu_torch.utils.device import DeviceLike  # noqa: E402
@@ -42,6 +43,9 @@ ALGORITHM_REGISTRY: Dict[str, Type[BaseAlgorithm]] = {
     "modular": CompositeAlgorithm,
     "hnsw": _graph.HNSW,
     "HNSW": _graph.HNSW,
+    "covertree": CoverTree,
+    "CoverTree": CoverTree,
+    "CoverTreeV2_2": CoverTree,
 }
 
 

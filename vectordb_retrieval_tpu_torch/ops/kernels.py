@@ -13,6 +13,10 @@ Kernels (each replaces one TPU kernel of
     the blocks its graph beam popped (the block beam's wave probe). Replaces
     ``slab_dots_manual`` and ``slab_dots_pallas``, which share one contract.
     CUDA C++ source: ``csrc/slab_dots.cu``.
+  * :func:`blockmin` — full-L2 per-block minima over interleaved blocks of
+    2048-row tiles (the first blockmin exact search's fused stage 1; no
+    search path calls it, :func:`dist_blockmin` superseded it). Replaces
+    ``blockmin_pallas``. CUDA C++ source: ``csrc/blockmin.cu``.
 
 Each wrapper routes by the device of its tensors: a CUDA tensor goes to the
 kernel (or the wrapper raises), a CPU tensor goes to the plain PyTorch
@@ -42,7 +46,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNEL_SOURCES = ("dist_blockmin", "assign", "slab_dots")
+KERNEL_SOURCES = ("dist_blockmin", "assign", "slab_dots", "blockmin")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -60,7 +64,7 @@ _SLAB_MODES = {
     torch.float32: "vrt_slab_dots_f32",
     torch.bfloat16: "vrt_slab_dots_bf16",
 }
-KERNELS = tuple(name for name, _ in _DBM_MODES.values()) + ("assign", "slab_dots")
+KERNELS = tuple(name for name, _ in _DBM_MODES.values()) + ("assign", "slab_dots", "blockmin")
 
 # launches per kernel mode, counted by the wrappers where they launch
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -113,6 +117,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         for fn in _SLAB_MODES.values():
             getattr(lib, fn).argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
             getattr(lib, fn).restype = ci
+    elif name == "blockmin":
+        lib.vrt_blockmin_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.vrt_blockmin_f32.restype = ci
     lib.vrt_cuda_error_string.argtypes = [ci]
     lib.vrt_cuda_error_string.restype = ctypes.c_char_p
 
@@ -499,4 +506,106 @@ def slab_dots(
         )
     _check_launch("slab_dots", "slab_dots", rc)
     LAUNCHES["slab_dots"] += 1
+    return out
+
+
+# ---- K4: full-L2 per-block minima over interleaved blocks ----------------
+
+# rows per tile of the interleaved layout (the TPU kernel's _BM_TILE)
+BLOCKMIN_TILE = 2048
+
+
+def blockmin_tile(n: int) -> int:
+    """Rows per tile for an ``n``-row database: ``min(2048, n)``."""
+    return min(BLOCKMIN_TILE, n)
+
+
+def blockmin_reference(
+    queries: torch.Tensor,
+    database: torch.Tensor,
+    w: int = 8,
+    chunk_rows: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`blockmin` (same contract): per tile,
+    ``||q||^2 + ||x||^2 - 2 q.x`` in f32, then the minimum over the ``w``
+    interleaved members of each block (a ``[B, w, seg]`` view of the tile's
+    columns), in whole tiles of at most ``chunk_rows`` rows at a time."""
+    b, n = queries.shape[0], database.shape[0]
+    tile = blockmin_tile(n)
+    seg = tile // w
+    chunk = max(tile, ((chunk_rows or _default_chunk_rows(b)) // tile) * tile)
+    qn = torch.sum(queries * queries, dim=1)
+    outs = []
+    for c0 in range(0, n, chunk):
+        x = database[c0 : c0 + chunk]
+        xn = torch.sum(x * x, dim=1)
+        dist = qn[:, None] + xn[None, :] - 2.0 * (queries @ x.T)
+        outs.append(dist.reshape(b, -1, w, seg).amin(dim=2).reshape(b, -1))
+    if not outs:
+        return torch.empty((b, 0), dtype=torch.float32, device=database.device)
+    return torch.cat(outs, dim=1)
+
+
+def _check_blockmin(queries: torch.Tensor, database: torch.Tensor, w: int) -> None:
+    fn = "blockmin"
+    for t, what in ((queries, "queries"), (database, "database")):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {what} must be float32, got {t.dtype}")
+        _check_2d(fn, what, t, database)
+    if queries.shape[1] != database.shape[1]:
+        raise ValueError(
+            f"{fn}: queries have d={queries.shape[1]}, database d={database.shape[1]}"
+        )
+    if w < 1 or w & (w - 1):
+        raise ValueError(f"{fn}: w={w} must be a power of two")
+    n = database.shape[0]
+    if n < 1:
+        raise ValueError(f"{fn}: need at least one database row")
+    tile = blockmin_tile(n)
+    if n % tile or tile % w:
+        raise ValueError(
+            f"{fn}: N={n} must be a multiple of the tile {tile} and the tile of "
+            f"w={w} (pad with large-valued rows)"
+        )
+    _check_device(fn, database)
+
+
+def blockmin(
+    queries: torch.Tensor,  # [B, d] f32
+    database: torch.Tensor,  # [N, d] f32, N % min(2048, N) == 0
+    w: int = 8,
+    chunk_rows: Optional[int] = None,
+) -> torch.Tensor:
+    """Per-block minima of the full squared L2 distance, ``[B, N/w]`` f32.
+
+    Blocks are interleaved within each tile of ``TILE = min(2048, N)`` rows:
+    block ``g`` holds rows ``(g // seg) * TILE + g % seg + i * seg`` for
+    ``i < w``, ``seg = TILE / w``. ``||x||^2`` comes from the rows read;
+    callers pad the database to a whole number of tiles with large-valued
+    rows, which never win a minimum.
+
+    CUDA tensors launch the kernel of ``csrc/blockmin.cu`` (FP32 FFMA) on the
+    current stream and count under ``LAUNCHES['blockmin']``. CPU tensors
+    take :func:`blockmin_reference`, with ``chunk_rows`` bounding its block.
+    """
+    _check_blockmin(queries, database, w)
+    if database.device.type == "cpu":
+        return blockmin_reference(queries, database, w, chunk_rows)
+    b, d = queries.shape
+    n = database.shape[0]
+    out = torch.empty((b, n // w), dtype=torch.float32, device=database.device)
+    if b == 0:
+        return out
+    if b > _MAX_GRID_Y * 128 or n >= 2**31:
+        raise ValueError(f"blockmin: B={b}, N={n} exceed the launch grid")
+    qn = torch.sum(queries * queries, dim=1)
+    lib = _lib("blockmin")
+    with torch.cuda.device(database.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vrt_blockmin_f32(
+            queries.data_ptr(), database.data_ptr(), qn.data_ptr(),
+            out.data_ptr(), b, n, d, w, blockmin_tile(n), stream,
+        )
+    _check_launch("blockmin", "blockmin", rc)
+    LAUNCHES["blockmin"] += 1
     return out
