@@ -9,10 +9,15 @@ on failure:
   1. device      - fail at once without CUDA; the card's name and power limit
   2. build       - compile every CUDA source of the port from ``csrc/`` (one
                    nvcc per source, all started together); registers, spills
-                   and shared memory per kernel
+                   and shared memory per kernel; the HGMMA (wgmma)
+                   instructions in the SASS of libdist_blockmin_tc.so (none
+                   fails the run)
   3. kernels     - each kernel against its plain PyTorch version on the card:
                    dist_blockmin in its f32, bf16 and u8 modes (flagship,
-                   ragged and 10%-dead shapes), assign (the IVF1024
+                   ragged and 10%-dead shapes; the tensor-core bf16 and u8
+                   modes, one pen and dist_blockmin_pair, over every
+                   combination of B 7/64/300, d 17/50/64/96/128/384 and w
+                   1/8/32/128 with S off the 128-row tile), assign (the IVF1024
                    k-means sample and corpus, a ragged shape, a tie case)
                    slab_dots (the two graph rows' wave shapes, an f32
                    shape, a ragged case with repeated and end ids) and
@@ -47,7 +52,7 @@ on failure:
                    configs/covertree_refresh.yaml: msmarco_surrogate (100k x
                    384 unit vectors, cosine, top-20, 512 queries in one batch,
                    repeat 16; auto descent: must take the block walk and
-                   launch dist_blockmin_bf16 twice per batch) and random (20k
+                   launch dist_blockmin_pair once per batch) and random (20k
                    x 64, l2, top-20, 256 queries); recall@20 == 1.0, build
                    time by part, nodes, depths, w, index bytes, ndis, overflowed
                    queries. Then, on the first row's artifact, the block walk
@@ -60,7 +65,7 @@ on failure:
      against its plain version on the very inputs it was launched with (the
      last launch of each kernel mode, shape and stage: ground truth, each
      build's k-means sample and corpus with its centroids, each timed
-     search; in 5c each of the block walk's two pens), after the launch
+     search; in 5c the pair on both of the block walk's pens), after the launch
      counts are read
   6. throughput  - exact search QPS at the flagship shape (100k x 384, l2,
                    top-20, batches of 256) and at 1M x 128 (w = 32); each IVF
@@ -70,9 +75,10 @@ on failure:
                    per-batch device time by stage (block beam: entry scan
                    and seed, per wave pop, slab_dots, merge, push; node
                    beam: seed, per iteration, rescore); the cover tree's
-                   first row: QPS and per-batch device time by stage (the two
-                   K1 launches, descent, selection, rescore, overflow read)
-                   beside the host clock, and K1 bf16 at its shape; each
+                   first row: QPS and per-batch device time by stage (the K1
+                   pair launch, descent, selection, rescore, overflow read)
+                   beside the host clock, and K1 bf16 (one pen) and the pair
+                   at its shape; each
                    kernel's time beside its plain version, one library call
                    and the card's bound
   7. the kernels line, the nvidia-smi line, and last the result line.
@@ -99,8 +105,8 @@ OUT_DIR = os.path.join(REPO, "_smoke_out")
 # tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth. The
 # bound of a kernel is the larger of its operations over the peak of their
 # type and its bytes over the bandwidth. dist_blockmin's bf16/u8 modes do a
-# bf16 product, so their ceiling is the tensor-core rate, whatever the
-# kernel runs on.
+# bf16 product on the tensor cores, so their ceiling is the tensor-core
+# rate.
 FP32_PEAK_FLOPS = 67e12
 BF16_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
@@ -110,8 +116,11 @@ HBM_BYTES_PER_S = 3.35e12
 # differ by a few f32 roundings of the largest partial sums; 1e-5 of the
 # largest |score| bounds that with a wide margin.
 KERNEL_REL_TOL = 1e-5
-# The bf16/u8 modes vs their plain version: both form exact bf16 products
-# and sum them in f32 in another order, so the same 1e-5 bound holds.
+# The bf16/u8 modes (and the pair) vs their plain version: both form exact
+# bf16 products and sum them in f32, the kernel on the tensor cores in
+# another order and with their own rounding of the partial sums, so they
+# differ by a few f32 roundings of sums of <= 384 products: the same 1e-5
+# bound holds.
 # assign vs its plain version: ids agree on >= 99.9 % (a point whose two
 # nearest centroids tie to f32 rounding may go either way), minimum
 # distances within 1e-5 of the largest (f32 sums in another order).
@@ -206,16 +215,24 @@ def phase_device():
 
 
 def phase_build() -> None:
+    """Build every source; the tensor-core library must hold HGMMA (wgmma)
+    instructions in its SASS."""
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     secs = kernels.build()
     ptxas = {
         name: [ln.strip() for ln in log.splitlines()
-               if "registers" in ln or "spill" in ln]
+               if "registers" in ln or "spill" in ln or "entry function" in ln]
         for name, log in kernels.BUILD_LOG.items()
     }
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", kernels._lib_path("dist_blockmin_tc")],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
     emit({"phase": "build", "kernels": list(kernels.KERNEL_SOURCES),
-          "seconds": secs, "ptxas": ptxas})
+          "seconds": secs, "ptxas": ptxas, "dist_blockmin_tc_hgmma": hgmma})
+    if hgmma < 1:
+        raise AssertionError("libdist_blockmin_tc.so holds no HGMMA instruction")
 
 
 # ---- 3. kernel vs plain version ----------------------------------------
@@ -230,11 +247,21 @@ K1_SHAPES = (
     (24, 8_192, 96, 16, 0.1),
 )
 # the bf16/u8 modes' ragged and 10%-dead shapes; the main path's own
-# inputs of every mode are checked in phases 4 and 5 (check_launched)
+# inputs of every mode are checked in phases 4, 5 and 5c (check_launched)
 K1_MODE_SHAPES = (
     (7, 1_000, 17, 16, 0.0),
     (24, 8_192, 96, 16, 0.1),
 )
+# the tensor-core kernel's tile edges, every combination, in both modes, one
+# pen and the pair: B over 1-3 query tiles of 128; N = 1000 + 37 w rows
+# padded to S % w == 0, so S is no multiple of the 128-row payload tile
+# (but for w = 128); d from the masked-load widths (17, 50) to the copied
+# ones, resident (<= 256) and streamed queries; w reduced in registers
+# (1, 8, 32) and across lanes (128); 10 % dead slots and three whole dead
+# blocks
+K1_TC_B = (7, 64, 300)
+K1_TC_D = (17, 50, 64, 96, 128, 384)
+K1_TC_W = (1, 8, 32, 128)
 # (N points, K centroids, d): the IVF1024 k-means sample (1024 x 256
 # points) and corpus at the SIFT1M shape, a ragged shape, and a tie case
 # with duplicated centroids; every build's own sample, corpus and centroids
@@ -267,6 +294,7 @@ K4_SHAPES = (
 )
 _MODE_NAME = {"f32": "dist_blockmin", "bf16": "dist_blockmin_bf16",
               "u8": "dist_blockmin_u8"}
+PAIR = "dist_blockmin_pair"  # counts under its payload's mode
 
 
 def _dtype_modes():
@@ -299,10 +327,24 @@ def _k1_inputs(b, n, d, w, dead, pen_kind, seed, mode="f32"):
     return q, x, pen.reshape(s // w, w).contiguous()
 
 
-def check_dist_blockmin(q, x, pen, w, where) -> float:
+def _blockmin_diff(got, want):
+    """(+inf positions equal, NaN in got, max abs error over finite entries,
+    max |want| there)."""
+    import torch
+
+    inf_ok = torch.equal(torch.isinf(got), torch.isinf(want))
+    nan = bool(torch.isnan(got).any())
+    fin = ~torch.isinf(want)
+    err = float((got - want)[fin].abs().max()) if fin.any() else 0.0
+    scale = float(want[fin].abs().max()) if fin.any() else 0.0
+    return inf_ok, nan, err, scale
+
+
+def check_dist_blockmin(q, x, pen, w, where, quiet=False) -> float:
     """One dist_blockmin launch against its plain version on the same
     inputs: identical +inf positions, no NaN, max error <= 1e-5 x max|plain|.
-    Emits the check and returns the max abs error."""
+    Emits the check (``quiet``: only a failing one) and returns the max abs
+    error."""
     import torch
 
     from vectordb_retrieval_tpu_torch.ops import kernels
@@ -311,23 +353,45 @@ def check_dist_blockmin(q, x, pen, w, where) -> float:
     want = kernels.dist_blockmin_reference(q, x, pen, w=w)
     torch.cuda.synchronize()
     name = _MODE_NAME[_dtype_modes()[x.dtype]]
-    inf_got, inf_want = torch.isinf(got), torch.isinf(want)
-    if not torch.equal(inf_got, inf_want):
-        raise AssertionError(f"{name} {where}: +inf positions differ")
-    if torch.isnan(got).any():
-        raise AssertionError(f"{name} {where}: NaN in output")
-    fin = ~inf_want
-    err = float((got - want)[fin].abs().max()) if fin.any() else 0.0
-    scale = float(want[fin].abs().max()) if fin.any() else 0.0
-    ok = err <= KERNEL_REL_TOL * scale
-    emit({"phase": "kernel_check", "kernel": name, "at": where,
-          "shape": [q.shape[0], x.shape[0], x.shape[1], w],
-          "dead_blocks": int(inf_want[0].sum()),
-          "dead_slots": int(torch.isinf(pen).sum()),
-          "max_abs_err": err, "max_abs_plain": scale,
-          "tol": KERNEL_REL_TOL * scale, "ok": ok})
+    inf_ok, nan, err, scale = _blockmin_diff(got, want)
+    ok = inf_ok and not nan and err <= KERNEL_REL_TOL * scale
+    if not ok or not quiet:
+        emit({"phase": "kernel_check", "kernel": name, "at": where,
+              "shape": [q.shape[0], x.shape[0], x.shape[1], w],
+              "dead_blocks": int(torch.isinf(want[0]).sum()),
+              "dead_slots": int(torch.isinf(pen).sum()),
+              "max_abs_err": err, "max_abs_plain": scale,
+              "tol": KERNEL_REL_TOL * scale, "inf_equal": inf_ok, "nan": nan, "ok": ok})
     if not ok:
-        raise AssertionError(f"{name} {where}: err {err}")
+        raise AssertionError(f"{name} {where}: err {err}, +inf equal {inf_ok}, NaN {nan}")
+    return err
+
+
+def check_dist_blockmin_pair(q, x, pen_a, pen_b, w, where, quiet=False) -> float:
+    """One dist_blockmin_pair launch against its plain version on the same
+    inputs, each output held as check_dist_blockmin holds one. Emits the
+    check (``quiet``: only a failing one) and returns the max abs error."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    got = kernels.dist_blockmin_pair(q, x, pen_a, pen_b, w=w)
+    want = kernels.dist_blockmin_pair_reference(q, x, pen_a, pen_b, w=w)
+    torch.cuda.synchronize()
+    diffs = [_blockmin_diff(g, h) for g, h in zip(got, want)]
+    ok = all(i and not n and e <= KERNEL_REL_TOL * s for i, n, e, s in diffs)
+    err = max(e for _, _, e, _ in diffs)
+    if not ok or not quiet:
+        emit({"phase": "kernel_check", "kernel": PAIR,
+              "mode": _dtype_modes()[x.dtype], "at": where,
+              "shape": [q.shape[0], x.shape[0], x.shape[1], w],
+              "dead_blocks": [int(torch.isinf(h[0]).sum()) for h in want],
+              "max_abs_err": [e for _, _, e, _ in diffs],
+              "tol": [KERNEL_REL_TOL * s for _, _, _, s in diffs],
+              "inf_equal": [i for i, _, _, _ in diffs], "nan": [n for _, n, _, _ in diffs],
+              "ok": ok})
+    if not ok:
+        raise AssertionError(f"{PAIR} {where}: {diffs}")
     return err
 
 
@@ -423,30 +487,33 @@ def check_slab_dots_shape(b, w, length, d, nb, dtype, seed) -> float:
 
 
 @contextlib.contextmanager
-def capture_launch_inputs(store: dict, stage: list, by_pen: bool = False):
+def capture_launch_inputs(store: dict, stage: list, pairs: list = None):
     """While active, keep in ``store`` the inputs of the last launch of
     each kernel mode at each shape in each stage (``stage[0]``, set by the
     caller), so that ``check_launched`` can hold every kernel against its
     plain version on the main path's own inputs (the kernels use no
-    atomics, so a launch on the same inputs gives the same output). With
-    ``by_pen``, bf16 dist_blockmin launches are also told apart by their
-    pen tensor (the cover tree's two streams over one bf16 slab). The
+    atomics, so a launch on the same inputs gives the same output).
+    ``pairs[0]``, where given, counts the dist_blockmin_pair calls. The
     launches themselves and their counts are the wrappers' own."""
-    import torch
-
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     orig_dbm, orig_assign = kernels.dist_blockmin, kernels.assign
-    orig_slab = kernels.slab_dots
+    orig_slab, orig_pair = kernels.slab_dots, kernels.dist_blockmin_pair
     modes = _dtype_modes()
 
     def dist_blockmin(queries, payload, pen, w=8, chunk_rows=None):
         out = orig_dbm(queries, payload, pen, w=w, chunk_rows=chunk_rows)
         name = _MODE_NAME[modes[payload.dtype]]
         key = (stage[0], name, tuple(queries.shape), tuple(payload.shape), w)
-        if by_pen and payload.dtype == torch.bfloat16:
-            key += (pen.data_ptr(),)
         store[key] = (queries, payload, pen, w)
+        return out
+
+    def dist_blockmin_pair(queries, payload, pen_a, pen_b, w=8, chunk_rows=None):
+        out = orig_pair(queries, payload, pen_a, pen_b, w=w, chunk_rows=chunk_rows)
+        key = (stage[0], PAIR, tuple(queries.shape), tuple(payload.shape), w)
+        store[key] = (queries, payload, pen_a, pen_b, w)
+        if pairs is not None:
+            pairs[0] += 1
         return out
 
     def assign(points, centroids, chunk_rows=None):
@@ -463,12 +530,12 @@ def capture_launch_inputs(store: dict, stage: list, by_pen: bool = False):
         return out
 
     kernels.dist_blockmin, kernels.assign = dist_blockmin, assign
-    kernels.slab_dots = slab_dots
+    kernels.slab_dots, kernels.dist_blockmin_pair = slab_dots, dist_blockmin_pair
     try:
         yield store
     finally:
         kernels.dist_blockmin, kernels.assign = orig_dbm, orig_assign
-        kernels.slab_dots = orig_slab
+        kernels.slab_dots, kernels.dist_blockmin_pair = orig_slab, orig_pair
 
 
 def check_launched(store: dict, prefix: str, worst: dict) -> None:
@@ -482,6 +549,8 @@ def check_launched(store: dict, prefix: str, worst: dict) -> None:
             err = check_assign_on(*args, where)
         elif key[1] == "slab_dots":
             err = check_slab_dots(*args, where)
+        elif key[1] == PAIR:
+            err = check_dist_blockmin_pair(*args, where)
         else:
             q, x, pen, w = args
             err = check_dist_blockmin(q, x, pen, w, where)
@@ -525,9 +594,46 @@ def check_blockmin(q, x, w, n_real, where) -> float:
     return err
 
 
+def _k1_tc_sweep(worst: dict) -> None:
+    """K1's tensor-core modes over every combination of K1_TC_B, K1_TC_D and
+    K1_TC_W: one pen (l2 and zero) and the pair (the l2 pen beside the zero
+    pen with slot 0 of every block dead too). One line per mode."""
+    import torch
+
+    for mode in ("bf16", "u8"):
+        name = _MODE_NAME[mode]
+        worst_one = worst_pair = 0.0
+        n = 0
+        for b in K1_TC_B:
+            for d in K1_TC_D:
+                for w in K1_TC_W:
+                    seed = SEED + b + d + w
+                    args = (b, 1000 + 37 * w, d, w, 0.1)
+                    q, x, pen_l2 = _k1_inputs(*args, "l2", seed, mode)
+                    _, _, pen_zero = _k1_inputs(*args, "zero", seed, mode)
+                    pen_zero[:: 2 if w == 1 else 1, 0] = float("inf")  # more dead slots
+                    where = f"sweep/B={b}/d={d}/w={w}"
+                    for pen in (pen_l2, pen_zero):
+                        err = check_dist_blockmin(q, x, pen, w, where, quiet=True)
+                        worst_one = max(worst_one, err)
+                    err = check_dist_blockmin_pair(q, x, pen_l2, pen_zero, w, where, quiet=True)
+                    worst_pair = max(worst_pair, err)
+                    n += 1
+        torch.cuda.empty_cache()
+        worst[name] = max(worst[name], worst_one)
+        worst[PAIR] = max(worst[PAIR], worst_pair)
+        emit({"phase": "kernel_check_sweep", "kernel": name, "shapes": n,
+              "launches_checked": 3 * n, "B": list(K1_TC_B), "d": list(K1_TC_D),
+              "w": list(K1_TC_W), "rows": "1000 + 37 w, padded to S % w == 0",
+              "dead": "10 % of slots and 3 whole blocks", "max_abs_err": worst_one,
+              "pair_max_abs_err": worst_pair, "tol": f"{KERNEL_REL_TOL} x max|plain|",
+              "ok": True})
+
+
 def phase_kernels() -> dict:
     """Worst max abs error per kernel name."""
-    worst = {name: 0.0 for name in (*_MODE_NAME.values(), "assign", "slab_dots", "blockmin")}
+    worst = {name: 0.0 for name in (*_MODE_NAME.values(), PAIR, "assign", "slab_dots",
+                                    "blockmin")}
     for i, (b, n, d, w, dead) in enumerate(K1_SHAPES):
         for pen_kind in ("l2", "zero"):
             q, x, pen = _k1_inputs(b, n, d, w, dead, pen_kind, SEED + i)
@@ -539,6 +645,7 @@ def phase_kernels() -> dict:
                 q, x, pen = _k1_inputs(b, n, d, w, dead, pen_kind, SEED + i, mode)
                 err = check_dist_blockmin(q, x, pen, w, f"synthetic/{pen_kind}/dead={dead}")
                 worst[_MODE_NAME[mode]] = max(worst[_MODE_NAME[mode]], err)
+    _k1_tc_sweep(worst)
     for i, (n, k, d, dup) in enumerate(K3_SHAPES):
         worst["assign"] = max(worst["assign"], check_assign(n, k, d, dup, SEED + i))
     for i, shape in enumerate(K2_SHAPES):
@@ -1155,8 +1262,9 @@ def _ct_queries(algo, queries):
 def phase_covertree_path(card: str, cfg, worst: dict) -> dict:
     """One cover-tree row through the BenchmarkRunner with the launch counts
     set to 0 just before and read just after: exact recall, the block walk
-    and its two dist_blockmin_bf16 launches per batch; then every launch
-    held against its plain version on its own inputs (both pens)."""
+    and its one dist_blockmin_pair launch (counted under
+    dist_blockmin_bf16) per batch; then every launch held against its plain
+    version on its own inputs (the pair on both pens)."""
     import torch
     import yaml
 
@@ -1166,7 +1274,7 @@ def phase_covertree_path(card: str, cfg, worst: dict) -> dict:
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     runners, builds, searches = [], {}, {}
-    launched, stage = {}, ["ground_truth"]
+    launched, stage, pairs = {}, ["ground_truth"], [0]
     orig_run = experiment.ExperimentRunner.run
     orig_build = CoverTree.build_index
     orig_search = experiment.ExperimentRunner._timed_search
@@ -1202,7 +1310,7 @@ def phase_covertree_path(card: str, cfg, worst: dict) -> dict:
     CoverTree.build_index = counted_build
     experiment.ExperimentRunner._timed_search = counted_search
     try:
-        with capture_launch_inputs(launched, stage, by_pen=True):
+        with capture_launch_inputs(launched, stage, pairs):
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             results = BenchmarkRunner(path).run()
@@ -1215,6 +1323,9 @@ def phase_covertree_path(card: str, cfg, worst: dict) -> dict:
         experiment.ExperimentRunner._timed_search = orig_search
     n_checked = len(launched)
     check_launched(launched, cfg["name"], worst)
+    if launches["dist_blockmin_bf16"] != pairs[0]:
+        raise AssertionError(f"{cfg['name']}: {launches['dist_blockmin_bf16']} bf16 launches, "
+                             f"{pairs[0]} of them pairs: the block walk launches only the pair")
 
     ds = results[_ivf_dataset(cfg)["name"]]
     if "error" in ds:
@@ -1234,10 +1345,10 @@ def phase_covertree_path(card: str, cfg, worst: dict) -> dict:
         b, s = builds.get(row, {}), searches.get(row, {})
         batches = -(-len(queries) // bsz)
         calls = 1 + cfg["repeat"] * batches  # the warm-up batch + the timed passes
-        if not algo.uses_blockwalk() or s.get("dist_blockmin_bf16") != 2 * calls:
+        if not algo.uses_blockwalk() or s.get("dist_blockmin_bf16") != calls:
             raise AssertionError(
                 f"{cfg['name']}/{row}: block walk {algo.uses_blockwalk()}, "
-                f"dist_blockmin_bf16 launches {s.get('dist_blockmin_bf16')} != {2 * calls}")
+                f"dist_blockmin_pair launches {s.get('dist_blockmin_bf16')} != {calls}")
         k = min(topk, cfg["n"])
         q = _ct_queries(algo, queries)
         overflowed = sum(int(algo._search(q[i : i + bsz], k).overflow.sum())
@@ -1258,7 +1369,7 @@ def phase_covertree_path(card: str, cfg, worst: dict) -> dict:
             "ndis_per_query": res.get("operations_per_query"),
             "queries": len(queries), "overflowed_queries": overflowed,
             "launches_build": b, "launches_timed_search": s,
-            "dist_blockmin_bf16_per_batch": s["dist_blockmin_bf16"] / calls,
+            "dist_blockmin_pair_per_batch": s["dist_blockmin_bf16"] / calls,
             "launch_inputs_checked": n_checked,
         })
         rows[row] = {"algo": algo, "queries": queries, "k": k, "batch": bsz}
@@ -1647,11 +1758,12 @@ def phase_graph_throughput(card: str, path_name: str, row: str, info) -> dict:
 def phase_covertree_throughput(card: str, path_name: str, info) -> dict:
     """The cover tree's row: QPS over its queries (the clock stops with the
     ids on the host), then one batch's device time by stage, each stage
-    timed on the inputs the search gives it (primed events): the two K1
-    launches, the descent, the selection, the gather, rescore and
+    timed on the inputs the search gives it (primed events): the K1 pair
+    launch, the descent, the selection, the gather, rescore and
     certificate, and the exact search of the flagged rows; the host read of
-    the flags on the host clock; and K1 bf16 at this shape beside its plain
-    version, one library call and the card's bound."""
+    the flags on the host clock; and K1 bf16 at this shape (one pen) and the
+    pair, each beside its plain version, one library call and the card's
+    bound. Returns the K1 numbers by kernel name."""
     import torch
 
     from vectordb_retrieval_tpu_torch.ops import covertree as ctops
@@ -1711,7 +1823,7 @@ def phase_covertree_throughput(card: str, path_name: str, info) -> dict:
         "qps": batches * bsz / elapsed, "seconds": elapsed, "batches": batches,
         "passes": passes, "batch": bsz, "ms_per_batch": elapsed / batches * 1e3,
         "depths": len(prep.depth_sizes), "w": prep.w, "blocks": prep.pen_all.shape[0],
-        "k1_two_launches_ms": k1_ms, "descent_ms": descent_ms, "select_ms": select_ms,
+        "k1_pair_ms": k1_ms, "descent_ms": descent_ms, "select_ms": select_ms,
         "rescore_certify_ms": rescore_ms, "overflow_read_host_ms": read_host_ms,
         "flagged_queries": int(flagged.numel()), "fallback_exact_ms": fallback_ms,
         "stages_device_ms": stages_ms, "search_device_ms": search_ms,
@@ -1719,26 +1831,38 @@ def phase_covertree_throughput(card: str, path_name: str, info) -> dict:
     }
     emit(out)
 
-    # K1 bf16 at this shape: one launch (pen_all)
-    slab_bf, pen = prep.slab_bf, prep.pen_all
-    ms = time_ms(lambda: kernels.dist_blockmin(q, slab_bf, pen, w=prep.w))
-    plain_ms = time_ms(lambda: kernels.dist_blockmin_reference(q, slab_bf, pen, w=prep.w),
-                       reps=3, warmup=1)
+    # K1 bf16 at this shape: one launch with one pen (pen_all), and the
+    # pair (pen_all, pen_real) that the block walk launches; one library
+    # product (bf16, the same for both) as the yardstick
+    slab_bf, w = prep.slab_bf, prep.w
+    m, dim = slab_bf.shape
     qb = q.to(torch.bfloat16)
     library_ms = time_ms(lambda: torch.matmul(qb, slab_bf.T), reps=10)
-    m, dim = slab_bf.shape
     flops = 2.0 * bsz * m * dim
-    nbytes = 2.0 * bsz * dim + 2.0 * m * dim + 4.0 * m + 4.0 * bsz * (m // prep.w)
-    flop_ms = flops / BF16_PEAK_FLOPS * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    emit({"phase": "covertree_k1_bf16", "config": path_name, "card": card,
-          "shape": [bsz, m, dim, prep.w], "dist_blockmin_ms": ms, "plain_ms": plain_ms,
-          "library_ms": library_ms, "bound_ms": max(flop_ms, byte_ms),
-          "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-          "flops": flops, "bytes": nbytes})
+    k1 = {}
+    for name, pens in (("dist_blockmin_bf16", (prep.pen_all,)),
+                       (PAIR, (prep.pen_all, prep.pen_real))):
+        if len(pens) == 1:
+            ms = time_ms(lambda: kernels.dist_blockmin(q, slab_bf, pens[0], w=w))
+            plain_ms = time_ms(lambda: kernels.dist_blockmin_reference(q, slab_bf, pens[0], w=w),
+                               reps=3, warmup=1)
+        else:
+            ms = time_ms(lambda: kernels.dist_blockmin_pair(q, slab_bf, *pens, w=w))
+            plain_ms = time_ms(lambda: kernels.dist_blockmin_pair_reference(q, slab_bf, *pens, w=w),
+                               reps=3, warmup=1)
+        nbytes = 2.0 * bsz * dim + 2.0 * m * dim + len(pens) * (4.0 * m + 4.0 * bsz * (m // w))
+        flop_ms = flops / BF16_PEAK_FLOPS * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        k1[name] = {"phase": "covertree_k1", "kernel": name, "config": path_name, "card": card,
+                    "shape": [bsz, m, dim, w], "pens": len(pens), "dist_blockmin_ms": ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": max(flop_ms, byte_ms),
+                    "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+                    "flops": flops, "bytes": nbytes}
+        emit(k1[name])
     del qs, bm_all, bm_real, cand
     torch.cuda.empty_cache()
-    return out
+    return k1
 
 
 def phase_blockmin_throughput(card: str) -> dict:
@@ -1822,15 +1946,17 @@ def main() -> int:
     launches["dist_blockmin"] += phase_main_path(card, worst)
     paths = [phase_runner_path(card, cfg, worst) for cfg in RUNNER_CONFIGS]
     ct_paths = [phase_covertree_path(card, cfg, worst) for cfg in COVERTREE_CONFIGS]
-    for path in paths + ct_paths:
-        for name, n in path["launches"].items():
+    def add(run, cover_tree):
+        # the cover tree's bf16 launches are all pairs (phase 5c checks it)
+        for name, n in run.items():
             if name != "blockmin":
-                launches[name] += n
+                launches[PAIR if cover_tree and name == "dist_blockmin_bf16" else name] += n
+
+    for path in paths + ct_paths:
+        add(path["launches"], path in ct_paths)
     ct_row = ct_paths[0]["rows"]["covertree_v2_2"]
     phase_covertree_walks(card, ct_row)
-    for name, n in phase_covertree_fallback(card).items():
-        if name != "blockmin":
-            launches[name] += n
+    add(phase_covertree_fallback(card), True)
     phase_card_vs_host(card, paths + ct_paths)
     phase_persistence_round_trip(card, IVF_CONFIGS[1], "ivf_sq8")
     phase_persistence_round_trip(card, SURROGATE_CONFIG, "hnsw")
@@ -1850,7 +1976,7 @@ def main() -> int:
         if info["algo"].artifact.kind == "graph"
     }
     k2 = graph[(SURROGATE_CONFIG["name"], "hnsw")]["waves"][0]
-    phase_covertree_throughput(card, ct_paths[0]["name"], ct_row)
+    ct_k1 = phase_covertree_throughput(card, ct_paths[0]["name"], ct_row)
     k3 = phase_assign_throughput(card)
     k4 = phase_blockmin_throughput(card)
 
@@ -1864,9 +1990,10 @@ def main() -> int:
         "bound_by": flagship["bound_by"], "library_ms": flagship["library_ms"],
         "shape": [BATCH, 100_000, 384, flagship["w"]],
     }]
+    by_kernel[PAIR] = ct_k1[PAIR]
     for name, t in by_kernel.items():
         entries.append({
-            "name": name, "route": "cuda", "source": src + "dist_blockmin.cu",
+            "name": name, "route": "cuda", "source": src + "dist_blockmin_tc.cu",
             "replaces": f"{tpu}:220", "launches": launches[name],
             "max_abs_err": worst[name], "ms": t["dist_blockmin_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -214,6 +214,51 @@ def test_search_matches_jax_on_jax_artifact(jax_trees, metric, descent, k, err_c
                                    _oracle(_unit(x, metric), q, k), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_blockwalk_stage1_is_one_pair_equal_to_jax_k1(jax_trees, metric, monkeypatch):
+    """The block walk's stage 1 is one dist_blockmin_pair call and no
+    single-pen K1, and its two outputs equal the JAX package's two K1 bf16
+    streams over the same slab (dist_blockmin_pallas in interpret mode, as
+    covertree_blockwalk_search pads and calls it): 1e-5 x max, +inf alike."""
+    from vectordb_retrieval_tpu.ops import pallas_kernels as plk
+    from vectordb_retrieval_tpu.ops.distances import blockmin_width as jax_width
+
+    x, q, j = jax_trees[metric]
+    if metric == "cosine":
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    t = _to_port(j)
+    d, meta = t.artifact.data, t.artifact.metadata
+    prep = tops.blockwalk_prep(d["slab"], d["is_real"], d["radii"], d["parent_rel"],
+                               tuple(meta["depth_sizes"]))
+    calls = []
+    pair = kernels.dist_blockmin_pair
+    monkeypatch.setattr(kernels, "dist_blockmin_pair",
+                        lambda *a, **k: calls.append(a[1].dtype) or pair(*a, **k))
+    monkeypatch.setattr(kernels, "dist_blockmin",
+                        lambda *a, **k: pytest.fail("a single-pen K1 launch in stage 1"))
+    got = tops.blockwalk_stage1(torch.from_numpy(q), prep)
+    assert calls == [torch.bfloat16]
+
+    jd = {k: jnp.asarray(v) for k, v in j.artifact.data.items()}
+    slab = jd["slab"]
+    m, w = slab.shape[0], jax_width(slab.shape[0])
+    assert w == prep.w
+    xn = jnp.sum(slab * slab, axis=-1)
+    noninert = jd["is_real"] | (jd["radii"] >= 0.0)
+    s_pad = plk.dist_blockmin_pad_rows(m, w)
+    slab_bf = jnp.pad(slab, ((0, s_pad - m), (0, 0))).astype(jnp.bfloat16)
+    for pen, bm in ((jnp.where(noninert, xn, jnp.inf), got[0]),
+                    (jnp.where(jd["is_real"], xn, jnp.inf), got[1])):
+        pen = jnp.pad(pen, (0, s_pad - m), constant_values=jnp.inf).reshape(-1, w)
+        want = np.asarray(plk.dist_blockmin_pallas(
+            jnp.asarray(q), slab_bf, pen, w=w, interpret=True))[:, : m // w]
+        bm = bm.numpy()
+        assert bm.shape == want.shape
+        np.testing.assert_array_equal(np.isinf(bm), np.isinf(want))
+        fin = np.isfinite(want)
+        assert np.abs(bm[fin] - want[fin]).max() <= 1e-5 * np.abs(want[fin]).max()
+
+
 def _unit(x, metric):
     return x / np.linalg.norm(x, axis=1, keepdims=True) if metric == "cosine" else x
 

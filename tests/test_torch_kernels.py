@@ -1,6 +1,7 @@
 """The port's kernels against the JAX Pallas kernels: dist_blockmin in its
-f32, bf16 and u8 modes, the k-means assignment, the graph beam's slab
-dot products, and the interleaved full-L2 blockmin (K4).
+f32, bf16 and u8 modes and dist_blockmin_pair (two pens over one bf16/u8
+product), the k-means assignment, the graph beam's slab dot products, and
+the interleaved full-L2 blockmin (K4).
 
 On CPU tensors the port's wrappers run their plain PyTorch versions; the
 JAX kernels run in interpret mode, as their own tests run them.
@@ -148,6 +149,101 @@ def test_dist_blockmin_modes_match_pallas(rng, mode, w, pen_kind):
     assert np.abs(got[fin] - want[fin]).max() <= 1e-5 * np.abs(want[fin]).max()
 
 
+def _pair_pens(rng, x, pen, pen_kind):
+    """A second pen over the same payload: the other kind, with the first
+    pen's dead slots and slot 0 of every block dead too (as the cover
+    tree's pen of real nodes is a subset of its pen of all nodes)."""
+    xf = x.astype(np.float32) if x.dtype == np.uint8 else np.asarray(
+        jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    other = np.zeros(pen.shape, np.float32) if pen_kind == "l2" else (
+        (xf * xf).sum(1).reshape(pen.shape).astype(np.float32))
+    other[np.isinf(pen)] = np.inf
+    other[:, 0] = np.inf
+    return other
+
+
+@pytest.mark.parametrize("pen_kind", ["l2", "zero"])
+@pytest.mark.parametrize("w", [8, 16, 32])
+@pytest.mark.parametrize("mode", ["bf16", "u8"])
+def test_dist_blockmin_pair_matches_pallas(rng, mode, w, pen_kind):
+    """The pair equals two dist_blockmin_pallas calls, one per pen."""
+    n, d, b = 1500, 48, 12
+    q, x, pen_a = _mode_inputs(rng, n, d, b, w, mode, pen_kind)
+    pen_b = _pair_pens(rng, x, pen_a, pen_kind)
+    jx = jnp.asarray(x) if mode == "u8" else jnp.asarray(x).astype(jnp.bfloat16)
+    jq = jnp.asarray(q).astype(jnp.bfloat16)
+    want = [np.asarray(dist_blockmin_pallas(jq, jx, jnp.asarray(pen), w=w, interpret=True))
+            for pen in (pen_a, pen_b)]
+    tx = torch.from_numpy(x)
+    if mode == "bf16":
+        tx = tx.to(torch.bfloat16)
+    got = kernels.dist_blockmin_pair(
+        torch.from_numpy(q), tx, torch.from_numpy(pen_a), torch.from_numpy(pen_b), w=w)
+    assert len(got) == 2
+    for g, h in zip(got, want):
+        g = g.numpy()
+        assert g.shape == h.shape == (b, pen_a.shape[0]) and g.dtype == np.float32
+        np.testing.assert_array_equal(np.isinf(g), np.isinf(h))
+        assert np.isinf(g[:, 2]).all()  # block 2 is dead in both pens
+        fin = np.isfinite(h)
+        assert np.abs(g[fin] - h[fin]).max() <= 1e-5 * np.abs(h[fin]).max()
+    assert not np.array_equal(got[0].numpy(), got[1].numpy())  # two pens, two results
+
+
+def test_dist_blockmin_pair_plain_version_is_one_product(rng):
+    """On the CPU the pair counts nothing, chunks alike, and gives each
+    pen's dist_blockmin result bit for bit."""
+    q, x, pen_a = _mode_inputs(rng, 700, 24, 5, 8, "u8", "l2")
+    pen_b = _pair_pens(rng, x, pen_a, "l2")
+    args = (torch.from_numpy(q), torch.from_numpy(x))
+    pa, pb = torch.from_numpy(pen_a), torch.from_numpy(pen_b)
+    before = dict(kernels.LAUNCHES)
+    full = kernels.dist_blockmin_pair(*args, pa, pb, w=8)
+    chunked = kernels.dist_blockmin_pair(*args, pa, pb, w=8, chunk_rows=40)
+    assert kernels.LAUNCHES == before
+    for got, pen, part in zip(full, (pa, pb), chunked):
+        torch.testing.assert_close(got, kernels.dist_blockmin(*args, pen, w=8), rtol=0, atol=0)
+        torch.testing.assert_close(part, got, rtol=1e-6, atol=1e-4)
+    # the pair counts under its payload's mode, as dist_blockmin does
+    assert set(kernels._PAIR_ENTRIES) <= set(kernels._DBM_MODES)
+
+
+def _bad_pair(kind):
+    q = torch.zeros((4, 16))
+    x = torch.zeros((64, 16), dtype=torch.bfloat16)
+    pen_a, pen_b = torch.zeros((8, 8)), torch.zeros((8, 8))
+    if kind == "pen_shape":  # the second pen is not (S/w, w)
+        pen_b = torch.zeros((4, 16))
+    elif kind == "pen_len":
+        pen_b = torch.zeros((7, 8))
+    elif kind == "pen_dtype":
+        pen_b = pen_b.double()
+    elif kind == "pen_bf16":
+        pen_a = pen_a.to(torch.bfloat16)
+    elif kind == "f32_payload":  # the pair is a tensor-core mode only
+        x = x.float()
+    elif kind == "noncontig":
+        pen_b = torch.zeros((8, 8)).T
+    return q, x, pen_a, pen_b
+
+
+@pytest.mark.parametrize(
+    "kind,exc",
+    [
+        ("pen_shape", ValueError),
+        ("pen_len", ValueError),
+        ("pen_dtype", TypeError),
+        ("pen_bf16", TypeError),
+        ("f32_payload", TypeError),
+        ("noncontig", ValueError),
+    ],
+)
+def test_dist_blockmin_pair_wrapper_rejects(kind, exc):
+    q, x, pen_a, pen_b = _bad_pair(kind)
+    with pytest.raises(exc):
+        kernels.dist_blockmin_pair(q, x, pen_a, pen_b, w=8)
+
+
 def test_dist_blockmin_bf16_queries_are_rounded_once(rng):
     """f32 queries and the same queries pre-rounded to bf16 score alike."""
     q, x, pen = _mode_inputs(rng, 256, 16, 3, 8, "u8", "l2")
@@ -270,20 +366,62 @@ def test_dist_blockmin_wrapper_rejects(kind, exc):
 
 
 def test_kernel_source_and_build_key():
-    """Every kernel's source ships in csrc/; its build directory is keyed
-    by the source, the shared header and the compiler flags."""
+    """Every kernel's source ships in csrc/ and includes one of its shared
+    headers (the FFMA tile, or the wgmma helpers for the tensor-core K1);
+    its build directory is keyed by the source, the headers and the
+    compiler flags."""
     import os
 
+    headers = {name: "ffma_tile.cuh" for name in kernels.KERNEL_SOURCES}
+    headers["dist_blockmin_tc"] = "wgmma.cuh"
+    assert set(headers) == set(kernels.KERNEL_SOURCES)
     for name in kernels.KERNEL_SOURCES:
         src = os.path.join(kernels.CSRC_DIR, f"{name}.cu")
         assert os.path.exists(src)
         with open(src) as f:
-            assert '#include "ffma_tile.cuh"' in f.read()
+            assert f'#include "{headers[name]}"' in f.read()
         path = kernels._lib_path(name)
         assert path.startswith(kernels.BUILD_DIR)
         assert path.endswith(f"lib{name}.so")
-    assert os.path.exists(os.path.join(kernels.CSRC_DIR, "ffma_tile.cuh"))
+    for header in set(headers.values()):
+        assert os.path.exists(os.path.join(kernels.CSRC_DIR, header))
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+
+
+def test_k1_entry_points_live_in_one_source_each():
+    """Each K1 entry point the wrappers call is defined in the source the
+    wrapper loads and in no other: bf16 and u8 (one pen and the pair) only
+    on the tensor cores, f32 only on FFMA."""
+    import os
+    import re
+
+    defined = {}
+    for name in kernels.KERNEL_SOURCES:
+        with open(os.path.join(kernels.CSRC_DIR, f"{name}.cu")) as f:
+            for fn in re.findall(r'extern "C" int (vrt_\w+)\(', f.read()):
+                defined.setdefault(fn, []).append(name)
+    for _, source, fn in kernels._DBM_MODES.values():
+        assert defined[fn] == [source], fn
+    for fn in kernels._PAIR_ENTRIES.values():
+        assert defined[fn] == ["dist_blockmin_tc"], fn
+    assert [fn for fn, srcs in defined.items() if srcs == ["dist_blockmin"]] == [
+        "vrt_dist_blockmin_f32"]
+    assert {kernels._DBM_MODES[t][1] for t in (torch.bfloat16, torch.uint8)} == {
+        "dist_blockmin_tc"}
+
+
+def test_build_key_follows_the_wgmma_header(tmp_path, monkeypatch):
+    """A change to wgmma.cuh alone moves every kernel's build key too."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(kernels, "CSRC_DIR", str(csrc))
+    before = {name: kernels._lib_path(name) for name in kernels.KERNEL_SOURCES}
+    with open(csrc / "wgmma.cuh", "a") as f:
+        f.write("\n// edited\n")
+    for name in kernels.KERNEL_SOURCES:
+        assert kernels._lib_path(name) != before[name]
 
 
 def test_build_key_follows_the_shared_header(tmp_path, monkeypatch):

@@ -43,12 +43,6 @@ struct BF16 {  // the 16 raw bits of a bfloat16
     return __uint_as_float(static_cast<uint32_t>(__ldg(p)) << 16);
   }
 };
-struct U8 {
-  using T = uint8_t;
-  static __device__ __forceinline__ float load(const T* p) {
-    return static_cast<float>(__ldg(p));
-  }
-};
 
 // The two double-buffered stages of both operands, k-major.
 struct TileSmem {

@@ -13,10 +13,11 @@ Two descents, one result (:class:`CoverTreeSearchResult`):
     of ``_STREAM_CHUNK``), an alive mask carried from parent to child, the
     prune test ``d_lo(q, v) - r(v) > kth_ub`` and a folded kth upper bound
     over ``[B, kprime]`` slots. No kernel.
-  * :func:`covertree_blockwalk_search` first runs two fused blockmin
-    streams over a bf16 copy of the whole slab (kernel K1,
-    :func:`~vectordb_retrieval_tpu_torch.ops.kernels.dist_blockmin`, bf16
-    mode): block minima over all non-inert nodes and over real nodes only.
+  * :func:`covertree_blockwalk_search` first runs one fused blockmin
+    product over a bf16 copy of the whole slab with two pens (kernel K1,
+    :func:`~vectordb_retrieval_tpu_torch.ops.kernels.dist_blockmin_pair`,
+    bf16 mode, one launch): block minima over all non-inert nodes and over
+    real nodes only.
     The descent then runs on ``[B, M/w]`` block arrays; a block's aliveness
     is the inclusive OR over its parents' block range, two gathers of an
     exclusive cumulative sum.
@@ -289,12 +290,11 @@ def blockwalk_prep(
 def blockwalk_stage1(
     queries: torch.Tensor, prep: BlockWalkPrep
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The two K1 bf16 streams over the whole slab: ``(bm_all, bm_real)``,
-    each ``[B, G]`` of ``min(pen - 2 dot_bf16)`` per block."""
-    q = queries.contiguous()
-    bm_all = kernels.dist_blockmin(q, prep.slab_bf, prep.pen_all, w=prep.w)
-    bm_real = kernels.dist_blockmin(q, prep.slab_bf, prep.pen_real, w=prep.w)
-    return bm_all, bm_real
+    """K1 bf16 over the whole slab with both pens, in one launch:
+    ``(bm_all, bm_real)``, each ``[B, G]`` of ``min(pen - 2 dot_bf16)`` per
+    block (the JAX package's two K1 streams, from one product)."""
+    return kernels.dist_blockmin_pair(
+        queries.contiguous(), prep.slab_bf, prep.pen_all, prep.pen_real, w=prep.w)
 
 
 def blockwalk_descent(
@@ -378,7 +378,7 @@ def covertree_blockwalk_search(
     """Exact k-NN by the block-granular descent (module docstring); the
     same contract as :func:`covertree_stream_search`.
 
-    Stages: :func:`blockwalk_stage1` (two K1 bf16 launches),
+    Stages: :func:`blockwalk_stage1` (one K1 bf16 launch, two pens),
     :func:`blockwalk_descent`, :func:`blockwalk_select`,
     :func:`rescore_blocks` and :func:`certify`. ``prep`` is the artifact's
     :func:`blockwalk_prep`, derived here when not given.

@@ -4,8 +4,12 @@ Kernels (each replaces one TPU kernel of
 ``vectordb_retrieval_tpu/ops/pallas_kernels.py``):
   * :func:`dist_blockmin` — fused distance + per-block minimum over f32,
     bf16 or u8 payloads (exact-search stage 1; the IVF-Flat and IVF-SQ8
-    fused probed stream). Replaces ``dist_blockmin_pallas`` in all three
-    of its modes. CUDA C++ source: ``csrc/dist_blockmin.cu``.
+    fused probed stream; the cover tree's block walk). Replaces
+    ``dist_blockmin_pallas`` in all three of its modes. CUDA C++ sources:
+    ``csrc/dist_blockmin.cu`` (f32, FP32 FFMA) and
+    ``csrc/dist_blockmin_tc.cu`` (bf16 and u8, on the tensor cores with
+    ``wgmma``); :func:`dist_blockmin_pair` applies two pens to one bf16/u8
+    product in one launch.
   * :func:`assign` — nearest-centroid (argmin, min) for k-means fitting and
     IVF list assignment. Replaces ``assign_pallas``. CUDA C++ source:
     ``csrc/assign.cu``.
@@ -22,9 +26,10 @@ Each wrapper routes by the device of its tensors: a CUDA tensor goes to the
 kernel (or the wrapper raises), a CPU tensor goes to the plain PyTorch
 version beside it. Nothing falls back from one to the other.
 
-Kernels are compiled from ``csrc/`` (each source includes the header
-they share, ``csrc/ffma_tile.cuh``) with ``nvcc`` for ``sm_90a`` at first
-use, into ``_build/<hash of source, headers and flags>/``, and loaded with
+Kernels are compiled from ``csrc/`` (each source includes one of the
+headers there: the FFMA tile ``ffma_tile.cuh`` or the tensor-core helpers
+``wgmma.cuh``) with ``nvcc`` for ``sm_90a`` at first use, into
+``_build/<hash of source, every header and flags>/``, and loaded with
 ``ctypes`` through a plain C interface. Every launch adds one to
 ``LAUNCHES[name]`` (one name per kernel mode); nothing else touches the
 counts.
@@ -46,25 +51,30 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNEL_SOURCES = ("dist_blockmin", "assign", "slab_dots", "blockmin")
+KERNEL_SOURCES = ("dist_blockmin", "dist_blockmin_tc", "assign", "slab_dots", "blockmin")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
-# dist_blockmin's payload dtype -> (launch-count name, C entry point)
+# dist_blockmin's payload dtype -> (launch-count name, source, C entry point)
 _DBM_MODES = {
-    torch.float32: ("dist_blockmin", "vrt_dist_blockmin_f32"),
-    torch.bfloat16: ("dist_blockmin_bf16", "vrt_dist_blockmin_bf16"),
-    torch.uint8: ("dist_blockmin_u8", "vrt_dist_blockmin_u8"),
+    torch.float32: ("dist_blockmin", "dist_blockmin", "vrt_dist_blockmin_f32"),
+    torch.bfloat16: ("dist_blockmin_bf16", "dist_blockmin_tc", "vrt_dist_blockmin_bf16"),
+    torch.uint8: ("dist_blockmin_u8", "dist_blockmin_tc", "vrt_dist_blockmin_u8"),
+}
+# dist_blockmin_pair's payload dtype -> C entry point (in dist_blockmin_tc)
+_PAIR_ENTRIES = {
+    torch.bfloat16: "vrt_dist_blockmin_pair_bf16",
+    torch.uint8: "vrt_dist_blockmin_pair_u8",
 }
 # slab_dots' slab dtype -> C entry point (one launch count for both)
 _SLAB_MODES = {
     torch.float32: "vrt_slab_dots_f32",
     torch.bfloat16: "vrt_slab_dots_bf16",
 }
-KERNELS = tuple(name for name, _ in _DBM_MODES.values()) + ("assign", "slab_dots", "blockmin")
+KERNELS = tuple(name for name, _, _ in _DBM_MODES.values()) + ("assign", "slab_dots", "blockmin")
 
 # launches per kernel mode, counted by the wrappers where they launch
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -106,20 +116,20 @@ def _lib_path(name: str) -> str:
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    if name == "dist_blockmin":
-        for _, fn in _DBM_MODES.values():
-            getattr(lib, fn).argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
-            getattr(lib, fn).restype = ci
+    # C entry point -> argument types (every entry point returns an int)
+    sigs = {fn: [vp] * 4 + [ci] * 4 + [vp]
+            for _, source, fn in _DBM_MODES.values() if source == name}
+    if name == "dist_blockmin_tc":
+        sigs.update({fn: [vp] * 6 + [ci] * 4 + [vp] for fn in _PAIR_ENTRIES.values()})
     elif name == "assign":
-        lib.vrt_assign_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        lib.vrt_assign_f32.restype = ci
+        sigs["vrt_assign_f32"] = [vp] * 5 + [ci] * 3 + [vp]
     elif name == "slab_dots":
-        for fn in _SLAB_MODES.values():
-            getattr(lib, fn).argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-            getattr(lib, fn).restype = ci
+        sigs.update({fn: [vp] * 4 + [ci] * 5 + [vp] for fn in _SLAB_MODES.values()})
     elif name == "blockmin":
-        lib.vrt_blockmin_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-        lib.vrt_blockmin_f32.restype = ci
+        sigs["vrt_blockmin_f32"] = [vp] * 4 + [ci] * 5 + [vp]
+    for fn, argtypes in sigs.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ci
     lib.vrt_cuda_error_string.argtypes = [ci]
     lib.vrt_cuda_error_string.restype = ctypes.c_char_p
 
@@ -202,7 +212,7 @@ def dist_blockmin_pad_rows(n: int, w: int) -> int:
     return -(-n // w) * w
 
 
-_MAX_GRID_Y = 65535  # query tiles of 128 run along gridDim.y
+_MAX_GRID_Y = 65535  # f32: query tiles of 128 run along gridDim.y
 
 
 def _default_chunk_rows(b: int) -> int:
@@ -216,6 +226,25 @@ def _kernel_queries(queries: torch.Tensor, payload: torch.Tensor) -> torch.Tenso
     if payload.dtype == torch.float32:
         return queries
     return queries.to(torch.bfloat16).contiguous()
+
+
+def _blockmin_plain(queries, payload, pens, w, chunk_rows):
+    """``pen - 2 * (q @ payload.T)`` per pen, min over each ``w`` rows; one
+    product per row chunk serves every pen."""
+    b, s = queries.shape[0], payload.shape[0]
+    chunk = chunk_rows or _default_chunk_rows(b)
+    chunk = max(w, (chunk // w) * w)
+    q = _kernel_queries(queries, payload).float()
+    flats = [pen.reshape(-1) for pen in pens]
+    outs = [[] for _ in pens]
+    for c0 in range(0, s, chunk):
+        c1 = min(c0 + chunk, s)
+        dots2 = 2.0 * (q @ payload[c0:c1].float().T)
+        for out, flat in zip(outs, flats):
+            out.append((flat[c0:c1] - dots2).reshape(b, (c1 - c0) // w, w).amin(dim=-1))
+    if s == 0:
+        return [torch.empty((b, 0), dtype=torch.float32, device=payload.device) for _ in pens]
+    return [torch.cat(out, dim=1) for out in outs]
 
 
 def dist_blockmin_reference(
@@ -232,25 +261,28 @@ def dist_blockmin_reference(
     ``[B, S]`` score matrix is never held at once. bf16 and u8 payloads
     are widened to f32 (exactly) and dotted with the bf16-rounded queries.
     """
-    b, s = queries.shape[0], payload.shape[0]
-    chunk = chunk_rows or _default_chunk_rows(b)
-    chunk = max(w, (chunk // w) * w)
-    q = _kernel_queries(queries, payload).float()
-    pen_flat = pen.reshape(-1)
-    outs = []
-    for c0 in range(0, s, chunk):
-        c1 = min(c0 + chunk, s)
-        sc = pen_flat[c0:c1] - 2.0 * (q @ payload[c0:c1].float().T)
-        outs.append(sc.reshape(b, (c1 - c0) // w, w).amin(dim=-1))
-    if not outs:
-        return torch.empty((b, 0), dtype=torch.float32, device=payload.device)
-    return torch.cat(outs, dim=1)
+    return _blockmin_plain(queries, payload, (pen,), w, chunk_rows)[0]
+
+
+def dist_blockmin_pair_reference(
+    queries: torch.Tensor,
+    payload: torch.Tensor,
+    pen_a: torch.Tensor,
+    pen_b: torch.Tensor,
+    w: int = 8,
+    chunk_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`dist_blockmin_pair`: one product per
+    row chunk, both pens' minima from it (each equal to
+    :func:`dist_blockmin_reference` with that pen)."""
+    out_a, out_b = _blockmin_plain(queries, payload, (pen_a, pen_b), w, chunk_rows)
+    return out_a, out_b
 
 
 def _check_dist_blockmin(
-    queries: torch.Tensor, payload: torch.Tensor, pen: torch.Tensor, w: int
+    queries: torch.Tensor, payload: torch.Tensor, pen: torch.Tensor, w: int,
+    fn: str = "dist_blockmin",
 ) -> None:
-    fn = "dist_blockmin"
     if payload.dtype not in _DBM_MODES:
         raise TypeError(
             f"{fn}: payload must be float32, bfloat16 or uint8, got {payload.dtype}"
@@ -283,6 +315,33 @@ def _check_dist_blockmin(
     _check_device(fn, payload)
 
 
+def _launch_dist_blockmin(queries, payload, pens, w):
+    """One K1 launch for one pen or (tensor-core modes) two; returns the
+    outputs and counts the launch once under the payload's mode."""
+    b, s = queries.shape[0], payload.shape[0]
+    outs = [torch.empty((b, s // w), dtype=torch.float32, device=payload.device)
+            for _ in pens]
+    if b == 0 or s == 0:
+        return outs
+    count_as, source, entry = _DBM_MODES[payload.dtype]
+    if len(pens) == 2:
+        entry = _PAIR_ENTRIES[payload.dtype]
+    # the tensor-core kernel's grid is persistent (a card's worth of blocks)
+    if s >= 2**31 or (source == "dist_blockmin" and b > _MAX_GRID_Y * 128):
+        raise ValueError(f"{count_as}: B={b}, S={s} exceed the launch grid")
+    q = _kernel_queries(queries, payload)
+    lib = _lib(source)
+    with torch.cuda.device(payload.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(
+            q.data_ptr(), payload.data_ptr(), *(p.data_ptr() for p in pens),
+            *(o.data_ptr() for o in outs), b, s, payload.shape[1], w, stream,
+        )
+    _check_launch(source, count_as, rc)
+    LAUNCHES[count_as] += 1
+    return outs
+
+
 def dist_blockmin(
     queries: torch.Tensor,  # [B, d] f32 (bf16 also taken for bf16/u8 payloads)
     payload: torch.Tensor,  # [S, d] f32 | bf16 | u8, S % w == 0
@@ -300,8 +359,9 @@ def dist_blockmin(
     +inf. The payload's dtype picks the mode: f32 (f32 queries), bf16 or
     u8 (queries cast to bf16 here when given as f32).
 
-    CUDA tensors launch the kernel of ``csrc/dist_blockmin.cu`` (FP32 FFMA
-    in every mode; see the source note) on the current stream and count
+    CUDA tensors launch, on the current stream, the kernel of
+    ``csrc/dist_blockmin.cu`` (f32: FP32 FFMA) or ``csrc/dist_blockmin_tc.cu``
+    (bf16, u8: wgmma on the tensor cores; see the source notes) and count
     under ``LAUNCHES['dist_blockmin' | 'dist_blockmin_bf16' |
     'dist_blockmin_u8']``. CPU tensors take :func:`dist_blockmin_reference`,
     with ``chunk_rows`` bounding its score block.
@@ -309,24 +369,35 @@ def dist_blockmin(
     _check_dist_blockmin(queries, payload, pen, w)
     if payload.device.type == "cpu":
         return dist_blockmin_reference(queries, payload, pen, w, chunk_rows)
-    b, s = queries.shape[0], payload.shape[0]
-    out = torch.empty((b, s // w), dtype=torch.float32, device=payload.device)
-    if b == 0 or s == 0:
-        return out
-    if b > _MAX_GRID_Y * 128 or s >= 2**31:
-        raise ValueError(f"dist_blockmin: B={b}, S={s} exceed the launch grid")
-    q = _kernel_queries(queries, payload)
-    count_as, entry = _DBM_MODES[payload.dtype]
-    lib = _lib("dist_blockmin")
-    with torch.cuda.device(payload.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(
-            q.data_ptr(), payload.data_ptr(), pen.data_ptr(),
-            out.data_ptr(), b, s, payload.shape[1], w, stream,
-        )
-    _check_launch("dist_blockmin", count_as, rc)
-    LAUNCHES[count_as] += 1
-    return out
+    return _launch_dist_blockmin(queries, payload, (pen,), w)[0]
+
+
+def dist_blockmin_pair(
+    queries: torch.Tensor,  # [B, d] f32 | bf16
+    payload: torch.Tensor,  # [S, d] bf16 | u8, S % w == 0
+    pen_a: torch.Tensor,  # [S/w, w] f32
+    pen_b: torch.Tensor,  # [S/w, w] f32
+    w: int = 8,
+    chunk_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dist_blockmin(.., pen_a, w), dist_blockmin(.., pen_b, w))`` from one
+    product: the cover tree's pens of all and of real nodes over one slab.
+
+    bf16 and u8 payloads only (the tensor-core modes). CUDA tensors launch
+    the kernel of ``csrc/dist_blockmin_tc.cu`` once, whose epilogue applies
+    both pens to one accumulator and writes both outputs, and count once
+    under ``LAUNCHES['dist_blockmin_bf16' | 'dist_blockmin_u8']``. CPU
+    tensors take :func:`dist_blockmin_pair_reference`.
+    """
+    fn = "dist_blockmin_pair"
+    if payload.dtype not in _PAIR_ENTRIES:
+        raise TypeError(f"{fn}: payload must be bfloat16 or uint8, got {payload.dtype}")
+    for pen in (pen_a, pen_b):
+        _check_dist_blockmin(queries, payload, pen, w, fn)
+    if payload.device.type == "cpu":
+        return dist_blockmin_pair_reference(queries, payload, pen_a, pen_b, w, chunk_rows)
+    out_a, out_b = _launch_dist_blockmin(queries, payload, (pen_a, pen_b), w)
+    return out_a, out_b
 
 
 # ---- K3: nearest-centroid assignment -------------------------------------
