@@ -10,20 +10,27 @@ on failure:
   2. build       - compile every CUDA source of the port from ``csrc/`` (one
                    nvcc per source, all started together); registers, spills
                    and shared memory per kernel; the HGMMA (wgmma)
-                   instructions in the SASS of libdist_blockmin_tc.so (none
-                   fails the run)
+                   instructions in the SASS of each tensor-core library,
+                   libdist_blockmin_tc.so (K1) and libblockmin.so (K4) (none
+                   in either fails the run)
   3. kernels     - each kernel against its plain PyTorch version on the card:
                    dist_blockmin in its f32, bf16 and u8 modes (flagship,
-                   ragged and 10%-dead shapes; the tensor-core bf16 and u8
-                   modes, one pen and dist_blockmin_pair, over every
+                   ragged and 10%-dead shapes; every mode over every
                    combination of B 7/64/300, d 17/50/64/96/128/384 and w
-                   1/8/32/128 with S off the 128-row tile), assign (the IVF1024
+                   1/8/32/128 with S off the 128-row tile, bf16 and u8 also
+                   as dist_blockmin_pair); the per-product precision line
+                   (K1 f32 and blockmin, one nonzero product an output,
+                   against float64 within 2e-6 relative) and the depth
+                   line (both at d 128 and 384 on unit vectors against
+                   float64, beside the plain version; reported, not
+                   gated), assign (the IVF1024
                    k-means sample and corpus, a ragged shape, a tie case)
                    slab_dots (the two graph rows' wave shapes, an f32
                    shape, a ragged case with repeated and end ids) and
-                   blockmin (the JAX oracle's shape, w = 32, a ragged B, and
-                   exact search's flagship padded with rows of 1e6; no path
-                   of the system calls it, so these checks are its launches)
+                   blockmin (the JAX oracle's shape, w = 32, a ragged B over
+                   3 query tiles, three tiles at w = 128, and exact search's
+                   flagship padded with rows of 1e6; no path of the system
+                   calls it, so these checks are its launches)
   4. exact path  - the port's BenchmarkRunner (exact row: BruteForceIndexer +
                    LinearSearcher) on 100k x 384 random data, l2 and cosine;
                    ground truth, timed batched search, recall@20 == 1.0, the
@@ -80,7 +87,8 @@ on failure:
                    beside the host clock, and K1 bf16 (one pen) and the pair
                    at its shape; each
                    kernel's time beside its plain version, one library call
-                   and the card's bound
+                   and the card's bound (K1 f32 and blockmin: the bound of
+                   their 3xTF32 route, and the FP32 bound beside it)
   7. the kernels line, the nvidia-smi line, and last the result line.
 
 Imports nothing of JAX. Writes its YAML and the runner's outputs under
@@ -102,20 +110,26 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "_smoke_out")
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): FP32 outside the
-# tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth. The
-# bound of a kernel is the larger of its operations over the peak of their
-# type and its bytes over the bandwidth. dist_blockmin's bf16/u8 modes do a
-# bf16 product on the tensor cores, so their ceiling is the tensor-core
-# rate.
+# tensor cores, dense bf16 and TF32 on the tensor cores, and HBM3
+# bandwidth. The bound of a kernel is the larger of its operations over the
+# peak of their type and its bytes over the bandwidth. dist_blockmin's
+# bf16/u8 modes do a bf16 product on the tensor cores; its f32 mode and
+# blockmin do three TF32 products (3xTF32) for each f32 product.
 FP32_PEAK_FLOPS = 67e12
 BF16_PEAK_FLOPS = 989e12
+TF32_PEAK_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
-# Kernel vs plain version: both are f32 sums of <= 384 products, taken in
-# another order (the kernel's 16-deep FFMA chain vs cuBLAS's), so they
-# differ by a few f32 roundings of the largest partial sums; 1e-5 of the
-# largest |score| bounds that with a wide margin.
+# Kernel vs plain version: both are f32 sums of <= 384 f32-class products
+# (K1 f32 and blockmin: 3xTF32, each product within ~1e-6 relative), taken
+# in another order (the tensor cores' vs cuBLAS's), so they differ by a few
+# f32 roundings of the largest partial sums; 1e-5 of the largest |score|
+# bounds that with a wide margin.
 KERNEL_REL_TOL = 1e-5
+# One product an output (d = 4, three columns zero): the 3xTF32 route's own
+# error, <= 3 x 2^-22 of the product plus f32 rounding, against float64.
+# A bf16x3 split would reach ~1.5e-5, plain TF32 ~1e-3.
+PRODUCT_REL_TOL = 2e-6
 # The bf16/u8 modes (and the pair) vs their plain version: both form exact
 # bf16 products and sum them in f32, the kernel on the tensor cores in
 # another order and with their own rounding of the partial sums, so they
@@ -214,8 +228,12 @@ def phase_device():
 # ---- 2. build ----------------------------------------------------------
 
 
+# the sources whose kernels run on the tensor cores (wgmma): K1, K4
+TC_SOURCES = ("dist_blockmin_tc", "blockmin")
+
+
 def phase_build() -> None:
-    """Build every source; the tensor-core library must hold HGMMA (wgmma)
+    """Build every source; each tensor-core library must hold HGMMA (wgmma)
     instructions in its SASS."""
     from vectordb_retrieval_tpu_torch.ops import kernels
 
@@ -226,13 +244,16 @@ def phase_build() -> None:
         for name, log in kernels.BUILD_LOG.items()
     }
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", kernels._lib_path("dist_blockmin_tc")],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
-    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    hgmma = {}
+    for name in TC_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", kernels._lib_path(name)],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        hgmma[name] = sum("HGMMA" in ln for ln in sass.splitlines())
     emit({"phase": "build", "kernels": list(kernels.KERNEL_SOURCES),
-          "seconds": secs, "ptxas": ptxas, "dist_blockmin_tc_hgmma": hgmma})
-    if hgmma < 1:
-        raise AssertionError("libdist_blockmin_tc.so holds no HGMMA instruction")
+          "seconds": secs, "ptxas": ptxas, "hgmma": hgmma})
+    for name, n in hgmma.items():
+        if n < 1:
+            raise AssertionError(f"lib{name}.so holds no HGMMA instruction")
 
 
 # ---- 3. kernel vs plain version ----------------------------------------
@@ -285,13 +306,20 @@ K2_SHAPES = (
     (7, 5, 100, 50, 13, "f32"),
 )
 # (B, N, d, w, padding rows of 1e6): the JAX oracle's shape, w = 32
-# (seg = 64), a ragged B, and exact search's flagship padded to 49 tiles
+# (seg = 64), a ragged B, a ragged B over 3 query tiles, three tiles at
+# w = 128 (seg = 16: 8 members an n-tile), and exact search's flagship padded
+# to 49 tiles (the last: the throughput phase's shape)
 K4_SHAPES = (
     (8, 4096, 32, 8, 0),
     (8, 4096, 32, 32, 0),
     (7, 4096, 17, 16, 0),
+    (300, 8192, 96, 8, 0),
+    (64, 6144, 64, 128, 0),
     (256, 100_352, 384, 8, 352),
 )
+# the per-product precision line: B x N rows of seeded normals at d = 4
+# with three columns zero, so each output holds one product
+PRODUCT_SHAPE = (300, 65_536)
 _MODE_NAME = {"f32": "dist_blockmin", "bf16": "dist_blockmin_bf16",
               "u8": "dist_blockmin_u8"}
 PAIR = "dist_blockmin_pair"  # counts under its payload's mode
@@ -595,12 +623,12 @@ def check_blockmin(q, x, w, n_real, where) -> float:
 
 
 def _k1_tc_sweep(worst: dict) -> None:
-    """K1's tensor-core modes over every combination of K1_TC_B, K1_TC_D and
-    K1_TC_W: one pen (l2 and zero) and the pair (the l2 pen beside the zero
-    pen with slot 0 of every block dead too). One line per mode."""
+    """K1's modes over every combination of K1_TC_B, K1_TC_D and K1_TC_W:
+    one pen (l2 and zero) and, for bf16 and u8, the pair (the l2 pen beside
+    the zero pen with slot 0 of every block dead too). One line per mode."""
     import torch
 
-    for mode in ("bf16", "u8"):
+    for mode in ("f32", "bf16", "u8"):
         name = _MODE_NAME[mode]
         worst_one = worst_pair = 0.0
         n = 0
@@ -616,18 +644,110 @@ def _k1_tc_sweep(worst: dict) -> None:
                     for pen in (pen_l2, pen_zero):
                         err = check_dist_blockmin(q, x, pen, w, where, quiet=True)
                         worst_one = max(worst_one, err)
-                    err = check_dist_blockmin_pair(q, x, pen_l2, pen_zero, w, where, quiet=True)
-                    worst_pair = max(worst_pair, err)
+                    if mode != "f32":
+                        err = check_dist_blockmin_pair(q, x, pen_l2, pen_zero, w, where,
+                                                       quiet=True)
+                        worst_pair = max(worst_pair, err)
                     n += 1
         torch.cuda.empty_cache()
         worst[name] = max(worst[name], worst_one)
         worst[PAIR] = max(worst[PAIR], worst_pair)
         emit({"phase": "kernel_check_sweep", "kernel": name, "shapes": n,
-              "launches_checked": 3 * n, "B": list(K1_TC_B), "d": list(K1_TC_D),
+              "launches_checked": (2 if mode == "f32" else 3) * n,
+              "B": list(K1_TC_B), "d": list(K1_TC_D),
               "w": list(K1_TC_W), "rows": "1000 + 37 w, padded to S % w == 0",
               "dead": "10 % of slots and 3 whole blocks", "max_abs_err": worst_one,
-              "pair_max_abs_err": worst_pair, "tol": f"{KERNEL_REL_TOL} x max|plain|",
-              "ok": True})
+              "pair_max_abs_err": worst_pair if mode != "f32" else None,
+              "tol": f"{KERNEL_REL_TOL} x max|plain|", "ok": True})
+
+
+def phase_product_precision(card: str) -> None:
+    """K1 f32 (w = 1, zero pen) and blockmin (w = 1) where each output holds
+    one product: q and x at d = 4 with columns 1-3 zero, so the sums add
+    exact zeros and only the route's own product error shows. Each entry
+    against float64 of the same f32 inputs, within PRODUCT_REL_TOL of
+    |2 q0 x0| (K1) or of qn + xn (blockmin); the plain version's error
+    (FP32, TF32 off) beside it."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    b, n = PRODUCT_SHAPE
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    q = torch.zeros((b, 4), device=DEV)
+    x = torch.zeros((n, 4), device=DEV)
+    q[:, 0] = torch.randn(b, generator=g, device=DEV)
+    x[:, 0] = torch.randn(n, generator=g, device=DEV)
+    q64, x64 = q[:, 0].double(), x[:, 0].double()
+    prod = q64[:, None] * x64[None, :]
+    zero = torch.zeros((n, 1), device=DEV)
+    want = -2.0 * prod
+    scale = want.abs()
+    k1 = kernels.dist_blockmin(q, x, zero, w=1).double()
+    k1_plain = kernels.dist_blockmin_reference(q, x, zero, w=1).double()
+    want4 = (q64[:, None] - x64[None, :]) ** 2
+    scale4 = (q64 * q64)[:, None] + (x64 * x64)[None, :]
+    k4 = kernels.blockmin(q, x, w=1).double()
+    k4_plain = kernels.blockmin_reference(q, x, w=1).double()
+    torch.cuda.synchronize()
+    rel = {name: float(((got - ref).abs() / s).max())
+           for name, got, ref, s in (("dist_blockmin", k1, want, scale),
+                                     ("dist_blockmin_plain", k1_plain, want, scale),
+                                     ("blockmin", k4, want4, scale4),
+                                     ("blockmin_plain", k4_plain, want4, scale4))}
+    ok = rel["dist_blockmin"] <= PRODUCT_REL_TOL and rel["blockmin"] <= PRODUCT_REL_TOL
+    emit({"phase": "product_precision", "card": card, "shape": [b, n, 4],
+          "nonzero_columns": 1, "max_rel_err": rel, "tol": PRODUCT_REL_TOL,
+          "relative_to": {"dist_blockmin": "|2 q0 x0|", "blockmin": "qn + xn"}, "ok": ok})
+    del prod, want, scale, k1, k1_plain, want4, scale4, k4, k4_plain
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"per-product precision: {rel}")
+    phase_depth_precision(card)
+
+
+# the accumulation line: B unit-vector queries against N unit vectors at
+# each d (the first 64 rows copies of queries: the largest scores)
+DEPTH_SHAPE = (512, 100_352)
+DEPTH_D = (128, 384)
+
+
+def phase_depth_precision(card: str) -> None:
+    """K1 f32 (w = 1, zero pen) and blockmin (w = 1) at full depth on unit
+    vectors against float64, as the max error over the max |float64|, the
+    plain version's (FP32, TF32 off) beside it. Reported, not gated: here
+    the f32 accumulation (the tensor cores' adds, cuBLAS's) sets the error,
+    not the products."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    b, n = DEPTH_SHAPE
+    g = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    out = {}
+    for d in DEPTH_D:
+        q = torch.randn((b, d), generator=g, device=DEV)
+        x = torch.randn((n, d), generator=g, device=DEV)
+        q = q / q.norm(dim=1, keepdim=True)
+        x = x / x.norm(dim=1, keepdim=True)
+        x[:64] = q[:64]
+        dots = q.double() @ x.double().T
+        zero = torch.zeros((n, 1), device=DEV)
+        want = -2.0 * dots
+        qn, xn = (q.double() ** 2).sum(1), (x.double() ** 2).sum(1)
+        want4 = qn[:, None] + xn[None, :] - 2.0 * dots
+        for name, got, ref in (
+                ("dist_blockmin", kernels.dist_blockmin(q, x, zero, w=1), want),
+                ("dist_blockmin_plain", kernels.dist_blockmin_reference(q, x, zero, w=1), want),
+                ("blockmin", kernels.blockmin(q, x, w=1), want4),
+                ("blockmin_plain", kernels.blockmin_reference(q, x, w=1), want4)):
+            out.setdefault(name, {})[d] = float((got.double() - ref).abs().max()
+                                                / ref.abs().max())
+            del got
+        del dots, want, want4, x
+        torch.cuda.empty_cache()
+    emit({"phase": "depth_precision", "card": card, "shape": [b, n], "d": list(DEPTH_D),
+          "data": "unit vectors", "max_err_over_max_abs": out, "gated": False})
 
 
 def phase_kernels() -> dict:
@@ -1462,6 +1582,19 @@ def phase_covertree_fallback(card: str) -> dict:
 # ---- 6. throughput -----------------------------------------------------
 
 
+def _tf32x3_bounds(product_flops: float, flops: float, nbytes: float) -> dict:
+    """The bounds of a 3xTF32 kernel (K1 f32, blockmin): its route's, three
+    TF32 products over the TF32 peak or the bytes over the bandwidth, and
+    beside it the FP32 bound, all its operations over the FP32 peak."""
+    route_ms = 3.0 * product_flops / TF32_PEAK_FLOPS * 1e3
+    fp32_ms = flops / FP32_PEAK_FLOPS * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(route_ms, byte_ms),
+            "bound_by": "operations" if route_ms >= byte_ms else "bytes",
+            "fp32_bound_ms": max(fp32_ms, byte_ms)}
+
+
+
 def phase_throughput(card: str, n: int, d: int, batches: int) -> dict:
     import torch
 
@@ -1508,17 +1641,14 @@ def phase_throughput(card: str, n: int, d: int, batches: int) -> dict:
     batch_ms = time_ms(lambda: search(q))
     flops = 2.0 * BATCH * s * d + 2.0 * BATCH * s  # products, pen add, min
     nbytes = 4.0 * (BATCH * d + s * d + s + BATCH * (s // w))
-    flop_ms = flops / FP32_PEAK_FLOPS * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bounds = _tf32x3_bounds(2.0 * BATCH * s * d, flops, nbytes)
     out = {
         "phase": "throughput", "shape": [n, d], "metric": "l2", "topk": TOPK,
         "batch": BATCH, "batches": batches, "w": w, "card": card,
         "qps": batches * BATCH / elapsed, "seconds": elapsed,
         "ms_per_batch": elapsed / batches * 1e3,
         "dist_blockmin_ms": kernel_ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": max(flop_ms, byte_ms),
-        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-        "flops": flops, "bytes": nbytes,
+        "library_ms": library_ms, **bounds, "flops": flops, "bytes": nbytes,
         "batch_device_ms": batch_ms, "select_blocks_ms": select_ms,
         "rescore_and_rest_ms": batch_ms - kernel_ms - select_ms,
     }
@@ -1880,14 +2010,10 @@ def phase_blockmin_throughput(card: str) -> dict:
     library_ms = time_ms(lambda: torch.matmul(q, x.T), reps=10)
     flops = 2.0 * b * n * d
     nbytes = 4.0 * (b * d + n * d + b * (n // w))
-    flop_ms = flops / FP32_PEAK_FLOPS * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out = {
         "phase": "blockmin_throughput", "shape": [b, n, d, w], "card": card,
         "blockmin_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(flop_ms, byte_ms),
-        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-        "flops": flops, "bytes": nbytes,
+        **_tf32x3_bounds(flops, flops, nbytes), "flops": flops, "bytes": nbytes,
     }
     emit(out)
     del q, x
@@ -1940,6 +2066,7 @@ def main() -> int:
     card = phase_device()
     phase_build()
     worst = phase_kernels()
+    phase_product_precision(card)
     launches = {name: 0 for name in worst}
     # no path of the system calls blockmin: its launches are phase 3's
     launches["blockmin"] = kernels.LAUNCHES["blockmin"]
@@ -1983,11 +2110,12 @@ def main() -> int:
     src = "vectordb_retrieval_tpu_torch/csrc/"
     tpu = "vectordb_retrieval_tpu/ops/pallas_kernels.py"
     entries = [{
-        "name": "dist_blockmin", "route": "cuda", "source": src + "dist_blockmin.cu",
+        "name": "dist_blockmin", "route": "cuda", "source": src + "dist_blockmin_tc.cu",
         "replaces": f"{tpu}:220", "launches": launches["dist_blockmin"],
         "max_abs_err": worst["dist_blockmin"], "ms": flagship["dist_blockmin_ms"],
         "plain_ms": flagship["plain_ms"], "bound_ms": flagship["bound_ms"],
-        "bound_by": flagship["bound_by"], "library_ms": flagship["library_ms"],
+        "bound_by": flagship["bound_by"], "fp32_bound_ms": flagship["fp32_bound_ms"],
+        "library_ms": flagship["library_ms"],
         "shape": [BATCH, 100_000, 384, flagship["w"]],
     }]
     by_kernel[PAIR] = ct_k1[PAIR]
@@ -2022,7 +2150,8 @@ def main() -> int:
         "replaces": f"{tpu}:337", "launches": launches["blockmin"],
         "max_abs_err": worst["blockmin"], "ms": k4["blockmin_ms"],
         "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
-        "bound_by": k4["bound_by"], "library_ms": k4["library_ms"],
+        "bound_by": k4["bound_by"], "fp32_bound_ms": k4["fp32_bound_ms"],
+        "library_ms": k4["library_ms"],
         "shape": k4["shape"],
     })
     for e in entries:

@@ -16,6 +16,14 @@ bf16 slabs (the JAX kernel's split query is the f32 query to ~2^-16; its
 own test allows 1e-3); K4: 1e-5 x max|ref| (both compute ||q||^2 +
 ||x||^2 - 2 q.x with full-f32 products, summed in another order), and the
 JAX oracle test's 1e-3 against float64.
+
+On the card K1's f32 mode and K4 run 3xTF32 (``kernels.split_tf32``): the
+split is tested against a float64 rounding of its own, and the kernels'
+arithmetic is emulated here by three f32 products of the tf32-valued
+pieces (each product exact in f32) and held against the Pallas kernels
+with the tolerances above, against the plain versions within 1e-5 x
+max|ref|, and against float64 where each output holds one product, within
+1e-6 relative (the route's own error is <= 3 x 2^-22 plus f32 rounding).
 """
 
 import numpy as np
@@ -367,13 +375,13 @@ def test_dist_blockmin_wrapper_rejects(kind, exc):
 
 def test_kernel_source_and_build_key():
     """Every kernel's source ships in csrc/ and includes one of its shared
-    headers (the FFMA tile, or the wgmma helpers for the tensor-core K1);
-    its build directory is keyed by the source, the headers and the
-    compiler flags."""
+    headers (the tensor-core kernel for K1 and K4, itself on the wgmma
+    helpers; the FFMA tile for K2 and K3); its build directory is keyed by
+    the source, the headers and the compiler flags."""
     import os
 
-    headers = {name: "ffma_tile.cuh" for name in kernels.KERNEL_SOURCES}
-    headers["dist_blockmin_tc"] = "wgmma.cuh"
+    headers = {"dist_blockmin_tc": "blockmin_tc.cuh", "blockmin": "blockmin_tc.cuh",
+               "assign": "ffma_tile.cuh", "slab_dots": "ffma_tile.cuh"}
     assert set(headers) == set(kernels.KERNEL_SOURCES)
     for name in kernels.KERNEL_SOURCES:
         src = os.path.join(kernels.CSRC_DIR, f"{name}.cu")
@@ -385,13 +393,16 @@ def test_kernel_source_and_build_key():
         assert path.endswith(f"lib{name}.so")
     for header in set(headers.values()):
         assert os.path.exists(os.path.join(kernels.CSRC_DIR, header))
+    with open(os.path.join(kernels.CSRC_DIR, "blockmin_tc.cuh")) as f:
+        assert '#include "wgmma.cuh"' in f.read()
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
 
 
 def test_k1_entry_points_live_in_one_source_each():
     """Each K1 entry point the wrappers call is defined in the source the
-    wrapper loads and in no other: bf16 and u8 (one pen and the pair) only
-    on the tensor cores, f32 only on FFMA."""
+    wrapper loads and in no other: every mode (f32, bf16 and u8, one pen
+    and the pair) in the tensor-core source; K4's in blockmin.cu; no FFMA
+    source defines one."""
     import os
     import re
 
@@ -404,10 +415,12 @@ def test_k1_entry_points_live_in_one_source_each():
         assert defined[fn] == [source], fn
     for fn in kernels._PAIR_ENTRIES.values():
         assert defined[fn] == ["dist_blockmin_tc"], fn
-    assert [fn for fn, srcs in defined.items() if srcs == ["dist_blockmin"]] == [
-        "vrt_dist_blockmin_f32"]
-    assert {kernels._DBM_MODES[t][1] for t in (torch.bfloat16, torch.uint8)} == {
-        "dist_blockmin_tc"}
+    assert {m[1] for m in kernels._DBM_MODES.values()} == {"dist_blockmin_tc"}
+    assert defined["vrt_blockmin_f32"] == ["blockmin"]
+    assert not [fn for fn, srcs in defined.items()
+                if fn.startswith(("vrt_dist_blockmin", "vrt_blockmin"))
+                and set(srcs) & {"assign", "slab_dots"}]
+    assert not os.path.exists(os.path.join(kernels.CSRC_DIR, "dist_blockmin.cu"))
 
 
 def test_build_key_follows_the_wgmma_header(tmp_path, monkeypatch):
@@ -419,6 +432,21 @@ def test_build_key_follows_the_wgmma_header(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "CSRC_DIR", str(csrc))
     before = {name: kernels._lib_path(name) for name in kernels.KERNEL_SOURCES}
     with open(csrc / "wgmma.cuh", "a") as f:
+        f.write("\n// edited\n")
+    for name in kernels.KERNEL_SOURCES:
+        assert kernels._lib_path(name) != before[name]
+
+
+def test_build_key_follows_the_tensor_core_kernel_header(tmp_path, monkeypatch):
+    """A change to blockmin_tc.cuh (the K1 and K4 kernel) alone moves every
+    kernel's build key too."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC_DIR, csrc)
+    monkeypatch.setattr(kernels, "CSRC_DIR", str(csrc))
+    before = {name: kernels._lib_path(name) for name in kernels.KERNEL_SOURCES}
+    with open(csrc / "blockmin_tc.cuh", "a") as f:
         f.write("\n// edited\n")
     for name in kernels.KERNEL_SOURCES:
         assert kernels._lib_path(name) != before[name]
@@ -437,6 +465,126 @@ def test_build_key_follows_the_shared_header(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     for name in kernels.KERNEL_SOURCES:
         assert kernels._lib_path(name) != before[name]
+
+
+# ---- the 3xTF32 route of K1 f32 and K4 ------------------------------------
+
+
+def _rna_tf32_f64(x):
+    """tf32 rounding (11 significant bits; the low 13 bits of an f32 word),
+    to nearest with ties away from zero, computed in float64 from the
+    value: the quantum is 2^(e - 11) for x = m 2^e, m in [0.5, 1), and
+    2^-136 for f32 subnormals."""
+    x = np.asarray(x, np.float64)
+    _, e = np.frexp(x)
+    quantum = np.maximum(np.ldexp(1.0, e - 11), np.ldexp(1.0, -136))
+    return np.sign(x) * np.floor(np.abs(x) / quantum + 0.5) * quantum
+
+
+def _split_values(kind, rng):
+    if kind == "normals":
+        return rng.standard_normal(4096).astype(np.float32) * np.float32(3.0)
+    if kind == "specials":
+        return np.array([0.0, -0.0, 1e6, -1e6, 1e30, -1e30, 1.0, -1.0, 3.3e-20,
+                         65504.0, 1.17549435e-38], np.float32)
+    tiny = np.float32(1.4e-45)  # subnormals, from the smallest to near 2^-126
+    return np.concatenate([np.arange(1, 300, dtype=np.float32) * tiny,
+                           -np.float32(1e-40) * np.arange(1, 60, dtype=np.float32),
+                           np.array([1e-39, -1.1e-38], np.float32)])
+
+
+@pytest.mark.parametrize("kind", ["normals", "specials", "subnormals"])
+def test_split_tf32_pieces(rng, kind):
+    """big and small carry the low 13 bits as zero, big is the value rounded
+    to tf32 (ties away from zero), small is the rest rounded once, and
+    big + small is the value up to that one rounding."""
+    v = _split_values(kind, rng)
+    big, small = kernels.split_tf32(torch.from_numpy(v))
+    big, small = big.numpy(), small.numpy()
+    assert big.dtype == small.dtype == np.float32
+    for piece in (big, small):
+        assert not (piece.view(np.int32) & 0x1FFF).any()
+    np.testing.assert_array_equal(big.astype(np.float64), _rna_tf32_f64(v))
+    rest = v.astype(np.float64) - big.astype(np.float64)  # exact in f32 too
+    np.testing.assert_array_equal(small.astype(np.float64), _rna_tf32_f64(rest))
+    err = np.abs(v.astype(np.float64) - big.astype(np.float64) - small.astype(np.float64))
+    # one rounding of small: half its tf32 step (2^-137 among subnormals)
+    assert (err <= np.maximum(np.ldexp(np.abs(rest), -11), 2.0 ** -137)).all()
+    if kind != "subnormals":
+        assert (err <= np.ldexp(np.abs(v.astype(np.float64)), -22)).all()
+
+
+def test_split_tf32_ties_round_away_from_zero():
+    """Halfway values round away from zero (rna), where round-to-even would
+    go the other way for the first pair."""
+    h = 2.0 ** -11  # half a tf32 step at 1
+    v = np.array([1 + h, -(1 + h), 1 + 3 * h, -(1 + 3 * h), 1 + h / 2], np.float32)
+    big, small = kernels.split_tf32(torch.from_numpy(v))
+    np.testing.assert_array_equal(
+        big.numpy(), np.array([1 + 2 * h, -(1 + 2 * h), 1 + 4 * h, -(1 + 4 * h), 1.0],
+                              np.float32))
+    np.testing.assert_array_equal(
+        small.numpy(), np.array([-h, h, -h, h, h / 2], np.float32))
+
+
+def _tf32x3_dots(q, x):
+    """q @ x.T as the kernels form it: the tf32 pieces' three products
+    (small_q big_x + big_q small_x + big_q big_x), each exact in f32."""
+    qb, qs = kernels.split_tf32(torch.from_numpy(q))
+    xb, xs = kernels.split_tf32(torch.from_numpy(x))
+    return (qs @ xb.T + qb @ xs.T + qb @ xb.T).numpy()
+
+
+def _k1_tf32x3(q, x, pen, w):
+    s = x.shape[0]
+    scores = pen.reshape(1, s) - 2.0 * _tf32x3_dots(q, x)
+    return scores.reshape(q.shape[0], s // w, w).min(-1)
+
+
+@pytest.mark.parametrize("pen_kind", ["l2", "zero"])
+@pytest.mark.parametrize("n,d,b,w", ORACLE_SHAPES)
+def test_k1_f32_tf32x3_matches_pallas_and_plain(rng, n, d, b, w, pen_kind):
+    """K1 f32's 3xTF32 arithmetic, emulated, against dist_blockmin_pallas
+    (within its test's 2e-3) and the port's plain version (1e-5 x max)."""
+    s = jax_pad_rows(n, w)
+    q, dbp, pen = _inputs(rng, n, d, b, s, pen_kind)
+    got = _k1_tf32x3(q, dbp, pen, w)
+    want = np.asarray(dist_blockmin_pallas(
+        jnp.asarray(q), jnp.asarray(dbp), jnp.asarray(pen).reshape(s // w, w), w=w,
+        interpret=True))
+    plain = kernels.dist_blockmin_reference(
+        torch.from_numpy(q), torch.from_numpy(dbp),
+        torch.from_numpy(pen).reshape(s // w, w), w=w).numpy()
+    for ref, tol in ((want, 2e-3), (plain, None)):
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(ref))
+        fin = np.isfinite(ref)
+        bound = tol if tol is not None else 1e-5 * np.abs(ref[fin]).max()
+        assert np.abs(got[fin] - ref[fin]).max() <= bound
+
+
+def test_k1_f32_tf32x3_one_product_against_float64(rng):
+    """One product an output (d = 4, columns 1-3 zero, w = 1, zero pen): the
+    3xTF32 route is within 1e-6 of float64 per entry; a bf16x3 split (the
+    TPU kernel's HIGH) and plain TF32 are not."""
+    q = np.zeros((64, 4), np.float32)
+    x = np.zeros((4096, 4), np.float32)
+    q[:, 0] = rng.standard_normal(64)
+    x[:, 0] = rng.standard_normal(4096)
+    exact = -2.0 * np.outer(q[:, 0].astype(np.float64), x[:, 0].astype(np.float64))
+    pen = np.zeros(4096, np.float32)
+
+    def rel(got):
+        return float((np.abs(got - exact) / np.abs(exact)).max())
+
+    assert rel(_k1_tf32x3(q, x, pen, 1)) <= 1e-6
+    tq, tx = torch.from_numpy(q), torch.from_numpy(x)
+    hq = tq.to(torch.bfloat16).float()
+    hx = tx.to(torch.bfloat16).float()
+    lq = (tq - hq).to(torch.bfloat16).float()
+    lx = (tx - hx).to(torch.bfloat16).float()
+    bf16x3 = -2.0 * (hq @ hx.T + hq @ lx.T + lq @ hx.T).numpy()
+    tf32 = -2.0 * (kernels.split_tf32(tq)[0] @ kernels.split_tf32(tx)[0].T).numpy()
+    assert rel(bf16x3) > 1e-6 and rel(tf32) > 1e-4
 
 
 # ---- K2: slab dot products ------------------------------------------------
@@ -568,6 +716,22 @@ def test_blockmin_matches_pallas(rng, n, d, b, w):
     got = got.numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
     np.testing.assert_allclose(got, _k4_oracle(q, x, w), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("n,d,b,w", K4_SHAPES)
+def test_blockmin_tf32x3_matches_pallas(rng, n, d, b, w):
+    """K4's 3xTF32 arithmetic, emulated (||x||^2 from the raw rows), against
+    blockmin_pallas within 1e-5 x max|ref|."""
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    want = np.asarray(blockmin_pallas(jnp.asarray(q), jnp.asarray(x), w=w, interpret=True))
+    seg = min(_BM_TILE, n) // w
+    qn = (q * q).sum(1, dtype=np.float32)
+    xn = (x * x).sum(1, dtype=np.float32)
+    dist = (qn[:, None] + xn[None, :]) - 2.0 * _tf32x3_dots(q, x)
+    got = dist.reshape(b, -1, w, seg).min(2).reshape(b, -1)
+    assert got.shape == want.shape == (b, n // w)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
 
 def test_blockmin_plain_version_chunks_by_tile(rng):

@@ -1,6 +1,6 @@
-// The FP32 FFMA tile that the port's CUDA kernels share (dist_blockmin.cu,
-// assign.cu, blockmin.cu); each adds only its own epilogue. slab_dots.cu uses
-// only the element loaders and the error-string entry point.
+// The FP32 FFMA tile of the port's CUDA kernels that do not run on the
+// tensor cores: assign.cu adds its epilogue to it; slab_dots.cu uses only the
+// element loaders and the error-string entry point.
 //
 // One thread block computes the 128 x 128 dot products of 128 rows of an
 // operand A against 128 rows of an operand B, both row-major [rows, d]. The
@@ -53,24 +53,16 @@ struct TileSmem {
 // The row of each operand's tile that this thread loads.
 __device__ __forceinline__ int loader_row() { return threadIdx.x >> 1; }
 
-// A hook that ignores the staged values it is shown.
-struct NoHook {
-  __device__ __forceinline__ void operator()(const float (&)[TM]) const {}
-};
-static_assert(TM == TN, "one hook type serves both operands");
-
 // acc[i][j] = <A row ty*8+i, B row tx*8+j> of the tile whose loader rows
 // are a_row / b_row (read only where a_ok / b_ok). on_a(a) sees this
-// thread's 8 A values of every k step (for sums over A such as ||p||^2),
-// on_b(b) its 8 B values (B rows tx*8 .. tx*8+7).
+// thread's 8 A values of every k step (for sums over A such as ||p||^2).
 // Ends with a barrier after its last shared-memory read, so the caller may
 // call it again at once for the next tile.
-template <class AT, class BT, class OnA, class OnB = NoHook>
+template <class AT, class BT, class OnA>
 __device__ __forceinline__ void ffma_tile(TileSmem& sm,
                                           const typename AT::T* a_row, bool a_ok,
                                           const typename BT::T* b_row, bool b_ok,
-                                          int d, float (&acc)[TM][TN], OnA on_a,
-                                          OnB on_b = OnB()) {
+                                          int d, float (&acc)[TM][TN], OnA on_a) {
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);
   const int ty = tid / (BN / TN);
@@ -115,7 +107,6 @@ __device__ __forceinline__ void ffma_tile(TileSmem& sm,
       const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
       on_a(a);
-      on_b(b);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll

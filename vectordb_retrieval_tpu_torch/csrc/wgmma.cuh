@@ -1,17 +1,18 @@
 // Hopper (sm_90a) building blocks for tensor-core kernels of the port:
 // 16-byte asynchronous copies into shared memory (cp.async), the 128-byte
 // swizzled K-major operand layout that wgmma reads, its shared-memory matrix
-// descriptor, the wgmma fences, and the bf16 m64n128k16 product with f32
-// accumulators. dist_blockmin_tc.cu uses them.
+// descriptor, the wgmma fences, and the m64n128 products with f32
+// accumulators: bf16 operands (k16) and tf32 operands (k8). blockmin_tc.cuh
+// uses them.
 //
-// Operand tiles: R rows of 64 bf16 (one 128-byte row per operand row, the
-// k-extent of one pipeline stage), stored as 8-row atoms of 1024 bytes. The
-// 16-byte chunk c (k = 8c .. 8c+7) of row r sits at byte
-// r * 128 + ((c ^ (r % 8)) * 16) of the tile (sw128_offset), the layout
-// that CU_TENSOR_MAP_SWIZZLE_128B writes and that a descriptor with layout
-// type 1 (128B swizzle) names. Tiles start on 1024-byte boundaries. One
-// wgmma consumes 16 k (32 bytes); the k-th 16-slice of a tile is addressed
-// by adding 2 * k (32 bytes in 16-byte units) to the descriptor.
+// Operand tiles: R rows of 128 bytes each (64 bf16 or 32 f32/tf32 values,
+// the k-extent of one pipeline stage), stored as 8-row atoms of 1024 bytes.
+// The 16-byte chunk c of row r sits at byte r * 128 + ((c ^ (r % 8)) * 16)
+// of the tile (sw128_offset), the layout that CU_TENSOR_MAP_SWIZZLE_128B
+// writes and that a descriptor with layout type 1 (128B swizzle) names.
+// Tiles start on 1024-byte boundaries. One wgmma consumes 32 bytes of k (16
+// bf16 or 8 tf32); the k-th such slice of a tile is addressed by adding
+// 2 * k (32 bytes in 16-byte units) to the descriptor.
 
 #pragma once
 
@@ -100,6 +101,28 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+#define VRT_ACC64(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),        \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),        \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),        \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),        \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),        \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),        \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define VRT_ACC64_REGS                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "    \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "    \
+  "%58, %59, %60, %61, %62, %63}, "
+
 // d = A (64 x 16, K-major in shared memory) * B (128 x 16, K-major in
 // shared memory)^T + (accumulate ? d : 0) for one warpgroup, bf16 operands,
 // f32 accumulators.
@@ -113,28 +136,32 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VRT_ACC64_REGS
       "%64, %65, p, 1, 1, 0, 0;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : VRT_ACC64(d)
       : "l"(desc_a), "l"(desc_b), "r"(static_cast<int>(accumulate)));
 }
+
+// The same product over 8 k of tf32 operands (f32 words whose low 13 bits
+// the tensor core ignores; both operands K-major, so the instruction takes
+// no transpose immediates). The accumulator layout is the bf16 product's.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                     uint64_t desc_a,
+                                                     uint64_t desc_b,
+                                                     bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " VRT_ACC64_REGS
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : VRT_ACC64(d)
+      : "l"(desc_a), "l"(desc_b), "r"(static_cast<int>(accumulate)));
+}
+
+#undef VRT_ACC64_REGS
+#undef VRT_ACC64
 
 }  // namespace vrt

@@ -15,8 +15,9 @@ blockmin certificate path, whose stage 1 is the hand-written kernel
 version on CPU tensors). ``_exact_search_streamed`` is the running-top-k
 scan kept for callers that bound memory by chunks.
 
-Precision: f32 products run in full FP32 (TF32 off, see
-``utils/device.py``). Exact rescoring is an elementwise f32 difference sum,
+Precision: f32 matrix products run in full FP32 (TF32 off, see
+``utils/device.py``); stage 1's kernel forms f32-class products by 3xTF32
+(``ops/kernels.split_tf32``), never plain TF32. Exact rescoring is an elementwise f32 difference sum,
 never a product: the expansion ``||q||^2+||x||^2-2qx`` loses ~1e-3 relative
 precision to cancellation, enough to flip near-ties at the top-k boundary.
 """

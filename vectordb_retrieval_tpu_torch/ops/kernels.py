@@ -5,11 +5,11 @@ Kernels (each replaces one TPU kernel of
   * :func:`dist_blockmin` — fused distance + per-block minimum over f32,
     bf16 or u8 payloads (exact-search stage 1; the IVF-Flat and IVF-SQ8
     fused probed stream; the cover tree's block walk). Replaces
-    ``dist_blockmin_pallas`` in all three of its modes. CUDA C++ sources:
-    ``csrc/dist_blockmin.cu`` (f32, FP32 FFMA) and
-    ``csrc/dist_blockmin_tc.cu`` (bf16 and u8, on the tensor cores with
-    ``wgmma``); :func:`dist_blockmin_pair` applies two pens to one bf16/u8
-    product in one launch.
+    ``dist_blockmin_pallas`` in all three of its modes. CUDA C++ source:
+    ``csrc/dist_blockmin_tc.cu``, on the tensor cores with ``wgmma`` (f32
+    by 3xTF32, bf16 and u8 by one bf16 product);
+    :func:`dist_blockmin_pair` applies two pens to one bf16/u8 product in
+    one launch.
   * :func:`assign` — nearest-centroid (argmin, min) for k-means fitting and
     IVF list assignment. Replaces ``assign_pallas``. CUDA C++ source:
     ``csrc/assign.cu``.
@@ -20,15 +20,17 @@ Kernels (each replaces one TPU kernel of
   * :func:`blockmin` — full-L2 per-block minima over interleaved blocks of
     2048-row tiles (the first blockmin exact search's fused stage 1; no
     search path calls it, :func:`dist_blockmin` superseded it). Replaces
-    ``blockmin_pallas``. CUDA C++ source: ``csrc/blockmin.cu``.
+    ``blockmin_pallas``. CUDA C++ source: ``csrc/blockmin.cu``, on the
+    tensor cores by 3xTF32 (the main loop of K1's f32 mode).
 
 Each wrapper routes by the device of its tensors: a CUDA tensor goes to the
 kernel (or the wrapper raises), a CPU tensor goes to the plain PyTorch
 version beside it. Nothing falls back from one to the other.
 
 Kernels are compiled from ``csrc/`` (each source includes one of the
-headers there: the FFMA tile ``ffma_tile.cuh`` or the tensor-core helpers
-``wgmma.cuh``) with ``nvcc`` for ``sm_90a`` at first use, into
+headers there: the tensor-core kernel ``blockmin_tc.cuh``, on the helpers
+of ``wgmma.cuh``, for K1 and K4; the FFMA tile ``ffma_tile.cuh`` for K2 and
+K3) with ``nvcc`` for ``sm_90a`` at first use, into
 ``_build/<hash of source, every header and flags>/``, and loaded with
 ``ctypes`` through a plain C interface. Every launch adds one to
 ``LAUNCHES[name]`` (one name per kernel mode); nothing else touches the
@@ -51,7 +53,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNEL_SOURCES = ("dist_blockmin", "dist_blockmin_tc", "assign", "slab_dots", "blockmin")
+KERNEL_SOURCES = ("dist_blockmin_tc", "assign", "slab_dots", "blockmin")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -60,7 +62,7 @@ NVCC_FLAGS = (
 
 # dist_blockmin's payload dtype -> (launch-count name, source, C entry point)
 _DBM_MODES = {
-    torch.float32: ("dist_blockmin", "dist_blockmin", "vrt_dist_blockmin_f32"),
+    torch.float32: ("dist_blockmin", "dist_blockmin_tc", "vrt_dist_blockmin_f32"),
     torch.bfloat16: ("dist_blockmin_bf16", "dist_blockmin_tc", "vrt_dist_blockmin_bf16"),
     torch.uint8: ("dist_blockmin_u8", "dist_blockmin_tc", "vrt_dist_blockmin_u8"),
 }
@@ -200,6 +202,28 @@ def _check_device(fn: str, t: torch.Tensor) -> None:
         raise ValueError(f"{fn}: unsupported device {t.device}")
 
 
+# ---- the 3xTF32 split of K1's f32 mode and K4 ----------------------------
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(big, small)`` of an f32 tensor as the tensor-core kernels split
+    each staged value (``csrc/blockmin_tc.cuh``, ``cvt.rna.tf32.f32``):
+    ``big = rna(x)``, ``small = rna(x - big)``, where ``rna`` keeps 10
+    mantissa bits, rounding to nearest with ties away from zero (the low 13
+    bits of each piece are zero). ``big + small`` is ``x`` to the rounding
+    of ``small`` (~2^-22 relative); products of pieces are exact in f32, so
+    ``small_q big_x + big_q small_x + big_q big_x`` is the kernels' product.
+    The kernels split in shared memory; no search path calls this."""
+
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        # on the magnitude bits: + half of the dropped field, carry, clear
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    big = rna(x)
+    return big, rna(x - big)
+
+
 # ---- K1: fused distance + per-block minimum ------------------------------
 
 
@@ -210,9 +234,6 @@ def dist_blockmin_pad_rows(n: int, w: int) -> int:
     needed: every block of ``w`` rows is whole.
     """
     return -(-n // w) * w
-
-
-_MAX_GRID_Y = 65535  # f32: query tiles of 128 run along gridDim.y
 
 
 def _default_chunk_rows(b: int) -> int:
@@ -326,8 +347,8 @@ def _launch_dist_blockmin(queries, payload, pens, w):
     count_as, source, entry = _DBM_MODES[payload.dtype]
     if len(pens) == 2:
         entry = _PAIR_ENTRIES[payload.dtype]
-    # the tensor-core kernel's grid is persistent (a card's worth of blocks)
-    if s >= 2**31 or (source == "dist_blockmin" and b > _MAX_GRID_Y * 128):
+    # the kernel's grid is persistent (a card's worth of blocks)
+    if b >= 2**31 or s >= 2**31:
         raise ValueError(f"{count_as}: B={b}, S={s} exceed the launch grid")
     q = _kernel_queries(queries, payload)
     lib = _lib(source)
@@ -360,10 +381,9 @@ def dist_blockmin(
     u8 (queries cast to bf16 here when given as f32).
 
     CUDA tensors launch, on the current stream, the kernel of
-    ``csrc/dist_blockmin.cu`` (f32: FP32 FFMA) or ``csrc/dist_blockmin_tc.cu``
-    (bf16, u8: wgmma on the tensor cores; see the source notes) and count
-    under ``LAUNCHES['dist_blockmin' | 'dist_blockmin_bf16' |
-    'dist_blockmin_u8']``. CPU tensors take :func:`dist_blockmin_reference`,
+    ``csrc/dist_blockmin_tc.cu`` (wgmma on the tensor cores; f32 by 3xTF32,
+    see :func:`split_tf32` and the source notes) and count under
+    ``LAUNCHES['dist_blockmin' | 'dist_blockmin_bf16' | 'dist_blockmin_u8']``. CPU tensors take :func:`dist_blockmin_reference`,
     with ``chunk_rows`` bounding its score block.
     """
     _check_dist_blockmin(queries, payload, pen, w)
@@ -655,8 +675,8 @@ def blockmin(
     callers pad the database to a whole number of tiles with large-valued
     rows, which never win a minimum.
 
-    CUDA tensors launch the kernel of ``csrc/blockmin.cu`` (FP32 FFMA) on the
-    current stream and count under ``LAUNCHES['blockmin']``. CPU tensors
+    CUDA tensors launch the kernel of ``csrc/blockmin.cu`` (wgmma, 3xTF32)
+    on the current stream and count under ``LAUNCHES['blockmin']``. CPU tensors
     take :func:`blockmin_reference`, with ``chunk_rows`` bounding its block.
     """
     _check_blockmin(queries, database, w)
@@ -667,7 +687,7 @@ def blockmin(
     out = torch.empty((b, n // w), dtype=torch.float32, device=database.device)
     if b == 0:
         return out
-    if b > _MAX_GRID_Y * 128 or n >= 2**31:
+    if b >= 2**31 or n >= 2**31:
         raise ValueError(f"blockmin: B={b}, N={n} exceed the launch grid")
     qn = torch.sum(queries * queries, dim=1)
     lib = _lib("blockmin")
