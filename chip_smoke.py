@@ -10,23 +10,27 @@ on failure:
   2. build       - compile every CUDA source of the port from ``csrc/`` (one
                    nvcc per source, all started together); registers, spills
                    and shared memory per kernel; the HGMMA (wgmma)
-                   instructions in the SASS of each tensor-core library,
-                   libdist_blockmin_tc.so (K1) and libblockmin.so (K4) (none
-                   in either fails the run)
+                   instructions in the SASS of each library: every kernel
+                   runs on the tensor cores (libdist_blockmin_tc.so K1,
+                   libassign.so K3, libslab_dots.so K2, libblockmin.so K4;
+                   none in any of them fails the run)
   3. kernels     - each kernel against its plain PyTorch version on the card:
                    dist_blockmin in its f32, bf16 and u8 modes (flagship,
                    ragged and 10%-dead shapes; every mode over every
                    combination of B 7/64/300, d 17/50/64/96/128/384 and w
                    1/8/32/128 with S off the 128-row tile, bf16 and u8 also
                    as dist_blockmin_pair); the per-product precision line
-                   (K1 f32 and blockmin, one nonzero product an output,
-                   against float64 within 2e-6 relative) and the depth
-                   line (both at d 128 and 384 on unit vectors against
-                   float64, beside the plain version; reported, not
-                   gated), assign (the IVF1024
-                   k-means sample and corpus, a ragged shape, a tie case)
-                   slab_dots (the two graph rows' wave shapes, an f32
-                   shape, a ragged case with repeated and end ids) and
+                   (K1 f32, blockmin and assign, one nonzero product an
+                   output, against float64 within 2e-6 relative) and the
+                   depth line (K1 f32 and blockmin at d 128 and 384 on unit
+                   vectors against float64, beside the plain version;
+                   reported, not gated), assign (the IVF1024
+                   k-means sample and corpus, ragged shapes over every
+                   query-tile residency, a tie case), slab_dots (the two
+                   graph rows' wave shapes, the surrogate's with half its
+                   pops on one slab, f32 shapes, ragged cases with repeated
+                   and end ids, and out-of-range ids that must give NaN
+                   rows; each with the grouping's spread) and
                    blockmin (the JAX oracle's shape, w = 32, a ragged B over
                    3 query tiles, three tiles at w = 128, and exact search's
                    flagship padded with rows of 1e6; no path of the system
@@ -78,17 +82,21 @@ on failure:
                    top-20, batches of 256) and at 1M x 128 (w = 32); each IVF
                    row's QPS and its per-batch device time by stage (coarse
                    probe, K1, probed selection, rescore, rest); the
-                   assignment at 1M x 1024 x 128; each graph row's QPS and
+                   assignment at 1M x 1024 x 128 and one Lloyd iteration
+                   there (assign, centroid update); each graph row's QPS and
                    per-batch device time by stage (block beam: entry scan
                    and seed, per wave pop, slab_dots, merge, push; node
-                   beam: seed, per iteration, rescore); the cover tree's
+                   beam: seed, per iteration, rescore), slab_dots on every
+                   wave's inputs once under set_sync_debug_mode("error")
+                   with the grouping's spread; the cover tree's
                    first row: QPS and per-batch device time by stage (the K1
                    pair launch, descent, selection, rescore, overflow read)
                    beside the host clock, and K1 bf16 (one pen) and the pair
                    at its shape; each
                    kernel's time beside its plain version, one library call
-                   and the card's bound (K1 f32 and blockmin: the bound of
-                   their 3xTF32 route, and the FP32 bound beside it)
+                   and the card's bound (K1 f32, blockmin and assign: the
+                   bound of their 3xTF32 route, and the FP32 bound beside
+                   it)
   7. the kernels line, the nvidia-smi line, and last the result line.
 
 Imports nothing of JAX. Writes its YAML and the runner's outputs under
@@ -113,8 +121,10 @@ OUT_DIR = os.path.join(REPO, "_smoke_out")
 # tensor cores, dense bf16 and TF32 on the tensor cores, and HBM3
 # bandwidth. The bound of a kernel is the larger of its operations over the
 # peak of their type and its bytes over the bandwidth. dist_blockmin's
-# bf16/u8 modes do a bf16 product on the tensor cores; its f32 mode and
-# blockmin do three TF32 products (3xTF32) for each f32 product.
+# bf16/u8 modes do a bf16 product on the tensor cores; its f32 mode,
+# blockmin and assign do three TF32 products (3xTF32) for each f32 product;
+# slab_dots does three bf16 products (a three-piece split of the query) on
+# bf16 slabs and 3xTF32 on f32 slabs.
 FP32_PEAK_FLOPS = 67e12
 BF16_PEAK_FLOPS = 989e12
 TF32_PEAK_FLOPS = 495e12
@@ -228,13 +238,9 @@ def phase_device():
 # ---- 2. build ----------------------------------------------------------
 
 
-# the sources whose kernels run on the tensor cores (wgmma): K1, K4
-TC_SOURCES = ("dist_blockmin_tc", "blockmin")
-
-
 def phase_build() -> None:
-    """Build every source; each tensor-core library must hold HGMMA (wgmma)
-    instructions in its SASS."""
+    """Build every source; each library (K1, K2, K3, K4: every kernel runs
+    on the tensor cores) must hold HGMMA (wgmma) instructions in its SASS."""
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     secs = kernels.build()
@@ -245,7 +251,7 @@ def phase_build() -> None:
     }
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
     hgmma = {}
-    for name in TC_SOURCES:
+    for name in kernels.KERNEL_SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", kernels._lib_path(name)],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         hgmma[name] = sum("HGMMA" in ln for ln in sass.splitlines())
@@ -293,18 +299,25 @@ K3_SHAPES = (
     (1030, 16, 16, False),
     (5000, 300, 40, True),
 )
-# (B, W, L, d, Nb, slab dtype): the MS MARCO surrogate row's wave (512
-# queries x 96 popped slabs of 128 x 384) and the SIFT-shape row's (256 x 62
-# slabs of 256 x 128), both bf16; an f32 shape; a ragged case (W = 5,
-# L = 100, d = 50) with ids 0 and Nb - 1 and repeated ids. Every graph
-# row's own launches are checked in phase 5b (check_launched).
+# (B, W, L, d, Nb, slab dtype, share of pops on slab 0): the MS MARCO
+# surrogate row's wave (512 queries x 96 popped slabs of 128 x 384) and the
+# SIFT-shape row's (256 x 62 slabs of 256 x 128), both bf16; the surrogate's
+# wave with half its pops on slab 0 (~24,600 pairs: the pad slab the beam
+# clamps stale pops to); an f32 shape; ragged cases (W = 5, L = 100, d = 50;
+# W = 1, L = 12, d = 40) with ids 0 and Nb - 1 and repeated ids. Every
+# graph row's own launches are checked in phase 5b (check_launched).
 K2_SHAPES = (
-    (512, 96, 128, 384, 782, "bf16"),
-    (256, 62, 256, 128, 3907, "bf16"),
-    (256, 40, 128, 384, 782, "f32"),
-    (7, 5, 100, 50, 13, "bf16"),
-    (7, 5, 100, 50, 13, "f32"),
+    (512, 96, 128, 384, 782, "bf16", 0.0),
+    (256, 62, 256, 128, 3907, "bf16", 0.0),
+    (512, 96, 128, 384, 782, "bf16", 0.5),
+    (256, 40, 128, 384, 782, "f32", 0.0),
+    (300, 7, 256, 128, 50, "f32", 0.3),
+    (7, 5, 100, 50, 13, "bf16", 0.0),
+    (7, 5, 100, 50, 13, "f32", 0.0),
+    (64, 1, 12, 40, 5, "bf16", 0.0),
 )
+# out-of-range ids (-1 and Nb) among in-range ones, per slab dtype: (B, W, L, d, Nb)
+K2_NAN_SHAPE = (200, 12, 128, 64, 9)
 # (B, N, d, w, padding rows of 1e6): the JAX oracle's shape, w = 32
 # (seg = 64), a ragged B, a ragged B over 3 query tiles, three tiles at
 # w = 128 (seg = 16: 8 members an n-tile), and exact search's flagship padded
@@ -320,6 +333,7 @@ K4_SHAPES = (
 # the per-product precision line: B x N rows of seeded normals at d = 4
 # with three columns zero, so each output holds one product
 PRODUCT_SHAPE = (300, 65_536)
+ASSIGN_CENTROIDS = 257  # three centroid n-tiles, the last ragged
 _MODE_NAME = {"f32": "dist_blockmin", "bf16": "dist_blockmin_bf16",
               "u8": "dist_blockmin_u8"}
 PAIR = "dist_blockmin_pair"  # counts under its payload's mode
@@ -468,35 +482,57 @@ def check_assign_on(p, c, where, dup=False) -> float:
     return err
 
 
-def check_slab_dots(q, lv, sel, where) -> float:
-    """One slab_dots launch against its plain version on the same inputs:
-    no NaN, max error <= 1e-5 x max|plain| (both sum f32 products of the
-    f32 query with the exactly widened stored values, in another order).
-    Emits the check and returns the max abs error."""
+def slab_groups(sel, nb) -> dict:
+    """How K2's grouping spreads one launch's pairs: the distinct blocks,
+    the largest bucket (the pad slab on the main path) and the work items
+    (kernels.slab_work_items, the grouping's plain version) beside their
+    static bound."""
     import torch
 
     from vectordb_retrieval_tpu_torch.ops import kernels
 
+    flat = sel.reshape(-1).long()
+    counts = torch.bincount(torch.where((flat >= 0) & (flat < nb), flat, nb), minlength=nb + 1)
+    _, _, n_items = kernels.slab_work_items(sel, nb)
+    return {"pairs": flat.numel(), "distinct_blocks": int((counts[:nb] > 0).sum()),
+            "largest_group": int(counts.max()), "items": int(n_items),
+            "max_items": kernels.slab_max_items(flat.numel(), nb)}
+
+
+def check_slab_dots(q, lv, sel, where) -> float:
+    """One slab_dots launch against its plain version on the same inputs:
+    NaN exactly on the rows of ids outside [0, Nb) (none on the main path),
+    elsewhere max error <= 1e-5 x max|plain| (both sum f32-class products of
+    the f32 query with the stored values, in another order). Emits the
+    check with the grouping's spread and returns the max abs error."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    nb = lv.shape[0]
+    bad = (sel < 0) | (sel >= nb)
     got = kernels.slab_dots(q, lv, sel)
-    want = kernels.slab_dots_reference(q, lv, sel)
+    want = kernels.slab_dots_reference(q, lv, sel.clamp(0, nb - 1))
     torch.cuda.synchronize()
-    nan = bool(torch.isnan(got).any())
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    scale = float(want.abs().max()) if got.numel() else 0.0
-    ok = not nan and err <= KERNEL_REL_TOL * scale
+    nan_rows = torch.isnan(got).any(-1)
+    nan_ok = torch.equal(nan_rows, bad) and bool(torch.isnan(got[bad]).all())
+    good = ~bad
+    err = float((got[good] - want[good]).abs().max()) if good.any() else 0.0
+    scale = float(want[good].abs().max()) if good.any() else 0.0
+    ok = nan_ok and err <= KERNEL_REL_TOL * scale
     b, w = sel.shape
     emit({"phase": "kernel_check", "kernel": "slab_dots", "at": where,
-          "shape": [b, w, lv.shape[1], lv.shape[2]], "n_blocks": lv.shape[0],
-          "slab_dtype": str(lv.dtype).split(".")[-1],
-          "distinct_blocks": int(torch.unique(sel).numel()),
+          "shape": [b, w, lv.shape[1], lv.shape[2]], "n_blocks": nb,
+          "slab_dtype": str(lv.dtype).split(".")[-1], **slab_groups(sel, nb),
+          "out_of_range_pairs": int(bad.sum()), "nan_rows_ok": nan_ok,
           "max_abs_err": err, "max_abs_plain": scale,
-          "tol": KERNEL_REL_TOL * scale, "nan": nan, "ok": ok})
+          "tol": KERNEL_REL_TOL * scale, "ok": ok})
     if not ok:
-        raise AssertionError(f"slab_dots {where}: err {err}, nan {nan}")
+        raise AssertionError(f"slab_dots {where}: err {err}, NaN rows as expected {nan_ok}")
     return err
 
 
-def check_slab_dots_shape(b, w, length, d, nb, dtype, seed) -> float:
+def check_slab_dots_shape(b, w, length, d, nb, dtype, pad, seed, out_of_range=False) -> float:
     import torch
 
     g = torch.Generator(device=DEV).manual_seed(seed)
@@ -505,10 +541,16 @@ def check_slab_dots_shape(b, w, length, d, nb, dtype, seed) -> float:
     if dtype == "bf16":
         lv = lv.to(torch.bfloat16)
     sel = torch.randint(0, nb, (b, w), generator=g, device=DEV, dtype=torch.int32)
+    sel[torch.rand((b, w), generator=g, device=DEV) < pad] = 0  # the pad slab
     sel[0, 0], sel[-1, -1] = 0, nb - 1  # both ends of the id range
-    sel[:, 1] = sel[:, 0]  # a block popped twice in a row
+    if w > 1:
+        sel[:, 1] = sel[:, 0]  # a block popped twice in a row
     sel[1] = sel[0]  # two queries popping the same blocks
-    err = check_slab_dots(q, lv, sel, f"synthetic/{dtype}")
+    where = f"synthetic/{dtype}"
+    if out_of_range:  # not clamped: NaN rows
+        sel[3, 2], sel[7, w - 1], sel[-1, 0] = -1, nb, nb + 5
+        where += "/out_of_range"
+    err = check_slab_dots(q, lv, sel, where)
     del lv
     torch.cuda.empty_cache()
     return err
@@ -519,8 +561,9 @@ def capture_launch_inputs(store: dict, stage: list, pairs: list = None):
     """While active, keep in ``store`` the inputs of the last launch of
     each kernel mode at each shape in each stage (``stage[0]``, set by the
     caller), so that ``check_launched`` can hold every kernel against its
-    plain version on the main path's own inputs (the kernels use no
-    atomics, so a launch on the same inputs gives the same output).
+    plain version on the main path's own inputs (a launch on the same
+    inputs gives the same output: K2's grouping orders the pairs of a slab
+    by atomics, but no output depends on that order).
     ``pairs[0]``, where given, counts the dist_blockmin_pair calls. The
     launches themselves and their counts are the wrappers' own."""
     from vectordb_retrieval_tpu_torch.ops import kernels
@@ -662,12 +705,13 @@ def _k1_tc_sweep(worst: dict) -> None:
 
 
 def phase_product_precision(card: str) -> None:
-    """K1 f32 (w = 1, zero pen) and blockmin (w = 1) where each output holds
-    one product: q and x at d = 4 with columns 1-3 zero, so the sums add
-    exact zeros and only the route's own product error shows. Each entry
-    against float64 of the same f32 inputs, within PRODUCT_REL_TOL of
-    |2 q0 x0| (K1) or of qn + xn (blockmin); the plain version's error
-    (FP32, TF32 off) beside it."""
+    """K1 f32 (w = 1, zero pen), blockmin (w = 1) and assign where each
+    output holds one product: q and x at d = 4 with columns 1-3 zero, so the
+    sums add exact zeros and only the route's own product error shows. Each
+    entry against float64 of the same f32 inputs, within PRODUCT_REL_TOL of
+    |2 q0 x0| (K1) or of qn + xn (blockmin; assign: pn + cn of the centroid
+    it chose, the first ASSIGN_CENTROIDS rows of x as centroids); the plain
+    version's error (FP32, TF32 off) beside it."""
     import torch
 
     from vectordb_retrieval_tpu_torch.ops import kernels
@@ -689,17 +733,30 @@ def phase_product_precision(card: str) -> None:
     scale4 = (q64 * q64)[:, None] + (x64 * x64)[None, :]
     k4 = kernels.blockmin(q, x, w=1).double()
     k4_plain = kernels.blockmin_reference(q, x, w=1).double()
+    # assign: the points x against centroids q[:ASSIGN_CENTROIDS]
+    c64 = q64[:ASSIGN_CENTROIDS]
+    k3, k3_plain = (fn(x, q[:ASSIGN_CENTROIDS].contiguous())
+                    for fn in (kernels.assign, kernels.assign_reference))
     torch.cuda.synchronize()
+
+    def k3_rel(out):
+        ids, mins = out
+        ref = (x64 - c64[ids]) ** 2
+        return float(((mins.double() - ref).abs() / (x64 * x64 + c64[ids] ** 2)).max())
+
     rel = {name: float(((got - ref).abs() / s).max())
            for name, got, ref, s in (("dist_blockmin", k1, want, scale),
                                      ("dist_blockmin_plain", k1_plain, want, scale),
                                      ("blockmin", k4, want4, scale4),
                                      ("blockmin_plain", k4_plain, want4, scale4))}
-    ok = rel["dist_blockmin"] <= PRODUCT_REL_TOL and rel["blockmin"] <= PRODUCT_REL_TOL
+    rel["assign"], rel["assign_plain"] = k3_rel(k3), k3_rel(k3_plain)
+    ok = all(rel[name] <= PRODUCT_REL_TOL for name in ("dist_blockmin", "blockmin", "assign"))
     emit({"phase": "product_precision", "card": card, "shape": [b, n, 4],
+          "assign_shape": [n, ASSIGN_CENTROIDS, 4],
           "nonzero_columns": 1, "max_rel_err": rel, "tol": PRODUCT_REL_TOL,
-          "relative_to": {"dist_blockmin": "|2 q0 x0|", "blockmin": "qn + xn"}, "ok": ok})
-    del prod, want, scale, k1, k1_plain, want4, scale4, k4, k4_plain
+          "relative_to": {"dist_blockmin": "|2 q0 x0|", "blockmin": "qn + xn",
+                          "assign": "pn + cn of the chosen centroid"}, "ok": ok})
+    del prod, want, scale, k1, k1_plain, want4, scale4, k4, k4_plain, k3, k3_plain
     torch.cuda.empty_cache()
     if not ok:
         raise AssertionError(f"per-product precision: {rel}")
@@ -770,6 +827,9 @@ def phase_kernels() -> dict:
         worst["assign"] = max(worst["assign"], check_assign(n, k, d, dup, SEED + i))
     for i, shape in enumerate(K2_SHAPES):
         worst["slab_dots"] = max(worst["slab_dots"], check_slab_dots_shape(*shape, SEED + i))
+    for dtype in ("bf16", "f32"):
+        err = check_slab_dots_shape(*K2_NAN_SHAPE, dtype, 0.5, SEED, out_of_range=True)
+        worst["slab_dots"] = max(worst["slab_dots"], err)
     for i, (b, n, d, w, pad) in enumerate(K4_SHAPES):
         q, x = _k4_inputs(b, n, d, pad, SEED + i)
         err = check_blockmin(q, x, w, n - pad, "synthetic")
@@ -1583,7 +1643,7 @@ def phase_covertree_fallback(card: str) -> dict:
 
 
 def _tf32x3_bounds(product_flops: float, flops: float, nbytes: float) -> dict:
-    """The bounds of a 3xTF32 kernel (K1 f32, blockmin): its route's, three
+    """The bounds of a 3xTF32 kernel (K1 f32, blockmin, assign): its route's, three
     TF32 products over the TF32 peak or the bytes over the bandwidth, and
     beside it the FP32 bound, all its operations over the FP32 peak."""
     route_ms = 3.0 * product_flops / TF32_PEAK_FLOPS * 1e3
@@ -1739,16 +1799,57 @@ def phase_ivf_throughput(card: str, path_name: str, row: str, info) -> dict:
     return out
 
 
+# K2's device work by launch, matched by name in the profiler's trace
+K2_LAUNCHES = ("Memset", "slab_prep_kernel", "slab_scan_kernel", "slab_scatter_kernel",
+               "slab_dots_tc_kernel")
+
+
+def _k2_launch_split(fn, reps: int = 10):
+    """Device ms a call of each of K2's launches (the counts' memset, the
+    grouping's three kernels, the product), from torch.profiler's
+    key_averages over ``reps`` calls; None where the trace holds no device
+    time, the error's text where tracing failed (a report, not a gate)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except Exception as e:  # the card's tracing is untried: report, go on
+        return repr(e)
+    split = dict.fromkeys(K2_LAUNCHES, 0.0)
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        for name in K2_LAUNCHES:
+            if name in ev.key:
+                split[name] += us / reps / 1e3
+    return split if any(split.values()) else None
+
+
 def _slab_dots_numbers(q, lv, sel) -> dict:
-    """slab_dots on one wave's own inputs: the kernel, its plain version,
-    the library product and the gather it needs, and the card's bound."""
+    """slab_dots on one wave's own inputs: one launch under
+    torch.cuda.set_sync_debug_mode("error") (its grouping must not wait for
+    the device), the grouping's spread, the kernel, its plain version, the
+    library product and the gather it needs, and the card's bound."""
     import torch
 
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     b, w = sel.shape
-    _, length, d = lv.shape
+    nb, length, d = lv.shape
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernels.slab_dots(q, lv, sel)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
     ms = time_ms(lambda: kernels.slab_dots(q, lv, sel), prime=True)
+    split_ms = _k2_launch_split(lambda: kernels.slab_dots(q, lv, sel))
     plain_ms = time_ms(lambda: kernels.slab_dots_reference(q, lv, sel), reps=3, warmup=1)
     idx = sel.long()
     # the library yardstick: one FP32 batched product of the gathered slabs
@@ -1759,20 +1860,22 @@ def _slab_dots_numbers(q, lv, sel) -> dict:
     library_ms = time_ms(lambda: torch.bmm(gathered, q[:, :, None]), reps=5, warmup=1)
     del gathered
     torch.cuda.empty_cache()
-    distinct = int(torch.unique(sel).numel())
+    groups = slab_groups(sel, nb)
     esize = lv.element_size()
     flops = 2.0 * b * w * length * d
-    nbytes = (distinct * length * d * esize + 4.0 * b * d + 4.0 * b * w
+    nbytes = (groups["distinct_blocks"] * length * d * esize + 4.0 * b * d + 4.0 * b * w
               + 4.0 * b * w * length)
-    peak = BF16_PEAK_FLOPS if lv.dtype == torch.bfloat16 else FP32_PEAK_FLOPS
-    flop_ms = flops / peak * 1e3
+    # three products a pair on the tensor cores: bf16 pieces (bf16 slabs),
+    # 3xTF32 (f32 slabs)
+    peak = BF16_PEAK_FLOPS if lv.dtype == torch.bfloat16 else TF32_PEAK_FLOPS
+    flop_ms = 3.0 * flops / peak * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     pair_bytes = float(b * w * length * d * esize)
     return {
         "slab_dots_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "gather_ms": gather_ms, "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-        "flops": flops, "bytes": nbytes, "distinct_blocks": distinct,
+        "flops": flops, "bytes": nbytes, **groups, "sync_free": True, "launch_split_ms": split_ms,
         "per_pair_bytes": pair_bytes,
         "per_pair_bytes_ms": pair_bytes / HBM_BYTES_PER_S * 1e3,
         "shape": [b, w, length, d],
@@ -2023,10 +2126,14 @@ def phase_blockmin_throughput(card: str) -> dict:
 
 def phase_assign_throughput(card: str, n=1_000_000, k=1024, d=128) -> dict:
     """The IVF1024 corpus assignment at the SIFT1M shape: kernel, plain
-    version, one FP32 library product (TF32 off) and the card's bound."""
+    version, one FP32 library product (TF32 off) and the card's bounds (the
+    3xTF32 route's, the FP32 bound beside it); then one Lloyd iteration of
+    ops/kmeans.py at this shape (assign, then the one-hot centroid update)
+    beside the assignment alone."""
     import torch
 
     from vectordb_retrieval_tpu_torch.ops import kernels
+    from vectordb_retrieval_tpu_torch.ops import kmeans
 
     g = torch.Generator(device=DEV).manual_seed(SEED)
     p = torch.randn((n, d), generator=g, device=DEV)
@@ -2034,16 +2141,14 @@ def phase_assign_throughput(card: str, n=1_000_000, k=1024, d=128) -> dict:
     ms = time_ms(lambda: kernels.assign(p, c), reps=10)
     plain_ms = time_ms(lambda: kernels.assign_reference(p, c), reps=5, warmup=1)
     library_ms = time_ms(lambda: torch.matmul(p, c.T), reps=10)
+    lloyd_ms = time_ms(lambda: kmeans._lloyd(p, c, iters=1), reps=5, warmup=1)
     flops = 2.0 * n * k * d
     nbytes = 4.0 * (n * d + k * d + k) + 8.0 * n + 4.0 * n
-    flop_ms = flops / FP32_PEAK_FLOPS * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out = {
         "phase": "assign_throughput", "shape": [n, k, d], "card": card,
         "assign_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(flop_ms, byte_ms),
-        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-        "flops": flops, "bytes": nbytes,
+        **_tf32x3_bounds(flops, flops, nbytes), "flops": flops, "bytes": nbytes,
+        "lloyd_iteration_ms": lloyd_ms, "lloyd_update_ms": lloyd_ms - ms,
     }
     emit(out)
     del p
@@ -2133,8 +2238,8 @@ def main() -> int:
         "replaces": f"{tpu}:53", "launches": launches["assign"],
         "max_abs_err": worst["assign"], "ms": k3["assign_ms"],
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-        "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
-        "shape": k3["shape"],
+        "bound_by": k3["bound_by"], "fp32_bound_ms": k3["fp32_bound_ms"],
+        "library_ms": k3["library_ms"], "shape": k3["shape"],
     })
     entries.append({
         "name": "slab_dots", "route": "cuda", "source": src + "slab_dots.cu",
@@ -2143,7 +2248,7 @@ def main() -> int:
         "ms": k2["slab_dots_ms"], "plain_ms": k2["plain_ms"],
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"], "gather_ms": k2["gather_ms"],
-        "shape": k2["shape"],
+        "per_pair_bytes_ms": k2["per_pair_bytes_ms"], "shape": k2["shape"],
     })
     entries.append({
         "name": "blockmin", "route": "cuda", "source": src + "blockmin.cu",

@@ -290,6 +290,29 @@ def test_assign_matches_pallas_and_kmeans_assign(rng, n, k, d, dup):
         assert (ids == 2).any() and (ids == 0).any()
 
 
+@pytest.mark.parametrize(
+    "n,k,d,dup",
+    [(1000, 64, 32, False), (1030, 16, 16, False), (777, 40, 24, True)],
+)
+def test_assign_tf32x3_matches_pallas_and_plain(rng, n, k, d, dup):
+    """K3's 3xTF32 arithmetic, emulated (||p||^2 summed from the raw f32
+    points, (pn + cn) - 2 dot, the first minimum), against assign_pallas and
+    the plain version: ids agree on >= 99.9 %, minima within 1e-5 of the
+    largest, the lowest id on duplicated centroids."""
+    x, c = _assign_case(rng, n, k, d, dup)
+    pn = (x * x).sum(1, dtype=np.float32)
+    cn = (c * c).sum(1, dtype=np.float32)
+    dist = (pn[:, None] + cn[None, :]) - 2.0 * _tf32x3_dots(x, c)
+    ids, mins = dist.argmin(1), dist.min(1)
+    a_pl, d_pl = (np.asarray(v) for v in assign_pallas(jnp.asarray(x), jnp.asarray(c), interpret=True))
+    p_ids, p_mins = (t.numpy() for t in kernels.assign_reference(torch.from_numpy(x), torch.from_numpy(c)))
+    for ref_ids, ref_mins in ((a_pl, d_pl), (p_ids, p_mins)):
+        assert (ids == ref_ids).mean() >= 0.999
+        assert np.abs(mins - ref_mins).max() <= 1e-5 * np.abs(ref_mins).max()
+    if dup:
+        assert not np.isin(ids, [7, k - 1]).any()
+
+
 def test_assign_fused_wrapper_agrees_on_ragged_rows(rng):
     x, c = _assign_case(rng, 1030, 16, 16, False)
     a_j, _ = kmeans_assign_fused(jnp.asarray(x), jnp.asarray(c))
@@ -374,15 +397,17 @@ def test_dist_blockmin_wrapper_rejects(kind, exc):
 
 
 def test_kernel_source_and_build_key():
-    """Every kernel's source ships in csrc/ and includes one of its shared
-    headers (the tensor-core kernel for K1 and K4, itself on the wgmma
-    helpers; the FFMA tile for K2 and K3); its build directory is keyed by
-    the source, the headers and the compiler flags."""
+    """Every kernel's source ships in csrc/ and includes the tensor-core
+    kernel's header (K1, K3 and K4 run its main loop, K2 its loaders), itself
+    on the wgmma helpers; the FFMA tile is gone; each build directory is
+    keyed by the source, the headers and the compiler flags."""
     import os
 
     headers = {"dist_blockmin_tc": "blockmin_tc.cuh", "blockmin": "blockmin_tc.cuh",
-               "assign": "ffma_tile.cuh", "slab_dots": "ffma_tile.cuh"}
+               "assign": "blockmin_tc.cuh", "slab_dots": "blockmin_tc.cuh"}
     assert set(headers) == set(kernels.KERNEL_SOURCES)
+    assert sorted(f for f in os.listdir(kernels.CSRC_DIR) if f.endswith(".cuh")) == [
+        "blockmin_tc.cuh", "wgmma.cuh"]
     for name in kernels.KERNEL_SOURCES:
         src = os.path.join(kernels.CSRC_DIR, f"{name}.cu")
         assert os.path.exists(src)
@@ -401,8 +426,9 @@ def test_kernel_source_and_build_key():
 def test_k1_entry_points_live_in_one_source_each():
     """Each K1 entry point the wrappers call is defined in the source the
     wrapper loads and in no other: every mode (f32, bf16 and u8, one pen
-    and the pair) in the tensor-core source; K4's in blockmin.cu; no FFMA
-    source defines one."""
+    and the pair) in the tensor-core source; K4's in blockmin.cu, K3's in
+    assign.cu, K2's in slab_dots.cu; no source holds an FFMA kernel or
+    names the FFMA tile."""
     import os
     import re
 
@@ -417,10 +443,22 @@ def test_k1_entry_points_live_in_one_source_each():
         assert defined[fn] == ["dist_blockmin_tc"], fn
     assert {m[1] for m in kernels._DBM_MODES.values()} == {"dist_blockmin_tc"}
     assert defined["vrt_blockmin_f32"] == ["blockmin"]
+    assert defined["vrt_assign_f32"] == ["assign"]
+    for fn in kernels._SLAB_MODES.values():
+        assert defined[fn] == ["slab_dots"], fn
     assert not [fn for fn, srcs in defined.items()
                 if fn.startswith(("vrt_dist_blockmin", "vrt_blockmin"))
                 and set(srcs) & {"assign", "slab_dots"}]
-    assert not os.path.exists(os.path.join(kernels.CSRC_DIR, "dist_blockmin.cu"))
+    for name in ("dist_blockmin.cu", "ffma_tile.cuh"):
+        assert not os.path.exists(os.path.join(kernels.CSRC_DIR, name))
+    for name in os.listdir(kernels.CSRC_DIR):
+        with open(os.path.join(kernels.CSRC_DIR, name)) as f:
+            assert "ffma_tile" not in f.read(), name
+    with open(os.path.join(kernels.CSRC_DIR, "assign.cu")) as f:
+        assert "Mode::ASSIGN" in f.read()
+    with open(os.path.join(kernels.CSRC_DIR, "slab_dots.cu")) as f:
+        src = f.read()
+        assert "wgmma_m64n128k16_bf16" in src and "wgmma_m64n128k8_tf32" in src
 
 
 def test_build_key_follows_the_wgmma_header(tmp_path, monkeypatch):
@@ -453,18 +491,19 @@ def test_build_key_follows_the_tensor_core_kernel_header(tmp_path, monkeypatch):
 
 
 def test_build_key_follows_the_shared_header(tmp_path, monkeypatch):
-    """A change to ffma_tile.cuh alone moves every kernel's build key, so a
-    stale library is never loaded."""
+    """A change to any one shared header alone moves every kernel's build
+    key, so a stale library is never loaded."""
     import shutil
 
     csrc = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC_DIR, csrc)
     monkeypatch.setattr(kernels, "CSRC_DIR", str(csrc))
-    before = {name: kernels._lib_path(name) for name in kernels.KERNEL_SOURCES}
-    with open(csrc / "ffma_tile.cuh", "a") as f:
-        f.write("\n// edited\n")
-    for name in kernels.KERNEL_SOURCES:
-        assert kernels._lib_path(name) != before[name]
+    for header in sorted(p.name for p in csrc.glob("*.cuh")):
+        before = {name: kernels._lib_path(name) for name in kernels.KERNEL_SOURCES}
+        with open(csrc / header, "a") as f:
+            f.write("\n// edited\n")
+        for name in kernels.KERNEL_SOURCES:
+            assert kernels._lib_path(name) != before[name], (header, name)
 
 
 # ---- the 3xTF32 route of K1 f32 and K4 ------------------------------------
@@ -683,6 +722,128 @@ def test_slab_dots_wrapper_rejects(kind, exc):
         lv = torch.zeros((5, 16, 8)).transpose(1, 2)
     with pytest.raises(exc):
         kernels.slab_dots(q, lv, sel)
+
+
+def test_split_bf16x3_pieces(rng):
+    """hi, mid and lo are bf16 values whose sum is the f32 value to 2^-24
+    relative (each difference exact in f32); two pieces, the TPU kernel's
+    split, leave ~2^-16."""
+    v = np.concatenate([rng.standard_normal(4096).astype(np.float32) * np.float32(3.0),
+                        np.array([0.0, -0.0, 1e6, -1e-6, 1e30, 65504.0, 1.0], np.float32)])
+    hi, mid, lo = kernels.split_bf16x3(torch.from_numpy(v))
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    x = v.astype(np.float64)
+    parts = [t.float().numpy().astype(np.float64) for t in (hi, mid, lo)]
+    np.testing.assert_array_equal(parts[0], np.asarray(torch.from_numpy(v).to(torch.bfloat16).float()))
+    assert (np.abs(x - parts[0] - parts[1] - parts[2]) <= np.ldexp(np.abs(x), -24)).all()
+    assert (np.abs(x - parts[0] - parts[1]) > np.ldexp(np.abs(x), -20)).any()
+
+
+def _bf16x3_slab_dots(q, lv, sel):
+    """slab_dots as K2 forms it on bf16 slabs: the three query pieces' exact
+    products with the slab values, summed in f32."""
+    tlv = torch.from_numpy(lv).to(torch.bfloat16).float()
+    pieces = [p.float() for p in kernels.split_bf16x3(torch.from_numpy(q))]
+    slabs = tlv[torch.from_numpy(sel).long()]  # [B, W, L, d]
+    return sum(torch.einsum("bwld,bd->bwl", slabs, p) for p in pieces[::-1]).numpy()
+
+
+@pytest.mark.parametrize("b,w,nb,length,d", SLAB_SHAPES)
+def test_slab_dots_bf16x3_matches_pallas_and_plain(rng, b, w, nb, length, d):
+    """K2's bf16 arithmetic, emulated, against slab_dots_pallas (the JAX
+    kernel's two-piece split, within its 1e-4 x (|ref| + 1)) and against the
+    port's plain version, the f32 query against the stored values, within
+    1e-5 x max|ref|."""
+    q, lv, sel = _slab_case(rng, b, w, nb, length, d, True)
+    jlv = jnp.asarray(lv).astype(jnp.bfloat16)
+    want = np.asarray(slab_dots_pallas(jnp.asarray(q), jlv, jnp.asarray(sel), interpret=True))
+    got = _bf16x3_slab_dots(q, lv, sel)
+    plain = kernels.slab_dots_reference(
+        torch.from_numpy(q), torch.from_numpy(lv).to(torch.bfloat16), torch.from_numpy(sel)).numpy()
+    assert got.shape == want.shape == plain.shape == (b, w, length)
+    assert np.max(np.abs(got - want) / (np.abs(want) + 1.0)) <= 1e-4
+    assert np.abs(got - plain).max() <= 1e-5 * np.abs(plain).max()
+
+
+def _work_case(kind, rng):
+    """(B, W, Nb, sel) of one grouping case."""
+    if kind == "pad_slab":  # most pops clamped to block 0 by the beam
+        sel = rng.integers(0, 50, (64, 40))
+        sel[rng.random(sel.shape) < 0.8] = 0
+        return 50, sel
+    if kind == "out_of_range":  # ids -1 and Nb: their own bucket, NaN rows
+        sel = rng.integers(0, 9, (20, 7))
+        sel[0, 0], sel[3, 6], sel[19, 2] = -1, 9, 12
+        return 9, sel
+    if kind == "repeated":  # a block twice in a row, two queries alike
+        sel = rng.integers(0, 6, (10, 5))
+        sel[:, 1] = sel[:, 0]
+        sel[1] = sel[0]
+        return 6, sel
+    if kind == "w1":
+        return 7, rng.integers(0, 7, (300, 1))
+    if kind == "ragged":  # B W = 391, no multiple of 128; one bucket of 300
+        sel = rng.integers(0, 30, (23, 17))
+        sel.reshape(-1)[:300] = 4
+        return 30, sel
+    # at the static bound: every bucket (the out-of-range one too) holds
+    # 1 mod 128 pairs
+    counts = [129, 1, 257, 1, 1]  # buckets 0-3 and bucket Nb = 4
+    sel = np.concatenate([np.full(c, g if g < 4 else -1) for g, c in enumerate(counts)])
+    return 4, rng.permutation(sel).reshape(-1, 1)
+
+
+def _walk_work_items(queries, list_vecs, sel):
+    """slab_dots computed as the kernel walks it: per work item of
+    kernels.slab_work_items, the item's slab against the queries of its
+    pairs, one product an item; items of bucket Nb leave NaN rows."""
+    b, w = sel.shape
+    nb, length, _ = list_vecs.shape
+    order, items, _ = kernels.slab_work_items(sel, nb)
+    out = torch.full((b * w, length), float("nan"))
+    for slab, first, count in items.tolist():
+        if count and slab < nb:
+            pairs = order[first : first + count]
+            out[pairs] = queries[pairs // w] @ list_vecs[slab].T
+    return out.reshape(b, w, length)
+
+
+@pytest.mark.parametrize("kind", ["pad_slab", "out_of_range", "repeated", "w1", "ragged", "bound"])
+def test_slab_work_items(rng, kind):
+    """K2's grouping (plain version): every pair in exactly one item of its
+    bucket, items of at most 128 pairs in bucket order, the count within
+    the static bound (at it for 'bound') and no host sync needed to size
+    anything; walking the items gives slab_dots_reference, NaN rows for ids
+    outside [0, Nb)."""
+    nb, sel = _work_case(kind, rng)
+    sel = torch.from_numpy(sel.astype(np.int32))
+    b, w = sel.shape
+    order, items, n_items = kernels.slab_work_items(sel, nb)
+    n = int(n_items)
+    bound = kernels.slab_max_items(b * w, nb)
+    assert items.shape == (bound, 3) and n <= bound
+    if kind == "bound":
+        assert n == bound == 8
+    assert sorted(order.tolist()) == list(range(b * w))
+    flat = sel.reshape(-1).long()
+    key = torch.where((flat >= 0) & (flat < nb), flat, nb)
+    seen = torch.zeros(b * w, dtype=torch.long)
+    for slab, first, count in items[:n].tolist():
+        assert 1 <= count <= kernels.SLAB_ITEM_PAIRS and 0 <= slab <= nb
+        pairs = order[first : first + count]
+        assert (key[pairs] == slab).all()
+        seen[pairs] += 1
+    assert (seen == 1).all()
+    assert items[n:].tolist() == [[nb + 1, 0, 0]] * (bound - n)
+    largest = int(torch.bincount(key, minlength=nb + 1).max())
+    assert n >= -(-largest // kernels.SLAB_ITEM_PAIRS) + (int((key != key[0]).any()))
+    q = torch.from_numpy(rng.standard_normal((b, 24)).astype(np.float32))
+    lv = torch.from_numpy(rng.standard_normal((nb, 12, 24)).astype(np.float32))
+    got = _walk_work_items(q, lv, sel)
+    bad = (sel < 0) | (sel >= nb)
+    assert torch.equal(torch.isnan(got).any(-1), bad) and torch.isnan(got[bad]).all()
+    want = kernels.slab_dots_reference(q, lv, sel.clamp(0, nb - 1))
+    torch.testing.assert_close(got[~bad], want[~bad], rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
 # ---- K4: interleaved full-L2 blockmin ------------------------------------

@@ -1,7 +1,8 @@
 // The persistent tensor-core block-minimum kernel that K1 (dist_blockmin_tc.cu:
-// bf16, u8 and f32 payloads) and K4 (blockmin.cu: full-L2 minima over
-// interleaved blocks) share. One main loop; the modes differ in the payload
-// element, in how a stage becomes wgmma operands, and in the epilogue.
+// bf16, u8 and f32 payloads), K4 (blockmin.cu: full-L2 minima over
+// interleaved blocks) and K3 (assign.cu: nearest centroid) share. One main
+// loop; the modes differ in the payload element, in how a stage becomes
+// wgmma operands, and in the epilogue. slab_dots.cu (K2) uses its loaders.
 //
 // Work: one block holds a tile of BM = 128 queries (two warpgroups of 64)
 // and walks payload n-tiles of BN = 128 rows. Each warpgroup runs wgmma
@@ -15,16 +16,23 @@
 // card); block i holds query tile i % n_qt and walks units i / n_qt,
 // + lanes, ..., so the query tiles of one unit run side by side and the
 // payload comes from HBM about once a launch. A unit is one n-tile (K1) or
-// the per_unit n-tiles of one column chunk (K4).
+// the per_unit n-tiles of one column chunk (K4). K3 turns this around: its
+// points are many query tiles and its centroids few n-tiles, so a unit is
+// one query tile of points walking all per_unit centroid n-tiles, and every
+// block walks units (n_qt = 1): the points come from HBM once, the
+// centroids from L2. Its query tile is reloaded at each unit; it stays in
+// shared memory across the unit's n-tiles where NS <= nk <= NK_RESIDENT (a
+// reloaded chunk's last reader is then at least NS steps back).
 //
 // Modes and their numerics:
 //   BF16, U8 (K1): queries rounded to bf16 once; bf16 payload values and u8
 //     codes 0-255 are exact in bf16, so every product is exact and the sums
 //     are f32: wgmma k16 on bf16 operands. u8 codes are copied raw and
 //     converted to bf16 into the swizzled tile in shared memory.
-//   F32 (K1), L2 (K4): 3xTF32. Each staged f32 value v (queries and payload)
-//     is split in shared memory, in place, into big = tf32_rna(v) and small =
-//     tf32_rna(v - big) (cvt.rna.tf32.f32: the low 13 bits zero, ties away
+//   F32 (K1), L2 (K4), ASSIGN (K3): 3xTF32. Each staged f32 value v
+//     (queries and payload) is split in shared memory, in place, into big =
+//     tf32_rna(v) and small = tf32_rna(v - big) (cvt.rna.tf32.f32: the low
+//     13 bits zero, ties away
 //     from zero, so the product does not depend on how the tensor core
 //     treats those bits); each 8-deep k slice issues three wgmma k8 into one
 //     f32 accumulator: small_q big_x, big_q small_x, big_q big_x. What is
@@ -34,11 +42,11 @@
 //     f32). A stage holds 32 k of four tiles (q big, q small, x big, x small).
 //     At depth the accumulator's adds, not the products, set the error:
 //     wgmma's f32 adds into the accumulator (3 a k slice, 144 at d = 384)
-//     err by several times cuBLAS's f32 sum on unit vectors. So K1 f32 lets
-//     each stage's 12 products start a fresh accumulator and adds it into a
-//     running sum (one rounded f32 add a stage, 64 more registers); K4 has
-//     no registers left for it and keeps one accumulator (its scale, qn +
-//     xn, is larger than the dot).
+//     err by several times cuBLAS's f32 sum on unit vectors. So K1 f32 and
+//     K3 let each stage's 12 products start a fresh accumulator and add it
+//     into a running sum (one rounded f32 add a stage, 64 more registers);
+//     K4 has no registers left for it and keeps one accumulator (its scale,
+//     qn + xn, is larger than the dot).
 //
 // Epilogues. Accumulator column 8i + 2 (lane % 4) + j holds B-tile row of
 // that index; the loader puts logical row tile_row(col) of the n-tile there,
@@ -59,6 +67,13 @@
 //     running minimum of 64 registers a thread is kept elementwise across
 //     the unit's n-tiles; at its end the members that share a column meet
 //     in registers (CW < 32) and across the quad (CW < 128).
+//   K3: ids[p], mins[p] = (argmin, min)_c (pn[p] + cn[c]) - 2 <p, c>, the
+//     lowest c among equals. pn is summed in f32 from the staged raw point
+//     values while the unit's first n-tile splits them (pn_buffers); cn
+//     arrives as the n-tile's pens, +inf past K. After each n-tile a thread
+//     folds its 32 ascending centroid columns of its two rows into a running
+//     (min, id) with a strict <; at the unit's end the quad meets on the
+//     lexicographic order of (min, id). No atomics, deterministic.
 //
 // Edges: payload rows past S (or past w, seg in K4) and queries past B read
 // 0 (copies of 0 bytes zero-fill) and write nothing; k >= d reads 0 in both
@@ -79,7 +94,7 @@
 namespace vrt {
 namespace btc {
 
-enum class Mode { BF16, U8, F32, L2 };
+enum class Mode { BF16, U8, F32, L2, ASSIGN };
 
 constexpr int BM = 128;  // queries per block: two warpgroups of 64
 constexpr int BN = 128;  // payload rows per n-tile (wgmma N)
@@ -94,7 +109,7 @@ static_assert(BN % (2 * RP) == 0 && RP % 8 == 0, "loader passes cover whole tile
 
 template <Mode M>
 struct Cfg {
-  static constexpr bool TF32 = M == Mode::F32 || M == Mode::L2;
+  static constexpr bool TF32 = M == Mode::F32 || M == Mode::L2 || M == Mode::ASSIGN;
   static constexpr int BK = TF32 ? 32 : 64;  // k per stage: 128 bytes
   // tf32 modes keep a big and a small tile of each operand
   static constexpr int A_BYTES = (TF32 ? 2 : 1) * TILE_BYTES;
@@ -102,13 +117,30 @@ struct Cfg {
   static constexpr int STAGE_B = (TF32 ? 2 : 1) * TILE_BYTES + RAW_BYTES;
   // two blocks an SM fit the bf16/u8 stages; the tf32 stages take one
   static constexpr int MIN_BLOCKS = TF32 ? 1 : 2;
+  // each stage's products in a fresh accumulator, added into a running sum
+  static constexpr bool STAGE_SUM = M == Mode::F32 || M == Mode::ASSIGN;
 };
 
+// The query tile stays in shared memory across a unit's n-tiles (K3: it is
+// reloaded at every unit, so a reloaded chunk's last reader must lie NS
+// steps back).
+template <Mode M>
+__host__ __device__ __forceinline__ bool resident(int nk) {
+  return nk <= NK_RESIDENT && (M != Mode::ASSIGN || nk >= NS);
+}
+
+// K3's buffers of point norms: unit u + 1's are written while its first
+// n-tile is split, a step ahead of its product, after every epilogue of
+// unit u but where nk == 1 (the split of a step runs before the epilogue of
+// the step before), which alternates two.
+__host__ __device__ __forceinline__ int pn_buffers(int nk) { return nk == 1 ? 2 : 1; }
+
 struct Params {
-  const void* q;       // [B, d]: bf16 bits (BF16, U8) or f32
-  const void* x;       // [S, d]: bf16 bits, u8 codes or f32
-  const float* pen[2]; // K1: pens [S]; K4: pen[0] = ||q||^2 [B]
-  float* out[2];
+  const void* q;       // [B, d]: bf16 bits (BF16, U8) or f32 (K3: the points)
+  const void* x;       // [S, d]: bf16 bits, u8 codes or f32 (K3: the centroids)
+  const float* pen[2]; // K1: pens [S]; K4: pen[0] = ||q||^2 [B]; K3: pen[0] = cn [S]
+  float* out[2];       // K3: out[0] = the minima [B]
+  int64_t* ids;        // K3: the argmin [B]
   int B, S, d, w, n_qt, nk;
   int vec;  // rows are 16-byte aligned: the stages are filled by cp.async
   int n_units, per_unit;  // the units a launch walks, n-tiles a unit
@@ -116,8 +148,8 @@ struct Params {
   int tile, seg, cw_log2, col_chunks;
 };
 
-// An n-tile's place: K1 its first payload row; K4 its tile, first column
-// and the member of logical row 0.
+// An n-tile's place: K1 and K3 its first payload row; K4 its tile, first
+// column and the member of logical row 0.
 struct NTile {
   int n0, t, c0, m0;
 };
@@ -127,6 +159,8 @@ __device__ __forceinline__ NTile ntile(const Params& p, int u, int m) {
   if constexpr (M == Mode::L2) {
     const int t = u / p.col_chunks;
     return {t * p.tile, t, (u - t * p.col_chunks) << p.cw_log2, m * (BN >> p.cw_log2)};
+  } else if constexpr (M == Mode::ASSIGN) {
+    return {m * BN, 0, 0, 0};
   } else {
     return {u * BN, 0, 0, 0};
   }
@@ -176,6 +210,12 @@ __device__ __forceinline__ void st_shared_16(uint32_t addr, uint4 v) {
 
 __device__ __forceinline__ void st_shared_f32(uint32_t addr, float v) {
   asm volatile("st.shared.f32 [%0], %1;\n" :: "r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 __device__ __forceinline__ uint2 ld_shared_8(uint32_t addr) {
@@ -455,6 +495,60 @@ __device__ __forceinline__ void l2_write(float (&run)[64], const Params& p, cons
   }
 }
 
+// K3, each n-tile: this thread's 32 centroid columns n0 + 32 (lane % 4) ..
+// +31 (ascending; cn_s holds the n-tile's cn by row) of its two points
+// (pn[h]) folded into its running (min, id); a strict < keeps the lowest
+// id, and columns past S never win (+inf).
+__device__ __forceinline__ void assign_update(float (&bd)[2], int (&bi)[2], const float (&dots)[64],
+                                              uint32_t cn_s, const float (&pn)[2], int n0,
+                                              int lane, int S) {
+  const int c = lane & 3, nb = n0 + 32 * c;
+#pragma unroll
+  for (int t = 0; t < 32; t += 4) {
+    const float4 cv = ld_shared_f4(cn_s + (32 * c + t) * 4);
+    const float cn[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = nb + t + j;
+      const float cnj = col < S ? cn[j] : INFINITY;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float dist = fmaf(-2.f, dots[4 * ((t + j) / 2) + 2 * h + (t + j) % 2], pn[h] + cnj);
+        if (dist < bd[h]) {
+          bd[h] = dist;
+          bi[h] = col;
+        }
+      }
+    }
+  }
+}
+
+// K3, a unit's end: the quad meets on the lexicographic order of (min, id)
+// (equal minima resolve to the lowest id), lane % 4 == 0 writes its two
+// points, and the running state goes back to (+inf, 0).
+__device__ __forceinline__ void assign_write(float (&bd)[2], int (&bi)[2], const Params& p,
+                                             int q0, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, bd[h], off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi[h], off);
+      if (od < bd[h] || (od == bd[h] && oi < bi[h])) {
+        bd[h] = od;
+        bi[h] = oi;
+      }
+    }
+    const int q = q0 + 8 * h;
+    if ((lane & 3) == 0 && q < p.B) {
+      p.ids[q] = bi[h];
+      p.out[0][q] = bd[h];
+    }
+    bd[h] = INFINITY;
+    bi[h] = 0;
+  }
+}
+
 template <Mode M, int NPEN>
 __global__ void __launch_bounds__(THREADS, Cfg<M>::MIN_BLOCKS)
 blockmin_tc_kernel(const Params p) {
@@ -462,17 +556,21 @@ blockmin_tc_kernel(const Params p) {
   constexpr bool L2 = M == Mode::L2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t a_base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  constexpr bool ASSIGN = M == Mode::ASSIGN;
   const int nk = p.nk;
-  const bool res = nk <= NK_RESIDENT;
+  const bool res = resident<M>(nk);
   const uint32_t ring = a_base + (res ? nk : NS) * C::A_BYTES;
-  // K1: the pens of the n-tiles in flight, n-tile j's in buffer j % NS (a
-  // buffer is refilled NS n-tiles later, after that n-tile's epilogue).
-  // K4: the row norms of n-tile j in buffer j % 2.
+  // K1, K3: the pens of the n-tiles in flight, n-tile j's in buffer j % NS
+  // (a buffer is refilled NS n-tiles later, after that n-tile's epilogue).
+  // K4: the row norms of n-tile j in buffer j % 2. K3: then the points'
+  // norms of unit u in buffer u % pn_buffers(nk).
   const uint32_t pens = ring + NS * C::STAGE_B;
+  const uint32_t pn_base = pens + NS * BN * 4;
   const int tid = threadIdx.x;
   const int wg = tid >> 7;  // this warpgroup's 64 queries: m0 + 64 wg ..
   const int m0 = (blockIdx.x % p.n_qt) * BM;
-  // this block's units: u0, u0 + ustride, ... (query tile fixed)
+  // this block's units: u0, u0 + ustride, ... (query tile fixed; K3: the
+  // unit is the query tile, n_qt = 1)
   const int u0 = blockIdx.x / p.n_qt, ustride = gridDim.x / p.n_qt;
   const int units = u0 < p.n_units ? (p.n_units - u0 + ustride - 1) / ustride : 0;
   const int steps = units * p.per_unit * nk;
@@ -493,11 +591,15 @@ blockmin_tc_kernel(const Params p) {
   };
   auto a_tile = [&](int s, int k) { return a_base + (res ? k : s) * C::A_BYTES; };
   auto n_tile = [&](const Cursor& c) { return ntile<M>(p, u0 + c.u * ustride, c.m); };
+  // the first query row of the step's tile, and whether its chunk of the
+  // query tile is staged (and split) at this step
+  auto q_tile = [&](const Cursor& c) { return ASSIGN ? (u0 + c.u * ustride) * BM : m0; };
+  auto loads_a = [&](const Cursor& c) { return !res || (ASSIGN ? c.m == 0 : c.j == 0); };
   Cursor ci = {0, 0, 0, 0, 0};
   auto issue = [&]() {
     const uint32_t b = ring + ci.s * C::STAGE_B;
     const NTile nt = n_tile(ci);
-    if (!res || ci.j == 0) load_a<M>(p, a_tile(ci.s, ci.k), m0, ci.k * C::BK);
+    if (loads_a(ci)) load_a<M>(p, a_tile(ci.s, ci.k), q_tile(ci), ci.k * C::BK);
     load_b<M>(p, b, b + TILE_BYTES, nt, ci.k * C::BK);
     if constexpr (!L2)
       if (ci.k == 0) load_pens<NPEN>(p, pens + (ci.j % NS) * (NPEN * BN * 4), nt.n0);
@@ -505,9 +607,9 @@ blockmin_tc_kernel(const Params p) {
   };
 
   float acc[64];
-  // K1 f32: each stage's products land in a fresh acc, added into sum with
-  // one rounded f32 add a stage (see the note on accumulation)
-  constexpr bool STAGE_SUM = M == Mode::F32;
+  // K1 f32, K3: each stage's products land in a fresh acc, added into sum
+  // with one rounded f32 add a stage (see the note on accumulation)
+  constexpr bool STAGE_SUM = C::STAGE_SUM;
   float sum[64];
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
@@ -516,7 +618,10 @@ blockmin_tc_kernel(const Params p) {
   }
 
   const int lane = tid & 31;
-  const int q0 = m0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+  const int qr = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // this thread's row of a tile
+  const int q0 = m0 + qr;
+  float bd[2] = {INFINITY, INFINITY};  // K3: the running (min, id) of rows qr, qr + 8
+  int bi[2] = {0, 0};
   float run[L2 ? 64 : 1];  // K4: the unit's running minima
   float qv[2] = {0.f, 0.f};
   float xs[SPLIT_CHUNKS];  // K4: this thread's partial row norms
@@ -534,9 +639,27 @@ blockmin_tc_kernel(const Params p) {
   // thread t to chunk t % 8 of rows t / 8 + RP i), so its own cp.async wait
   // suffices, and the split of step it + 1 runs while step it's products
   // are in flight. K4: at an n-tile's last chunk its row norms go to buffer
-  // j % 2 (the epilogue of n-tile j - 1 may still read the other).
+  // j % 2 (the epilogue of n-tile j - 1 may still read the other). K3: the
+  // points' squares are summed while the unit's first n-tile splits them,
+  // and at its last chunk the norms go to buffer u % pn_buffers(nk).
   auto split_step = [&](const Cursor& c) {
-    if (!res || c.j == 0) split_tf32<false>(a_tile(c.s, c.k), xs);
+    if (ASSIGN && c.m == 0) {
+      split_tf32<true>(a_tile(c.s, c.k), xs);
+      if (c.k == nk - 1) {
+        const uint32_t pn_s = pn_base + (c.u % pn_buffers(nk)) * (BM * 4);
+#pragma unroll
+        for (int i = 0; i < SPLIT_CHUNKS; ++i) {
+          float v = xs[i];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          xs[i] = 0.f;
+          if ((tid & 7) == 0) st_shared_f32(pn_s + ((tid >> 3) + RP * i) * 4, v);
+        }
+      }
+    } else if (loads_a(c)) {
+      split_tf32<false>(a_tile(c.s, c.k), xs);
+    }
     split_tf32<L2>(ring + c.s * C::STAGE_B, xs);
     if constexpr (L2) {
       if (c.k == nk - 1) {
@@ -586,7 +709,7 @@ blockmin_tc_kernel(const Params p) {
       const uint64_t dab = sw128_desc(a), das = sw128_desc(a + TILE_BYTES);
       const uint64_t dbb = sw128_desc(b), dbs = sw128_desc(b + TILE_BYTES);
 #pragma unroll
-      // a tile's (K1 f32: a stage's) first product overwrites acc
+      // a tile's (K1 f32, K3: a stage's) first product overwrites acc
       const bool carry = !STAGE_SUM && cs.k > 0;
 #pragma unroll
       for (int kk = 0; kk < C::BK / 8; ++kk) {
@@ -626,6 +749,11 @@ blockmin_tc_kernel(const Params p) {
             default: l2_write<16>(run, p, nt, q0, lane); break;
           }
         }
+      } else if constexpr (ASSIGN) {
+        const uint32_t pn_s = pn_base + (cs.u % pn_buffers(nk)) * (BM * 4);
+        const float pn[2] = {ld_shared_f32(pn_s + qr * 4), ld_shared_f32(pn_s + (qr + 8) * 4)};
+        assign_update(bd, bi, sum, pens + (cs.j % NS) * (BN * 4), pn, n_tile(cs).n0, lane, p.S);
+        if (cs.m == p.per_unit - 1) assign_write(bd, bi, p, q_tile(cs) + qr, lane);
       } else {
         const int n0 = n_tile(cs).n0;
         const float (&dots)[64] = STAGE_SUM ? sum : acc;
@@ -672,21 +800,24 @@ inline int l2_layout(Params& p, int lanes_max) {
   return best < 0 ? static_cast<int>(cudaErrorInvalidValue) : static_cast<int>(cudaSuccess);
 }
 
-// Launches the kernel for p (B, S, d, w, q, x, pen, out and, for K1,
-// n_units and per_unit, for K4 tile and seg, set by the caller; the rest
-// here): persistent, as many blocks as fit on the card, each walking the
-// units of one query tile. p.vec needs 16-byte aligned rows.
+// Launches the kernel for p (B, S, d, w, q, x, pen, out and, for K1 and K3,
+// n_units and per_unit, for K3 ids, for K4 tile and seg, set by the caller;
+// the rest here): persistent, as many blocks as fit on the card, each
+// walking the units of one query tile (K3: units of query tiles). p.vec
+// needs 16-byte aligned rows.
 template <Mode M, int NPEN>
 int launch(Params p, void* stream) {
   using C = Cfg<M>;
   constexpr int VEC_ALIGN = M == Mode::U8 ? 16 : (C::TF32 ? 4 : 8);  // elements
-  p.n_qt = (p.B + BM - 1) / BM;
+  // K3's blocks all walk units of query tiles
+  p.n_qt = M == Mode::ASSIGN ? 1 : (p.B + BM - 1) / BM;
   p.nk = (p.d + C::BK - 1) / C::BK;
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.x)) & 15) == 0;
   p.vec = aligned && p.d % VEC_ALIGN == 0;
-  const int a_tiles = p.nk <= NK_RESIDENT ? p.nk : NS;
-  const int pen_bytes = M == Mode::L2 ? 2 * BN * 4 : NS * NPEN * BN * 4;
+  const int a_tiles = resident<M>(p.nk) ? p.nk : NS;
+  const int pen_bytes = M == Mode::L2 ? 2 * BN * 4
+                        : NS * NPEN * BN * 4 + (M == Mode::ASSIGN ? pn_buffers(p.nk) * BM * 4 : 0);
   const int smem = a_tiles * C::A_BYTES + NS * C::STAGE_B + pen_bytes + 1024;
   auto kernel = blockmin_tc_kernel<M, NPEN>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -12,11 +12,14 @@ Kernels (each replaces one TPU kernel of
     one launch.
   * :func:`assign` — nearest-centroid (argmin, min) for k-means fitting and
     IVF list assignment. Replaces ``assign_pallas``. CUDA C++ source:
-    ``csrc/assign.cu``.
+    ``csrc/assign.cu``, on the tensor cores by 3xTF32 (the ASSIGN mode of
+    K1's main loop).
   * :func:`slab_dots` — dot products of each query with the member slabs of
     the blocks its graph beam popped (the block beam's wave probe). Replaces
     ``slab_dots_manual`` and ``slab_dots_pallas``, which share one contract.
-    CUDA C++ source: ``csrc/slab_dots.cu``.
+    CUDA C++ source: ``csrc/slab_dots.cu``: the pairs grouped by popped slab
+    on the card (:func:`slab_work_items` is that grouping's plain version),
+    each slab read once and multiplied by its queries with ``wgmma``.
   * :func:`blockmin` — full-L2 per-block minima over interleaved blocks of
     2048-row tiles (the first blockmin exact search's fused stage 1; no
     search path calls it, :func:`dist_blockmin` superseded it). Replaces
@@ -27,12 +30,11 @@ Each wrapper routes by the device of its tensors: a CUDA tensor goes to the
 kernel (or the wrapper raises), a CPU tensor goes to the plain PyTorch
 version beside it. Nothing falls back from one to the other.
 
-Kernels are compiled from ``csrc/`` (each source includes one of the
-headers there: the tensor-core kernel ``blockmin_tc.cuh``, on the helpers
-of ``wgmma.cuh``, for K1 and K4; the FFMA tile ``ffma_tile.cuh`` for K2 and
-K3) with ``nvcc`` for ``sm_90a`` at first use, into
-``_build/<hash of source, every header and flags>/``, and loaded with
-``ctypes`` through a plain C interface. Every launch adds one to
+Kernels are compiled from ``csrc/`` (every source includes the tensor-core
+kernel ``blockmin_tc.cuh``, on the helpers of ``wgmma.cuh``: K1, K3 and K4
+run its main loop, K2 its loaders) with ``nvcc`` for ``sm_90a`` at first
+use, into ``_build/<hash of source, every header and flags>/``, and loaded
+with ``ctypes`` through a plain C interface. Every launch adds one to
 ``LAUNCHES[name]`` (one name per kernel mode); nothing else touches the
 counts.
 """
@@ -126,7 +128,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "assign":
         sigs["vrt_assign_f32"] = [vp] * 5 + [ci] * 3 + [vp]
     elif name == "slab_dots":
-        sigs.update({fn: [vp] * 4 + [ci] * 5 + [vp] for fn in _SLAB_MODES.values()})
+        sigs.update({fn: [vp] * 6 + [ci] * 5 + [vp] for fn in _SLAB_MODES.values()})
+        lib.vrt_slab_dots_scratch_words.argtypes = [ci, ci]
+        lib.vrt_slab_dots_scratch_words.restype = ctypes.c_longlong
     elif name == "blockmin":
         sigs["vrt_blockmin_f32"] = [vp] * 4 + [ci] * 5 + [vp]
     for fn, argtypes in sigs.items():
@@ -222,6 +226,20 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
     big = rna(x)
     return big, rna(x - big)
+
+
+def split_bf16x3(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(hi, mid, lo)`` bf16 pieces of an f32 tensor as K2's prep kernel
+    splits each query value (``csrc/slab_dots.cu``): ``hi = bf16(x)``,
+    ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``, each rounded to
+    nearest even, each difference exact in f32. ``hi + mid + lo`` is ``x``
+    to 2^-24 relative; a piece times a bf16 value is exact in f32, so three
+    bf16 products give the f32 query against bf16 slabs. The kernel splits
+    on the card; no search path calls this."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
 
 
 # ---- K1: fused distance + per-block minimum ------------------------------
@@ -461,9 +479,9 @@ def assign(
     under ``||p||^2 + ||c||^2 - 2 p.c``; equal distances resolve to the
     lowest centroid id.
 
-    CUDA tensors launch the kernel of ``csrc/assign.cu`` (FP32 FFMA GEMM
-    with an argmin/min epilogue; the [N, K] matrix is never written) and
-    count under ``LAUNCHES['assign']``. CPU tensors take
+    CUDA tensors launch the kernel of ``csrc/assign.cu`` (a 3xTF32
+    ``wgmma`` GEMM with an argmin/min epilogue; the [N, K] matrix is never
+    written) and count under ``LAUNCHES['assign']``. CPU tensors take
     :func:`assign_reference`, with ``chunk_rows`` bounding its block.
     """
     fn = "assign"
@@ -561,6 +579,46 @@ def _check_slab_dots(queries: torch.Tensor, list_vecs: torch.Tensor, sel: torch.
     _check_device(fn, list_vecs)
 
 
+# pairs a K2 work item holds (NQ of csrc/slab_dots.cu: two warpgroups of 64)
+SLAB_ITEM_PAIRS = 128
+
+
+def slab_max_items(pairs: int, nb: int) -> int:
+    """The static bound on K2's work items, ``ceil(pairs / 128) + Nb``.
+    Each of the ``Nb + 1`` buckets (the out-of-range ids' included) makes
+    its whole items and at most one partial item; the whole items plus one
+    partial item fit in ``ceil(pairs / 128)``, so the other partial items
+    add at most ``Nb``. Reached when every bucket holds 1 mod 128 pairs."""
+    return -(-pairs // SLAB_ITEM_PAIRS) + nb
+
+
+def slab_work_items(sel: torch.Tensor, nb: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K2's grouping (the prep, scan and scatter kernels of
+    ``csrc/slab_dots.cu``): the ``B W`` pairs ``p = b W + w`` bucketed by
+    ``sel`` (ids outside ``[0, Nb)`` in bucket ``Nb``), each bucket cut into
+    work items of at most 128 pairs. Returns ``(order, items, n_items)``:
+    ``order [B W]`` the pairs in bucket order (stable here; the kernels'
+    order inside a bucket varies, and no output depends on it), ``items
+    [slab_max_items, 3]`` rows ``(slab, first place in order, pairs)`` with
+    unused rows ``(Nb + 1, 0, 0)``, and the item count as a 0-dim tensor.
+    Torch ops only, none of which waits for the device."""
+    flat = sel.reshape(-1).long()
+    key = torch.where((flat >= 0) & (flat < nb), flat, nb)
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=nb + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    per = (counts + SLAB_ITEM_PAIRS - 1) // SLAB_ITEM_PAIRS
+    ends = torch.cumsum(per, 0)
+    idx = torch.arange(slab_max_items(flat.numel(), nb), device=sel.device)
+    bucket = torch.searchsorted(ends, idx, right=True)
+    used = bucket <= nb
+    g = bucket.clamp(max=nb)
+    j = idx - (ends[g] - per[g])
+    first = torch.where(used, starts[g] + j * SLAB_ITEM_PAIRS, 0)
+    count = torch.where(used, (counts[g] - j * SLAB_ITEM_PAIRS).clamp(max=SLAB_ITEM_PAIRS), 0)
+    return order, torch.stack([bucket, first, count], dim=1), ends[-1]
+
+
 def slab_dots(
     queries: torch.Tensor,  # [B, d] f32
     list_vecs: torch.Tensor,  # [Nb, L, d] f32 | bf16 member slabs
@@ -568,13 +626,17 @@ def slab_dots(
 ) -> torch.Tensor:
     """``dots[b, w, :] = list_vecs[sel[b, w]] @ queries[b]``, ``[B, W, L]`` f32.
 
-    Stored bf16 values are widened to f32 exactly and multiplied by the f32
-    query (the f32 query against the stored values). ``sel`` must already
-    be clamped to ``[0, Nb)``: the kernel does not read an id outside it
-    and writes NaN for it instead; repeated ids are fine.
+    Stored values are multiplied by the f32 query (the f32 query against
+    the stored values). ``sel`` must already be clamped to ``[0, Nb)``: the
+    kernel does not read an id outside it and writes NaN for it instead;
+    repeated ids are fine.
 
-    CUDA tensors launch the kernel of ``csrc/slab_dots.cu`` on the current
-    stream and count under ``LAUNCHES['slab_dots']``. CPU tensors take
+    CUDA tensors launch the kernels of ``csrc/slab_dots.cu`` on the current
+    stream, with no host synchronisation: the pairs grouped by popped slab
+    (:func:`slab_work_items`), then each slab read once and multiplied by
+    the queries that popped it on the tensor cores (bf16 slabs against a
+    three-piece bf16 split of the query, f32 slabs by 3xTF32); one count
+    under ``LAUNCHES['slab_dots']`` a call. CPU tensors take
     :func:`slab_dots_reference`.
     """
     _check_slab_dots(queries, list_vecs, sel)
@@ -585,15 +647,19 @@ def slab_dots(
     out = torch.empty((b, w, length), dtype=torch.float32, device=list_vecs.device)
     if out.numel() == 0:
         return out
-    if b >= 2**31 or w >= 2**31 or nb >= 2**31 or length * d >= 2**31:
+    if b * w >= 2**31 or nb >= 2**31 - 1 or length * d >= 2**31 or b * d >= 2**31:
         raise ValueError(f"slab_dots: B={b}, W={w}, Nb={nb}, L*d={length * d} exceed int32")
     idx = sel.to(torch.int32).contiguous()
     lib = _lib("slab_dots")
-    with torch.cuda.device(list_vecs.device):
+    dev = list_vecs.device
+    scratch = torch.empty((lib.vrt_slab_dots_scratch_words(b * w, nb),), dtype=torch.int32, device=dev)
+    n_pieces = 2 if list_vecs.dtype == torch.float32 else 3
+    pieces = torch.empty((n_pieces, b, d), dtype=list_vecs.dtype, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, _SLAB_MODES[list_vecs.dtype])(
-            queries.data_ptr(), list_vecs.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), b, w, length, d, nb, stream,
+            queries.data_ptr(), list_vecs.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), pieces.data_ptr(), b, w, length, d, nb, stream,
         )
     _check_launch("slab_dots", "slab_dots", rc)
     LAUNCHES["slab_dots"] += 1
