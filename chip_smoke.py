@@ -26,7 +26,8 @@ on failure:
                    vectors against float64, beside the plain version;
                    reported, not gated), assign (the IVF1024
                    k-means sample and corpus, ragged shapes over every
-                   query-tile residency, a tie case), slab_dots (the two
+                   query-tile residency, a tie case, PQ training's
+                   65,536 x 256 at d = dsub 2 and 6), slab_dots (the two
                    graph rows' wave shapes, the surrogate's with half its
                    pops on one slab, f32 shapes, ragged cases with repeated
                    and end ids, and out-of-range ids that must give NaN
@@ -40,15 +41,25 @@ on failure:
                    ground truth, timed batched search, recall@20 == 1.0, the
                    kernel's launch counts, and a float64 spot check of the
                    ground truth
-  5. IVF path    - the BenchmarkRunner's IVF-Flat and IVF-SQ8 rows at the
-                   SIFT1M shape (1M x 128, l2, top-100; configs/sift1m.yaml)
-                   and the MS MARCO MiniLM shape (100k x 384, cosine, top-20;
-                   configs/benchmark_config.yaml msmarco): per row, assign
-                   launched in the build and dist_blockmin_bf16 / _u8 in the
-                   timed search, recall, build time, index memory. Then the
+  5. IVF path    - the BenchmarkRunner's IVF-Flat, IVF-SQ8 and IVF-PQ
+                   (IVF1024,PQ32 np64) rows at the SIFT1M shape (1M x 128,
+                   l2, top-100; configs/sift1m.yaml) and the IVF-Flat and
+                   IVF-SQ8 rows at the MS MARCO MiniLM shape (100k x 384,
+                   cosine, top-20; configs/benchmark_config.yaml msmarco):
+                   per row, assign launched in the build and
+                   dist_blockmin_bf16 / _u8 in the timed search (IVF-PQ:
+                   bf16 over its decoded lists), recall, build time, index
+                   memory; each PQ build's assign launches at d = dsub
+                   (at least one), its build seconds by part. The
+                   msmarco_surrogate configuration's ivf_pq, pq (PQ192) and
+                   pq_refconfig (PQ64) rows must reach the JAX package's
+                   committed recall less 0.03; the manifold configuration
+                   (the JAX package's rotations A/B: IVF256,PQ64 np48 on
+                   100k x 384, l2, top-20, pq_rotations 0 and 'auto') must
+                   enable the rotations and gain >= 0.10 recall@20. Then the
                    card against the host (64 queries searched with the plain
-                   versions on the CPU), and a build_only -> retrieve_only
-                   round trip of one row
+                   versions on the CPU), and build_only -> retrieve_only
+                   round trips
   5b. graph path - the BenchmarkRunner's hnsw rows: configs/msmarco_surrogate
                    .yaml on the msmarco_surrogate corpus (100k x 384, cosine,
                    top-20, auto mode: must build block mode, recall@20 >=
@@ -80,10 +91,12 @@ on failure:
      counts are read
   6. throughput  - exact search QPS at the flagship shape (100k x 384, l2,
                    top-20, batches of 256) and at 1M x 128 (w = 32); each IVF
-                   row's QPS and its per-batch device time by stage (coarse
-                   probe, K1, probed selection, rescore, rest); the
-                   assignment at 1M x 1024 x 128 and one Lloyd iteration
-                   there (assign, centroid update); each graph row's QPS and
+                   row's QPS and its per-batch device time by stage (IVF-PQ:
+                   the decode of every list; coarse probe, K1, probed
+                   selection, rescore, rest); the assignment at 1M x 1024 x
+                   128 and one Lloyd iteration there (assign, centroid
+                   update), and at PQ training's 65,536 x 256 x dsub (dsub
+                   2, 4, 6); each graph row's QPS and
                    per-batch device time by stage (block beam: entry scan
                    and seed, per wave pop, slab_dots, merge, push; node
                    beam: seed, per iteration, rescore), slab_dots on every
@@ -105,6 +118,7 @@ Imports nothing of JAX. Writes its YAML and the runner's outputs under
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -168,6 +182,20 @@ GRAPH_HOST_MIN_AGREE = 0.99
 # the MS MARCO surrogate's hnsw row must reach this recall@20 (the JAX
 # package recorded 0.9869 at the same parameters)
 GRAPH_MIN_RECALL = 0.90
+# The surrogate's PQ rows (512 queries, recall@20) must reach the JAX
+# package's committed recall for the same row less 0.03
+# (benchmark_results/round5_fused_k20/msmarco_surrogate_20260820_093335:
+# ivf_pq IVF256,PQ64 np48 0.7263, pq_refconfig PQ64 0.7062). PQ192 has no
+# committed 512-query number (its 0.8453 was a 256-query probe): its floor
+# is that run's PQ128 row, 0.7750, less 0.03, since PQ192 codes each row
+# at least as finely.
+PQ_RECALL_FLOORS = {"ivf_pq": 0.7263 - 0.03, "pq": 0.7750 - 0.03,
+                    "pq_refconfig": 0.7062 - 0.03}
+# The manifold A/B (benchmark_results/round5_rotations_ab: plain 0.5604,
+# auto 0.7854, gain 0.6877): 'auto' must enable the rotations and beat the
+# plain row's recall@20 by this much.
+ROT_AB_MIN_RECALL_GAIN = 0.10
+KSUB = 256  # PQ codes a subspace: the k-means K of every PQ training
 
 BATCH = 256
 TOPK = 20
@@ -290,15 +318,21 @@ K1_TC_B = (7, 64, 300)
 K1_TC_D = (17, 50, 64, 96, 128, 384)
 K1_TC_W = (1, 8, 32, 128)
 # (N points, K centroids, d): the IVF1024 k-means sample (1024 x 256
-# points) and corpus at the SIFT1M shape, a ragged shape, and a tie case
-# with duplicated centroids; every build's own sample, corpus and centroids
-# are checked in phase 5 (check_launched)
+# points) and corpus at the SIFT1M shape, a ragged shape, a tie case with
+# duplicated centroids, and PQ training's subspaces (the 65,536-row sample,
+# 256 codes, d = dsub 2 and 6: masked loads, d % 4 != 0); every build's own
+# sample, corpus and centroids, each PQ subspace width once, are checked in
+# phase 5 (check_launched)
 K3_SHAPES = (
     (262_144, 1024, 128, False),
     (1_000_000, 1024, 128, False),
     (1030, 16, 16, False),
     (5000, 300, 40, True),
+    (65_536, KSUB, 2, False),
+    (65_536, KSUB, 6, False),
 )
+# PQ training's K3 shapes timed in phase 6: [65,536, 256, dsub]
+K3_DSUB = (2, 4, 6)
 # (B, W, L, d, Nb, slab dtype, share of pops on slab 0): the MS MARCO
 # surrogate row's wave (512 queries x 96 popped slabs of 128 x 384) and the
 # SIFT-shape row's (256 x 62 slabs of 256 x 128), both bf16; the surrogate's
@@ -557,47 +591,54 @@ def check_slab_dots_shape(b, w, length, d, nb, dtype, pad, seed, out_of_range=Fa
 
 
 @contextlib.contextmanager
-def capture_launch_inputs(store: dict, stage: list, pairs: list = None):
+def capture_launch_inputs(store: dict, stage: list, pairs: list = None,
+                          counts: dict = None):
     """While active, keep in ``store`` the inputs of the last launch of
     each kernel mode at each shape in each stage (``stage[0]``, set by the
     caller), so that ``check_launched`` can hold every kernel against its
     plain version on the main path's own inputs (a launch on the same
     inputs gives the same output: K2's grouping orders the pairs of a slab
-    by atomics, but no output depends on that order).
-    ``pairs[0]``, where given, counts the dist_blockmin_pair calls. The
-    launches themselves and their counts are the wrappers' own."""
+    by atomics, but no output depends on that order). A PQ training's
+    subspaces share one shape, so one check covers each subspace width.
+    ``pairs[0]``, where given, counts the dist_blockmin_pair calls, and
+    ``counts``, where given, the calls under each key. The launches
+    themselves and their counts are the wrappers' own."""
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     orig_dbm, orig_assign = kernels.dist_blockmin, kernels.assign
     orig_slab, orig_pair = kernels.slab_dots, kernels.dist_blockmin_pair
     modes = _dtype_modes()
 
+    def keep(key, args):
+        store[key] = args
+        if counts is not None:
+            counts[key] = counts.get(key, 0) + 1
+
     def dist_blockmin(queries, payload, pen, w=8, chunk_rows=None):
         out = orig_dbm(queries, payload, pen, w=w, chunk_rows=chunk_rows)
         name = _MODE_NAME[modes[payload.dtype]]
-        key = (stage[0], name, tuple(queries.shape), tuple(payload.shape), w)
-        store[key] = (queries, payload, pen, w)
+        keep((stage[0], name, tuple(queries.shape), tuple(payload.shape), w),
+             (queries, payload, pen, w))
         return out
 
     def dist_blockmin_pair(queries, payload, pen_a, pen_b, w=8, chunk_rows=None):
         out = orig_pair(queries, payload, pen_a, pen_b, w=w, chunk_rows=chunk_rows)
-        key = (stage[0], PAIR, tuple(queries.shape), tuple(payload.shape), w)
-        store[key] = (queries, payload, pen_a, pen_b, w)
+        keep((stage[0], PAIR, tuple(queries.shape), tuple(payload.shape), w),
+             (queries, payload, pen_a, pen_b, w))
         if pairs is not None:
             pairs[0] += 1
         return out
 
     def assign(points, centroids, chunk_rows=None):
         out = orig_assign(points, centroids, chunk_rows=chunk_rows)
-        key = (stage[0], "assign", tuple(points.shape), tuple(centroids.shape))
-        store[key] = (points, centroids)
+        keep((stage[0], "assign", tuple(points.shape), tuple(centroids.shape)),
+             (points, centroids))
         return out
 
     def slab_dots(queries, list_vecs, sel):
         out = orig_slab(queries, list_vecs, sel)
-        key = (stage[0], "slab_dots", tuple(queries.shape), tuple(list_vecs.shape),
-               tuple(sel.shape))
-        store[key] = (queries, list_vecs, sel)
+        keep((stage[0], "slab_dots", tuple(queries.shape), tuple(list_vecs.shape),
+              tuple(sel.shape)), (queries, list_vecs, sel))
         return out
 
     kernels.dist_blockmin, kernels.assign = dist_blockmin, assign
@@ -985,11 +1026,14 @@ def phase_main_path(card: str, worst: dict) -> int:
 
 # Configurations of the repo's own configs. The first two use random data at
 # the published shapes; the third is configs/msmarco_surrogate.yaml's hnsw
-# row on the msmarco_surrogate corpus. Rows: (indexer, searcher nprobe).
+# and PQ rows on the msmarco_surrogate corpus; the fourth the JAX package's
+# per-list rotations A/B on the manifold corpus. Rows: (indexer, searcher
+# nprobe).
 IVF_CONFIGS = (
     {
         "name": "sift1m_shape",
-        "source": "configs/sift1m.yaml ivf_flat, ivf_sq8, hnsw (graph_l2, mode block)",
+        "source": ("configs/sift1m.yaml ivf_flat, ivf_sq8, hnsw (graph_l2, mode block), "
+                   "ivf_pq (ivf_pq_l2)"),
         "metric": "l2", "n": 1_000_000, "d": 128, "topk": 100,
         "rows": {
             "ivf_flat": ({"type": "FactoryIndexer", "index_key": "IVF1024,Flat",
@@ -998,6 +1042,8 @@ IVF_CONFIGS = (
                          "nprobe": 64}, 64),
             "hnsw": ({"type": "GraphIndexer", "M": 16, "efConstruction": 200,
                       "efSearch": 64, "mode": "block"}, 32),
+            "ivf_pq": ({"type": "FactoryIndexer", "index_key": "IVF1024,PQ32",
+                        "nprobe": 64}, 64),
         },
     },
     {
@@ -1017,20 +1063,53 @@ IVF_CONFIGS = (
 )
 SURROGATE_CONFIG = {
     "name": "msmarco_surrogate",
-    "source": "configs/msmarco_surrogate.yaml hnsw (graph_cosine, ann_cosine)",
+    "source": ("configs/msmarco_surrogate.yaml hnsw (graph_cosine, ann_cosine), "
+               "ivf_pq (ivf_pq_cosine), pq (pq_cosine), pq_refconfig (pq64_cosine); "
+               "PQ rows with ann_cosine_highprobe"),
     "dataset": "msmarco_surrogate", "metric": "cosine", "n": 100_000, "d": 384,
     "topk": 20, "queries": 512, "batch": 512, "gt_k": 200, "repeat": 16,
     "rows": {
         "hnsw": ({"type": "GraphIndexer", "M": 16, "efConstruction": 200,
                   "efSearch": 100}, 10),
+        "ivf_pq": ({"type": "FactoryIndexer", "index_key": "IVF256,PQ64",
+                    "nprobe": 48}, 48),
+        "pq": ({"type": "FactoryIndexer", "index_key": "PQ192"}, 48),
+        "pq_refconfig": ({"type": "FactoryIndexer", "index_key": "PQ64"}, 48),
     },
 }
-RUNNER_CONFIGS = IVF_CONFIGS + (SURROGATE_CONFIG,)
+# scripts/exp_manifold_rotations.py's manifold regime, as committed in
+# benchmark_results/round5_rotations_ab/rotations_ab.json: the loader at its
+# options there (d 384, 256 patches of rank 12, point scale 0.5), 100k rows,
+# 256 queries, l2, top-20, IVF256,PQ64 np48 built without and with
+# pq_rotations 'auto'
+MANIFOLD_CONFIG = {
+    "name": "manifold",
+    "source": ("benchmark_results/round5_rotations_ab (scripts/exp_manifold_rotations.py, "
+               "manifold regime: plain and auto rows)"),
+    "dataset": "manifold", "metric": "l2", "n": 100_000, "d": 384, "topk": 20,
+    "queries": 256, "batch": 256, "gt_k": 20,
+    "dataset_options": {"dim": 384, "n_patches": 256, "intrinsic_dim": 12,
+                        "point_scale": 0.5},
+    "rows": {
+        "plain": ({"type": "FactoryIndexer", "index_key": "IVF256,PQ64", "nprobe": 48,
+                   "pq_rotations": 0}, 48),
+        "auto": ({"type": "FactoryIndexer", "index_key": "IVF256,PQ64", "nprobe": 48,
+                  "pq_rotations": "auto"}, 48),
+    },
+}
+RUNNER_CONFIGS = IVF_CONFIGS + (SURROGATE_CONFIG, MANIFOLD_CONFIG)
 IVF_QUERIES = 2048
 HOST_QUERIES = 64
 
 
 def _ivf_dataset(cfg) -> dict:
+    if cfg.get("dataset") == "manifold":
+        return {
+            "name": "manifold", "metric": cfg["metric"],
+            "dataset_options": dict(
+                cfg["dataset_options"], train_limit=cfg["n"], test_size=cfg["queries"],
+                ground_truth_k=cfg["gt_k"], use_cache=False),
+        }
     if cfg.get("dataset") == "msmarco_surrogate":
         return {
             "name": "msmarco_surrogate", "metric": cfg["metric"],
@@ -1071,14 +1150,27 @@ def _ivf_runner_config(cfg) -> dict:
 
 
 def _row_mode(algo) -> str:
-    return "dist_blockmin_bf16" if algo.artifact.kind == "ivf_flat" else "dist_blockmin_u8"
+    """K1's mode in an IVF row's search: u8 codes for SQ8, bf16 lists or
+    bf16 reconstructions for Flat and PQ."""
+    return "dist_blockmin_u8" if algo.artifact.kind == "ivf_sq8" else "dist_blockmin_bf16"
 
 
 def _row_kernel(algo):
-    """The kernel a row's timed search must launch (None: a node beam)."""
-    if algo.artifact.kind != "graph":
+    """The kernel a row's timed search must launch (None: a node beam or
+    the flat PQ scan, which runs no kernel of the repo)."""
+    kind = algo.artifact.kind
+    if kind == "pq":
+        return None
+    if kind != "graph":
         return _row_mode(algo)
     return "slab_dots" if algo.artifact.metadata.get("mode") == "block" else None
+
+
+def _dsub_launches(counts: dict, row: str, dsub: int) -> int:
+    """assign launches of one row's build at d = dsub, K = 256: its PQ
+    training (every subspace, every Lloyd step)."""
+    return sum(n for key, n in counts.items()
+               if key[0] == f"{row}/build" and key[1] == "assign" and key[3] == (KSUB, dsub))
 
 
 def phase_runner_path(card: str, cfg, worst: dict) -> dict:
@@ -1095,7 +1187,7 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     runners, builds, searches = [], {}, {}
-    launched, stage = {}, ["ground_truth"]
+    launched, stage, counts = {}, ["ground_truth"], {}
     orig_run = experiment.ExperimentRunner.run
     orig_build = CompositeAlgorithm.build_index
     orig_search = experiment.ExperimentRunner._timed_search
@@ -1131,7 +1223,7 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
     CompositeAlgorithm.build_index = counted_build
     experiment.ExperimentRunner._timed_search = counted_search
     try:
-        with capture_launch_inputs(launched, stage):
+        with capture_launch_inputs(launched, stage, counts=counts):
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             results = BenchmarkRunner(path).run()
@@ -1169,6 +1261,17 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
         if recall is None or not 0.0 <= recall <= 1.0:
             raise AssertionError(f"{cfg['name']}/{row}: recall@{topk} = {recall}")
         meta = algo.artifact.metadata
+        pq_line = {}
+        if algo.artifact.kind in ("pq", "ivf_pq"):
+            dsub = meta["dimension"] // meta["m"]
+            at_dsub = _dsub_launches(counts, row, dsub)
+            if at_dsub < 1:
+                raise AssertionError(f"{cfg['name']}/{row}: PQ training did not launch "
+                                     f"assign at d = dsub = {dsub}")
+            pq_line = {"m": meta["m"], "dsub": dsub, "assign_launches_at_dsub": at_dsub,
+                       "build_seconds": dict(algo.indexer.build_seconds),
+                       "pq_rot_auto": meta.get("pq_rot_auto"),
+                       "rotations": "list_rotations" in algo.artifact.data}
         line = {
             "config": cfg["name"], "source": cfg["source"], "row": row,
             "shape": [cfg["n"], cfg["d"]], "metric": cfg["metric"], "card": card,
@@ -1192,6 +1295,8 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
             else:
                 line["nbr_table"] = meta["nbr_table"]
             line["slab_dots_launches"] = b.get("slab_dots", 0) + s.get("slab_dots", 0)
+        elif algo.artifact.kind == "pq":
+            line.update({"phase": "pq_main_path", "index_key": meta["index_key"]})
         else:
             line.update({
                 "phase": "ivf_main_path", "index_key": meta["index_key"],
@@ -1200,6 +1305,7 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
                 "slots": meta["n_buckets"] * meta["max_list_len"],
                 "pad_ratio": meta["pad_ratio"],
             })
+        line.update(pq_line)
         emit(line)
         rows[row] = {"algo": algo, "queries": queries, "k": min(topk, cfg["n"]),
                      "batch": cfg.get("batch", BATCH)}
@@ -1210,14 +1316,31 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
             raise AssertionError(
                 f"msmarco_surrogate/hnsw: mode {meta.get('mode')}, self-check "
                 f"{meta.get('selfcheck_recall')}, recall@{topk} {recall}")
+        got = {row: ds[row][f"recall@{topk}"] for row in PQ_RECALL_FLOORS}
+        ok = all(got[row] >= floor for row, floor in PQ_RECALL_FLOORS.items())
+        emit({"phase": "pq_recall_gate", "config": cfg["name"], f"recall@{topk}": got,
+              "floors": PQ_RECALL_FLOORS, "card": card, "ok": ok})
+        if not ok:
+            raise AssertionError(f"msmarco_surrogate PQ rows below their floors: {got}")
+    if cfg is MANIFOLD_CONFIG:
+        rec = rows["auto"]["algo"].artifact.metadata.get("pq_rot_auto") or {}
+        plain, auto = (ds[row][f"recall@{topk}"] for row in ("plain", "auto"))
+        ok = bool(rec.get("enabled")) and auto >= plain + ROT_AB_MIN_RECALL_GAIN
+        emit({"phase": "rotations_ab", "config": cfg["name"], "plain": plain, "auto": auto,
+              "pq_rot_auto": rec, "min_recall_gain": ROT_AB_MIN_RECALL_GAIN,
+              "jax_committed": {"plain": 0.5604, "auto": 0.7854, "gain": 0.6877},
+              "card": card, "ok": ok})
+        if not ok:
+            raise AssertionError(f"manifold A/B: plain {plain}, auto {auto}, {rec}")
     emit({"phase": "main_path_run", "config": cfg["name"], "card": card,
           "runner_seconds": seconds, "launches": launches})
-    return {"name": cfg["name"], "launches": launches, "rows": rows}
+    return {"name": cfg["name"], "launches": launches, "rows": rows, "counts": counts}
 
 
 def _ivf_stages(info):
     """The fused IVF search of one row, cut into its stages, on the row's
-    first 256 queries: the inputs each stage takes on the main path."""
+    first batch of queries: the inputs each stage takes on the main path.
+    An IVF-PQ row's first stage decodes every list (the resident regime)."""
     import types
 
     import torch
@@ -1230,22 +1353,41 @@ def _ivf_stages(info):
     d, meta = art.data, art.metadata
     if "full_vectors" in d:
         raise AssertionError("the stage split covers rows without exact_rescore")
-    q_raw = torch.as_tensor(info["queries"][:BATCH], device=DEV)
+    q_raw = torch.as_tensor(info["queries"][: info["batch"]], device=DEV)
     q = dops.normalize(q_raw) if meta.get("normalize_queries") else q_raw
+    if d.get("opq_rotation") is not None:
+        q = q @ d["opq_rotation"]
     metric = searcher._score_metric()
     slot_ids = d["slot_ids"]
     n_bkt, L = slot_ids.shape
     w = ivf._use_fused(n_bkt, L)
     if not w:
         raise AssertionError(f"layout {n_bkt} x {L} does not take the fused stream")
-    pen = ivf._fused_pen(slot_ids, d["list_sqnorms"], metric).reshape(-1, w)
+    decode = None
     if art.kind == "ivf_flat":
         qk, payload = q, d["list_vecs"].reshape(n_bkt * L, -1)
+        pen = ivf._fused_pen(slot_ids, d["list_sqnorms"], metric)
         rs_payload = (d["list_vecs"],)
+        rescore = ivf._flat_block_rescore(q, metric)
+    elif art.kind == "ivf_pq":
+        dim = d["centroids"].shape[1]
+        if n_bkt * L * dim * 2 > ivf._IVFPQ_RESIDENT_BUDGET:
+            raise AssertionError(f"{n_bkt} x {L} x {dim} is past the resident budget")
+        rots = d.get("list_rotations")
+
+        def decode():
+            return ivf.decode_resident(d["list_codes"], d["centroids"], d["codebooks"], rots,
+                                       None if rots is None else d["bucket_lists"])
+
+        recon, recon_sqn = decode()
+        qk, payload = q.to(torch.bfloat16), recon.reshape(n_bkt * L, dim)
+        pen = ivf._fused_pen(slot_ids, recon_sqn, metric)
+        rs_payload = (recon,)
         rescore = ivf._flat_block_rescore(q, metric)
     else:
         qk = (q * d["step"][None, :]).to(torch.bfloat16)
         payload = d["list_codes"].reshape(n_bkt * L, -1)
+        pen = ivf._fused_pen(slot_ids, d["list_sqnorms"], metric)
         rs_payload = (d["list_codes"],)
         rescore = ivf._sq_block_rescore(q, d["vmin"], d["step"], metric)
     budget = searcher._nprobe()
@@ -1259,16 +1401,51 @@ def _ivf_stages(info):
         def coarse():
             return ivf._coarse_probes(q, d["centroids"], budget), None
     return types.SimpleNamespace(
-        q_raw=q_raw, q=q, qk=qk, payload=payload, pen=pen, w=w, n_bkt=n_bkt,
-        bpb=L // w, slot_ids=slot_ids, rs_payload=rs_payload, rescore=rescore,
-        coarse=coarse, k=min(info["k"], meta["n_vectors"]), searcher=searcher,
+        q_raw=q_raw, q=q, qk=qk, payload=payload, pen=pen.reshape(-1, w), w=w,
+        n_bkt=n_bkt, bpb=L // w, slot_ids=slot_ids, rs_payload=rs_payload,
+        rescore=rescore, coarse=coarse, decode=decode,
+        k=min(info["k"], meta["n_vectors"]), searcher=searcher,
     )
+
+
+def _reconstruction_classes(art):
+    """For a PQ or IVF-PQ artifact, each row's class of bit-identical
+    reconstructions: the lowest row id with the same codes (IVF-PQ: the
+    same codes in the same list). Such rows have equal distances to every
+    query on either device, so which of them fills a top-k's last places is
+    the top-k's tie order, unspecified. None for other kinds."""
+    import numpy as np
+
+    d = art.data
+    if art.kind == "pq":
+        codes = d["codes"].cpu().numpy()
+        rows = np.arange(codes.shape[0])
+        lists = np.zeros(codes.shape[0], np.int64)
+    elif art.kind == "ivf_pq":
+        slots = d["slot_ids"].cpu().numpy()
+        live = slots.reshape(-1) >= 0
+        rows = slots.reshape(-1)[live]
+        codes = d["list_codes"].cpu().numpy().reshape(slots.size, -1)[live]
+        lists = np.repeat(d["bucket_lists"].cpu().numpy().astype(np.int64), slots.shape[1])[live]
+    else:
+        return None
+    key = np.concatenate([lists[:, None].view(np.uint8).reshape(len(rows), -1), codes], axis=1)
+    key = np.ascontiguousarray(key).view(f"V{key.shape[1]}").ravel()
+    _, inverse = np.unique(key, return_inverse=True)
+    lowest = np.full(inverse.max() + 1, np.iinfo(np.int64).max)
+    np.minimum.at(lowest, inverse, rows)
+    canon = np.empty(art.metadata["n_vectors"], np.int64)
+    canon[rows] = lowest[inverse]
+    return canon
 
 
 def phase_card_vs_host(card: str, paths) -> None:
     """Each built artifact copied to the CPU and searched there by the port
     (the kernels' plain versions) for 64 queries, against the card; the
-    cover tree's host side runs the block walk, as the card does."""
+    cover tree's host side runs the block walk, as the card does. PQ rows
+    compare ids modulo bit-identical reconstructions
+    (:func:`_reconstruction_classes`); the plain agreement is printed
+    beside it."""
     import numpy as np
 
     from vectordb_retrieval_tpu_torch.models.base import IndexArtifact
@@ -1297,8 +1474,17 @@ def phase_card_vs_host(card: str, paths) -> None:
             hd, hi = host.batch_search(q, k)
             host_s = time.perf_counter() - t0
             cd, ci = card_search(q, k)
-            same = [set(a) == set(b) for a, b in zip(ci, hi)]
-            agree = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ci, hi)]))
+            raw_agree = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ci, hi)]))
+            canon = _reconstruction_classes(art)
+            if canon is None:
+                same = [set(a) == set(b) for a, b in zip(ci, hi)]
+                agree = raw_agree
+            else:  # classes as multisets: a top-k may hold several rows of one
+                ci, hi = (np.where(ids >= 0, canon[np.maximum(ids, 0)], -1) for ids in (ci, hi))
+                same = [sorted(a) == sorted(b) for a, b in zip(ci, hi)]
+                agree = float(np.mean([
+                    sum((collections.Counter(a.tolist()) & collections.Counter(b.tolist())).values())
+                    / k for a, b in zip(ci, hi)]))
             min_agree = GRAPH_HOST_MIN_AGREE if art.kind == "graph" else HOST_MIN_AGREE
             # distances on the queries whose id sets agree (all of them for
             # the IVF rows, which must agree on >= 99.9 %)
@@ -1308,6 +1494,9 @@ def phase_card_vs_host(card: str, paths) -> None:
             ok = agree >= min_agree and err <= HOST_REL_TOL * scale
             emit({"phase": "card_vs_host", "config": path["name"], "row": row,
                   "queries": len(q), "k": k, "id_agreement": agree,
+                  "modulo_identical_reconstructions": canon is not None,
+                  "largest_identical_class": None if canon is None else int(np.bincount(canon).max()),
+                  "raw_id_agreement": raw_agree,
                   "queries_with_equal_ids": int(np.sum(same)),
                   "min_agreement": min_agree, "max_abs_dist_err": err,
                   "tol": HOST_REL_TOL * scale, "host_seconds": host_s,
@@ -1718,33 +1907,38 @@ def phase_throughput(card: str, n: int, d: int, batches: int) -> dict:
     return out
 
 
-def phase_ivf_throughput(card: str, path_name: str, row: str, info) -> dict:
-    """One IVF row: QPS over its 2048 queries (the clock stops with the ids
-    on the host), then one 256-query batch's device time by stage, and K1
-    beside its plain version, one library call and the card's bound."""
+def phase_ivf_throughput(card: str, path_name: str, row: str, info, launches=None) -> dict:
+    """One IVF row: QPS over its queries (the clock stops with the ids on
+    the host; at least 8 batches on the clock), then one batch's device
+    time by stage (an IVF-PQ row's decode first), and K1 beside its plain
+    version, one library call and the card's bound. ``launches``: the main
+    path's K1 launches at this row's shape."""
     import torch
 
     from vectordb_retrieval_tpu_torch.ops import ivf
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     st = _ivf_stages(info)
-    searcher, k = st.searcher, st.k
+    searcher, k, bsz = st.searcher, st.k, info["batch"]
     qs = torch.as_tensor(info["queries"], device=DEV)
-    batches = qs.shape[0] // BATCH
-    searcher.device_kernel(qs[:BATCH], k)
+    batches = qs.shape[0] // bsz
+    passes = max(1, -(-8 // batches))
+    searcher.device_kernel(qs[:bsz], k)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ids = [searcher.device_kernel(qs[i * BATCH : (i + 1) * BATCH], k)[1]
-           for i in range(batches)]
-    torch.cuda.synchronize()
-    ids_host = torch.cat(ids).cpu().numpy()
-    elapsed = time.perf_counter() - t0
-    if ids_host.shape != (batches * BATCH, k) or ids_host.max() >= info["algo"].artifact.metadata["n_vectors"]:
+    for _ in range(passes):
+        ids = [searcher.device_kernel(qs[i * bsz : (i + 1) * bsz], k)[1]
+               for i in range(batches)]
+        torch.cuda.synchronize()
+        ids_host = torch.cat(ids).cpu().numpy()
+    elapsed = (time.perf_counter() - t0) / passes
+    if ids_host.shape != (batches * bsz, k) or ids_host.max() >= info["algo"].artifact.metadata["n_vectors"]:
         raise AssertionError(f"{path_name}/{row}: ids malformed {ids_host.shape}")
 
     # the stages of one batch, each on the inputs the main path gives it,
     # timed on the device (primed: host launches are not what is measured)
     slack = ivf._BLOCKMIN_SLACK
+    decode_ms = time_ms(st.decode, prime=True) if st.decode else 0.0
     coarse_ms = time_ms(st.coarse, prime=True)
     probes, valid = st.coarse()
     k1_ms = time_ms(lambda: kernels.dist_blockmin(st.qk, st.payload, st.pen, w=st.w),
@@ -1773,25 +1967,27 @@ def phase_ivf_throughput(card: str, path_name: str, row: str, info) -> dict:
     library_ms = time_ms(lambda: torch.matmul(qb, xb.T), reps=10)
     del xb
     s_rows, dim = st.payload.shape
-    flops = 2.0 * BATCH * s_rows * dim
-    nbytes = (2.0 * BATCH * dim + st.payload.element_size() * s_rows * dim
-              + 4.0 * s_rows + 4.0 * BATCH * (s_rows // st.w))
+    flops = 2.0 * bsz * s_rows * dim
+    nbytes = (2.0 * bsz * dim + st.payload.element_size() * s_rows * dim
+              + 4.0 * s_rows + 4.0 * bsz * (s_rows // st.w))
     flop_ms = flops / BF16_PEAK_FLOPS * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    meta = info["algo"].artifact.metadata
     out = {
         "phase": "ivf_throughput", "config": path_name, "row": row,
+        "index_key": meta["index_key"], "rotations": "list_rotations" in info["algo"].artifact.data,
         "kernel": _row_mode(info["algo"]), "card": card,
-        "qps": batches * BATCH / elapsed, "seconds": elapsed, "batches": batches,
-        "ms_per_batch": elapsed / batches * 1e3, "batch_device_ms": batch_ms,
-        "batch_events_unprimed_ms": batch_host_bound_ms,
-        "coarse_probe_ms": coarse_ms, "dist_blockmin_ms": k1_ms,
+        "qps": batches * bsz / elapsed, "seconds": elapsed, "batches": batches,
+        "passes": passes, "ms_per_batch": elapsed / batches * 1e3,
+        "batch_device_ms": batch_ms, "batch_events_unprimed_ms": batch_host_bound_ms,
+        "decode_ms": decode_ms, "coarse_probe_ms": coarse_ms, "dist_blockmin_ms": k1_ms,
         "probed_select_ms": select_ms, "rescore_ms": rescore_ms,
-        "rest_ms": batch_ms - coarse_ms - k1_ms - select_ms - rescore_ms,
+        "rest_ms": batch_ms - decode_ms - coarse_ms - k1_ms - select_ms - rescore_ms,
         "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(flop_ms, byte_ms),
         "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-        "flops": flops, "bytes": nbytes,
-        "shape": [BATCH, s_rows, dim, st.w], "probes_per_query": probes.shape[1],
+        "flops": flops, "bytes": nbytes, "launches": launches,
+        "shape": [bsz, s_rows, dim, st.w], "probes_per_query": probes.shape[1],
     }
     emit(out)
     del bm, qs
@@ -2156,6 +2352,36 @@ def phase_assign_throughput(card: str, n=1_000_000, k=1024, d=128) -> dict:
     return out
 
 
+def phase_assign_dsub_throughput(card: str, launches: dict, n: int = 65_536) -> list:
+    """K3 at PQ training's shapes, [65,536 points, 256 codes, dsub]: the
+    kernel, its plain version, one FP32 library product (TF32 off) and the
+    card's bounds, beside the main path's launches at each dsub."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    out = []
+    for dsub in K3_DSUB:
+        g = torch.Generator(device=DEV).manual_seed(SEED + dsub)
+        p = torch.randn((n, dsub), generator=g, device=DEV)
+        c = torch.randn((KSUB, dsub), generator=g, device=DEV)
+        ms = time_ms(lambda: kernels.assign(p, c))
+        plain_ms = time_ms(lambda: kernels.assign_reference(p, c))
+        library_ms = time_ms(lambda: torch.matmul(p, c.T))
+        flops = 2.0 * n * KSUB * dsub
+        nbytes = 4.0 * (n * dsub + KSUB * dsub + KSUB) + 8.0 * n + 4.0 * n
+        line = {
+            "phase": "assign_dsub_throughput", "shape": [n, KSUB, dsub], "card": card,
+            "assign_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **_tf32x3_bounds(flops, flops, nbytes), "flops": flops, "bytes": nbytes,
+            "launches": launches.get(dsub, 0),
+        }
+        emit(line)
+        out.append(line)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2192,6 +2418,7 @@ def main() -> int:
     phase_card_vs_host(card, paths + ct_paths)
     phase_persistence_round_trip(card, IVF_CONFIGS[1], "ivf_sq8")
     phase_persistence_round_trip(card, SURROGATE_CONFIG, "hnsw")
+    phase_persistence_round_trip(card, SURROGATE_CONFIG, "ivf_pq")
     phase_persistence_round_trip(card, COVERTREE_CONFIGS[0], "covertree_v2_2")
     flagship = phase_throughput(card, 100_000, 384, 96)
     phase_throughput(card, 1_000_000, 128, 96)
@@ -2202,6 +2429,16 @@ def main() -> int:
     }
     for row in ("ivf_flat", "ivf_sq8"):
         phase_ivf_throughput(card, paths[1]["name"], row, paths[1]["rows"][row])
+
+    def k1_launches(path, row):
+        return sum(n for key, n in path["counts"].items()
+                   if key[0] == f"{row}/search" and key[1] == "dist_blockmin_bf16")
+
+    # the IVF-PQ rows: K1 bf16 over each row's decoded lists
+    pq_k1 = [phase_ivf_throughput(card, path["name"], row, path["rows"][row],
+                                  launches=k1_launches(path, row))
+             for path in paths for row, info in path["rows"].items()
+             if info["algo"].artifact.kind == "ivf_pq"]
     graph = {
         (path["name"], row): phase_graph_throughput(card, path["name"], row, info)
         for path in paths for row, info in path["rows"].items()
@@ -2210,6 +2447,10 @@ def main() -> int:
     k2 = graph[(SURROGATE_CONFIG["name"], "hnsw")]["waves"][0]
     ct_k1 = phase_covertree_throughput(card, ct_paths[0]["name"], ct_row)
     k3 = phase_assign_throughput(card)
+    dsub_launches = {dsub: sum(_dsub_launches(path["counts"], row, dsub)
+                               for path in paths for row in path["rows"])
+                     for dsub in K3_DSUB}
+    k3_dsub = phase_assign_dsub_throughput(card, dsub_launches)
     k4 = phase_blockmin_throughput(card)
 
     src = "vectordb_retrieval_tpu_torch/csrc/"
@@ -2224,6 +2465,12 @@ def main() -> int:
         "shape": [BATCH, 100_000, 384, flagship["w"]],
     }]
     by_kernel[PAIR] = ct_k1[PAIR]
+
+    def other(t, ms_key):
+        keys = ("shape", "plain_ms", "library_ms", "bound_ms", "bound_by", "launches")
+        return dict({"ms": t[ms_key]}, **{key: t[key] for key in keys},
+                    **({"row": f"{t['config']}/{t['row']}"} if "row" in t else {}))
+
     for name, t in by_kernel.items():
         entries.append({
             "name": name, "route": "cuda", "source": src + "dist_blockmin_tc.cu",
@@ -2233,6 +2480,9 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"],
         })
+    # K1 bf16 over the IVF-PQ rows' reconstructions, beside its IVF-Flat shape
+    bf16 = next(e for e in entries if e["name"] == "dist_blockmin_bf16")
+    bf16["other_shapes"] = [other(t, "dist_blockmin_ms") for t in pq_k1]
     entries.append({
         "name": "assign", "route": "cuda", "source": src + "assign.cu",
         "replaces": f"{tpu}:53", "launches": launches["assign"],
@@ -2240,6 +2490,7 @@ def main() -> int:
         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "fp32_bound_ms": k3["fp32_bound_ms"],
         "library_ms": k3["library_ms"], "shape": k3["shape"],
+        "other_shapes": [other(t, "assign_ms") for t in k3_dsub],
     })
     entries.append({
         "name": "slab_dots", "route": "cuda", "source": src + "slab_dots.cu",

@@ -156,6 +156,16 @@ def _entry_point(name, tmp_path):
 
         Dataset("msmarco_surrogate", str(tmp_path),
                 {"train_limit": 32, "test_size": 2, "ground_truth_k": 1}).load()
+    elif name == "manifold":
+        from vectordb_retrieval_tpu_torch.data.datasets import Dataset
+
+        Dataset("manifold", str(tmp_path),
+                {"train_limit": 32, "test_size": 2, "ground_truth_k": 1,
+                 "n_patches": 4, "dim": 8, "intrinsic_dim": 2}).load()
+    elif name == "FactoryIndexer_pq":
+        from vectordb_retrieval_tpu_torch.models.factory import FactoryIndexer
+
+        FactoryIndexer(index_key="OPQ4,IVF4,PQ4", pq_rotations="auto")
     elif name == "BenchmarkRunner":
         from vectordb_retrieval_tpu_torch.bench.runner import BenchmarkRunner
 
@@ -169,7 +179,8 @@ def _entry_point(name, tmp_path):
     ["exact_search", "compute_ground_truth", "BruteForceIndexer", "LinearSearcher",
      "ExactSearch", "artifact_from_numpy", "ExperimentRunner", "BenchmarkRunner",
      "FactoryIndexer", "ANNSearcher", "ApproximateSearch", "load_artifact",
-     "GraphIndexer", "HNSW", "CoverTree", "msmarco_surrogate"],
+     "GraphIndexer", "HNSW", "CoverTree", "msmarco_surrogate", "manifold",
+     "FactoryIndexer_pq"],
 )
 def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
     if torch.cuda.is_available():

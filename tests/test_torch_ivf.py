@@ -277,6 +277,25 @@ def test_sq_search_matches_jax(rng, metric):
     _assert_same(got, want)
 
 
-def test_ivf_pq_search_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        tivf.ivf_pq_search()
+def test_block_selection_breaks_ties_by_block_id(rng):
+    """The streams keep their top blocks by one tie-free top-k: the same
+    minima as a plain top-k, equal minima (-0.0 and +0.0 among them) in
+    ascending global block id, whatever the column order, so the card and
+    the host keep the same blocks where quantised rows repeat."""
+    vals = torch.from_numpy(rng.standard_normal((16, 300)).astype(np.float32))
+    vals[:, 40:120] = vals[:, 40:41]  # 80 equal minima a row
+    vals[:, 7], vals[:, 8] = -0.0, 0.0
+    vals[:, 250:] = float("inf")
+    blk = torch.stack([torch.randperm(300) for _ in range(16)])
+    got, pos = tivf._smallest_blocks(vals, blk, 64)
+    want, _ = torch.topk(vals, 64, dim=1, largest=False)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    perm = torch.randperm(300)
+    got2, pos2 = tivf._smallest_blocks(vals[:, perm], blk[:, perm], 64)
+    np.testing.assert_array_equal(torch.gather(blk, 1, pos).numpy(),
+                                  torch.gather(blk[:, perm], 1, pos2).numpy())
+    chosen = torch.gather(blk, 1, pos).numpy()
+    for row, ids in enumerate(chosen):
+        tied = np.sort(blk[row].numpy()[vals[row].numpy() == vals[row, 40].item()])
+        kept = [i for i in ids if i in set(tied.tolist())]
+        assert kept == sorted(kept) and kept == tied[: len(kept)].tolist()

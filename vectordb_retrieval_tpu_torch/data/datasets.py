@@ -2,11 +2,11 @@
 
 Counterpart of ``vectordb_retrieval_tpu/data/datasets.py``. Ground truth is
 computed on the device with the port's exact search. Ported loaders:
-``random`` and ``msmarco_surrogate`` (numpy only, so the same seed gives
-the same vectors bit for bit in both packages). The other loaders of the
-catalog (glove50, glove50_surrogate, sift1m, msmarco, manifold) and the
-out-of-core ``storage: memmap`` staging come with the data-layer slice,
-ROADMAP queue 1 item 9.
+``random``, ``msmarco_surrogate`` and ``manifold`` (numpy only, so the same
+seed gives the same vectors bit for bit in both packages). The other
+loaders of the catalog (glove50, glove50_surrogate, sift1m, msmarco) and
+the out-of-core ``storage: memmap`` staging come with the data-layer
+slice, ROADMAP queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ class Dataset:
         "random", "glove50", "glove50_surrogate", "sift1m", "msmarco",
         "msmarco_surrogate", "manifold",
     )
-    PORTED = ("random", "msmarco_surrogate")
+    PORTED = ("random", "msmarco_surrogate", "manifold")
 
     def __init__(
         self,
@@ -371,6 +371,67 @@ class Dataset:
         self.metric = self.options.get("metric", "cosine")
         self.metadata["surrogate"] = True
         self.metadata["surrogate_for"] = "msmarco (MiniLM-L6-v2 384d)"
+        self.ground_truth = compute_ground_truth(
+            self.train_vectors, self.test_vectors, self._gt_k(), self.metric,
+            device=self.device,
+        )
+
+    def _load_manifold(self) -> None:
+        """Locally low-rank 'manifold' corpus (synthetic, labelled as such).
+
+        Points live on K local patches, each with its OWN random
+        ``r``-dimensional oriented frame and power-law singular spectrum:
+        ``x = c_k + U_k (s * z) + eps * n``, ``z ~ N(0, I_r)``. IVF's coarse
+        quantiser tracks the patch centres, so each list's residuals lie in
+        that patch's own frame: a SHARED residual codebook quantises every
+        list badly, and per-list rotations (``ops/pq.
+        train_per_list_rotations``) re-align it. The corpus the rotations
+        were built for.
+        """
+        d = int(self.options.get("dim", 128))
+        n_train = int(self.options.get("train_limit", 100_000))
+        n_test = int(self.options.get("test_size", 200))
+        seed = int(self.options.get("seed", 29))
+        n_patches = int(self.options.get("n_patches", 256))
+        r = int(self.options.get("intrinsic_dim", 12))
+        alpha = float(self.options.get("spectrum_alpha", 0.7))
+        patch_spread = float(self.options.get("patch_spread", 1.0))
+        point_scale = float(self.options.get("point_scale", 0.35))
+        ambient_noise = float(self.options.get("ambient_noise", 0.02))
+        query_scale = float(self.options.get("query_scale", 0.5))
+        zipf = float(self.options.get("zipf", 0.3))
+
+        rng = np.random.default_rng(seed)
+        centers = patch_spread * rng.standard_normal((n_patches, d)).astype(
+            np.float32
+        )
+        # per-patch orthonormal r-frame with power-law singular values
+        frames = np.empty((n_patches, d, r), np.float32)
+        for p in range(n_patches):
+            q_, _ = np.linalg.qr(rng.standard_normal((d, r)))
+            frames[p] = q_.astype(np.float32)
+        spec = (np.arange(1, r + 1, dtype=np.float32)) ** (-alpha)
+        spec /= np.sqrt(np.mean(spec**2))
+        ranks = np.arange(1, n_patches + 1, dtype=np.float64)
+        probs = ranks**-zipf
+        probs /= probs.sum()
+
+        def sample(n: int, scale: float) -> np.ndarray:
+            a = rng.choice(n_patches, size=n, p=probs)
+            z = rng.standard_normal((n, r)).astype(np.float32) * spec[None]
+            local = np.einsum("ndr,nr->nd", frames[a], z).astype(np.float32)
+            eps = rng.standard_normal((n, d)).astype(np.float32)
+            return (
+                centers[a] + scale * local + ambient_noise * eps
+            ).astype(np.float32)
+
+        self.train_vectors = np.ascontiguousarray(sample(n_train, point_scale))
+        self.test_vectors = np.ascontiguousarray(sample(n_test, query_scale))
+        self.metric = self.options.get("metric", "l2")
+        self.metadata["surrogate"] = True
+        self.metadata["surrogate_for"] = (
+            "per-list-structured corpora (synthetic manifold evidence set)"
+        )
         self.ground_truth = compute_ground_truth(
             self.train_vectors, self.test_vectors, self._gt_k(), self.metric,
             device=self.device,

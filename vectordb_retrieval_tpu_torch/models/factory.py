@@ -1,12 +1,13 @@
-"""Factory indexer (IVF/SQ grammar) + the generic ANN searcher.
+"""Factory indexer (IVF/PQ/SQ grammar) + the generic ANN searcher.
 
-Counterpart of ``vectordb_retrieval_tpu/models/factory.py`` for the codings
-ported so far: ``IVF{n},Flat`` (bf16 or f32 lists, optional exact
-rescore), ``IVF{n},SQ8`` and bare ``SQ8``. The grammar is parsed in full;
-``PQ{m}``, ``IVF{n},PQ{m}`` and ``OPQ{m},`` keys raise
-``NotImplementedError`` naming their ROADMAP item, as do the streaming
-build of out-of-core corpora and the artifact kinds of unported families
-(LSH, sharded).
+Counterpart of ``vectordb_retrieval_tpu/models/factory.py``:
+``IVF{n},Flat`` (bf16 or f32 lists, optional exact rescore),
+``IVF{n},PQ{m}`` (residual PQ, optional per-list rotations:
+``pq_rotations`` = a block size or ``'auto'``), ``IVF{n},SQ8``, bare
+``PQ{m}`` and ``SQ8``, each optionally behind an ``OPQ{m},`` rotation. The
+streaming build of out-of-core corpora and the artifact kinds of unported
+families (LSH, sharded) raise ``NotImplementedError`` naming their ROADMAP
+item.
 
 ``ANNSearcher`` dispatches on artifact kind with runtime params (``nprobe``
 from searcher params or artifact metadata; ``efSearch`` for ``graph``
@@ -20,7 +21,8 @@ searcher pads to powers of two only to bound XLA recompiles).
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Tuple
+import time
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,22 +38,21 @@ from vectordb_retrieval_tpu_torch.models.base import (
 )
 from vectordb_retrieval_tpu_torch.ops import distances as dops
 from vectordb_retrieval_tpu_torch.ops import ivf as ivfops
+from vectordb_retrieval_tpu_torch.ops import pq as pqops
 from vectordb_retrieval_tpu_torch.ops import sq as sqops
 from vectordb_retrieval_tpu_torch.ops.kmeans import (
     kmeans_assign,
     kmeans_fit,
     training_sample,
 )
+from vectordb_retrieval_tpu_torch.utils.device import synchronize
 
 _FACTORY_RE = re.compile(
     r"^(?:OPQ(?P<opq>\d+),)?(?:IVF(?P<nlist>\d+),)?(?P<code>Flat|PQ(?P<m>\d+)|SQ8)$"
 )
 
-_PQ_ITEM = "ROADMAP queue 1 item 4 (IVF-PQ, PQ{m} and OPQ)"
 # artifact kinds of families not ported yet -> their ROADMAP item
 _NOT_PORTED_KINDS = {
-    "pq": _PQ_ITEM,
-    "ivf_pq": _PQ_ITEM,
     "binary_lsh": "ROADMAP queue 1 item 7 (LSH)",
     "ivf_flat_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
     "ivf_pq_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
@@ -110,6 +111,7 @@ class FactoryIndexer(BaseIndexer):
         list_dtype: str = "bf16",
         exact_rescore: bool = False,
         bucket_len: int = 0,
+        pq_rotations: Any = 0,
         **params: Any,
     ):
         super().__init__(metric=metric, **params)
@@ -126,18 +128,82 @@ class FactoryIndexer(BaseIndexer):
         # opt-in: keep the f32 corpus for an exact re-rank of the final
         # candidates of bf16 lists (+1x corpus memory)
         self.exact_rescore = bool(exact_rescore)
+        # per-list block-diagonal residual rotations for IVF-PQ: a block
+        # size in dims, 0 = off, 'auto' = the held-out MSE A/B decides
+        # (_residual_coding); stored as [nlist, d/bs, bs, bs]
+        if isinstance(pq_rotations, str) and pq_rotations.lower() == "auto":
+            self.pq_rotations: Any = "auto"
+        else:
+            self.pq_rotations = int(pq_rotations)
+        # seconds of the last build by part (the card's queue drained at
+        # each part's end)
+        self.build_seconds: Dict[str, float] = {}
+
+    # pq_rotations='auto' enables the rotations only where they cut the
+    # held-out residual reconstruction MSE by at least this fraction (the
+    # JAX package's threshold)
+    PQ_ROT_AUTO_GAIN = 0.05
+
+    def _lap(self, part: str) -> None:
+        """Close the build part ``part`` on the card's clock."""
+        synchronize(self.device)
+        now = time.perf_counter()
+        self.build_seconds[part] = self.build_seconds.get(part, 0.0) + now - self._t
+        self._t = now
+
+    def _residual_coding(
+        self,
+        residuals: torch.Tensor,
+        assignments: torch.Tensor,
+        nlist: int,
+        m: int,
+        meta: Dict[str, Any],
+        seed: int,
+    ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """``(rotations | None, codebooks)`` of the IVF-PQ residual coding,
+        resolving ``pq_rotations='auto'`` by :func:`ops.pq.rotation_gain`;
+        the decision and the measured gain go to ``meta['pq_rot_auto']``."""
+        want = self.pq_rotations
+        if want == "auto":
+            bs = pqops.auto_rotation_block(int(residuals.shape[1]))
+            gain, err_p, err_r, rots, cb_rot = pqops.rotation_gain(
+                residuals, assignments, nlist, m, bs,
+                seed=seed, iters=self.train_iters,
+            )
+            self._lap("rotations")
+            enabled = gain >= self.PQ_ROT_AUTO_GAIN
+            meta["pq_rot_auto"] = {
+                "bs": bs,
+                "gain": round(float(gain), 4),
+                "err_plain": float(err_p),
+                "err_rot": float(err_r),
+                "threshold": self.PQ_ROT_AUTO_GAIN,
+                "enabled": bool(enabled),
+            }
+            if enabled:
+                meta["pq_rot_bs"] = bs
+                return rots, cb_rot
+        elif want:
+            meta["pq_rot_bs"] = int(want)
+            out = pqops.train_per_list_rotations(
+                residuals, assignments, nlist, m, int(want),
+                seed=seed, iters=self.train_iters,
+            )
+            self._lap("rotations")
+            return out
+        cb = pqops.pq_train(residuals, m, seed=seed, iters=self.train_iters)
+        self._lap("pq_train")
+        return None, cb
 
     def build(self, vectors: np.ndarray, dimension: int) -> IndexArtifact:
         spec = parse_index_key(self.index_key)
-        if spec["opq"] or spec["coding"] == "pq":
-            raise NotImplementedError(
-                f"index_key {self.index_key!r}: PQ codings are ported with {_PQ_ITEM}"
-            )
         if is_out_of_core(vectors) and spec["nlist"] is not None:
             raise NotImplementedError(
                 "the streaming IVF build of out-of-core corpora is ported with "
                 "the data layer, ROADMAP queue 1 item 9"
             )
+        self.build_seconds = {}
+        self._t = time.perf_counter()
         x = corpus_to_device(vectors, device=self.device)
         if self.metric == "cosine":
             x = dops.normalize(x)
@@ -150,16 +216,53 @@ class FactoryIndexer(BaseIndexer):
             "index_key": self.index_key,
             "nprobe": self.nprobe,
         }
+        self._lap("upload")
+        rotation = None
+        if spec["opq"]:
+            # the OPQ rotation, learned on a training sample; the corpus
+            # (and every query) is searched as x @ R
+            sample = training_sample(n, 256, self.seed ^ 0x09)
+            train_x = x if sample is None else x[sample.to(x.device)]
+            rotation, _ = pqops.opq_train(
+                train_x, spec["opq"], seed=self.seed, iters=self.train_iters
+            )
+            x = x @ rotation
+            meta["opq_m"] = spec["opq"]
+            self._lap("opq")
         if spec["nlist"] is None:
-            return self._build_flat_coded(x, meta)
-        return self._build_ivf(x, spec, meta)
+            art = self._build_flat_coded(x, spec, meta)
+        else:
+            art = self._build_ivf(x, spec, meta)
+        if rotation is not None:
+            art.data["opq_rotation"] = rotation
+        return art
 
-    # -- flat-coded (SQ8 without IVF) -----------------------------------
-    def _build_flat_coded(self, x: torch.Tensor, meta: Dict[str, Any]) -> IndexArtifact:
+    # -- flat-coded (PQ{m} / SQ8 without IVF) ---------------------------
+    def _build_flat_coded(
+        self, x: torch.Tensor, spec: Dict[str, Any], meta: Dict[str, Any]
+    ) -> IndexArtifact:
+        if spec["coding"] == "pq":
+            m = spec["m"]
+            sample = training_sample(x.shape[0], 256, self.seed)
+            train_x = x if sample is None else x[sample.to(x.device)]
+            codebooks = pqops.pq_train(
+                train_x, m, seed=self.seed, iters=self.train_iters
+            )
+            self._lap("pq_train")
+            codes = pqops.pq_encode(x, codebooks)
+            data = {
+                "codes": codes,
+                "codebooks": codebooks,
+                "code_sqnorms": pqops.pq_code_sqnorms(codes, codebooks),
+            }
+            meta["m"] = m
+            self._lap("encode")
+            return IndexArtifact("pq", data, meta)
         vmin, step = sqops.sq_train(x)
         codes = sqops.sq_encode(x, vmin, step)
         sqn = dops.sq_norms(sqops.sq_decode(codes, vmin, step))
         data = {"codes": codes, "vmin": vmin, "step": step, "code_sqnorms": sqn}
+        self._lap("encode")
         return IndexArtifact("sq8", data, meta)
 
     # -- IVF variants ----------------------------------------------------
@@ -174,8 +277,12 @@ class FactoryIndexer(BaseIndexer):
         centroids, _ = kmeans_fit(
             train_x, nlist, seed=self.seed, iters=self.train_iters
         )
-        assignments = kmeans_assign(x, centroids).cpu().numpy()
-        cap = self.bucket_len or (256 if spec["coding"] == "sq8" else 2048)
+        assign_dev = kmeans_assign(x, centroids)
+        assignments = assign_dev.cpu().numpy()
+        self._lap("coarse_kmeans")
+        # coded payloads keep short buckets (padding costs codes and decode
+        # work); flat lists long ones
+        cap = self.bucket_len or (2048 if spec["coding"] == "flat" else 256)
         slot_ids_np, bucket_lists_np, pad_ratio = ivfops.build_bucketed_lists(
             assignments, nlist, target_len_cap=cap
         )
@@ -211,6 +318,30 @@ class FactoryIndexer(BaseIndexer):
             else:
                 data["list_vecs"] = list_vecs
             kind = "ivf_flat"
+        elif spec["coding"] == "pq":
+            m = spec["m"]
+            meta["m"] = m
+            residuals = x - centroids[assign_dev]
+            r_sample = training_sample(n, 256, self.seed + 1)
+            if r_sample is None:
+                tr_r, tr_a = residuals, assign_dev
+            else:
+                r_sample = r_sample.to(dev)
+                tr_r, tr_a = residuals[r_sample], assign_dev[r_sample]
+            rots, codebooks = self._residual_coding(
+                tr_r, tr_a, nlist, m, meta, seed=self.seed
+            )
+            if rots is not None:
+                codes = pqops.pq_encode_rotated(residuals, assign_dev, rots, codebooks)
+                data["list_rotations"] = rots
+            else:
+                codes = pqops.pq_encode(residuals, codebooks)
+            del residuals
+            sqn = pqops.pq_code_sqnorms(codes, codebooks)
+            data["codebooks"] = codebooks
+            data["list_codes"] = _gather_slots(codes, slot_ids_np)
+            data["list_sqnorms"] = _gather_slots(sqn, slot_ids_np)
+            kind = "ivf_pq"
         else:  # sq8
             vmin, step = sqops.sq_train(x)
             codes = sqops.sq_encode(x, vmin, step)
@@ -220,6 +351,7 @@ class FactoryIndexer(BaseIndexer):
             data["list_codes"] = _gather_slots(codes, slot_ids_np)
             data["list_sqnorms"] = _gather_slots(sqn, slot_ids_np)
             kind = "ivf_sq8"
+        self._lap("encode")
         return IndexArtifact(kind, data, meta)
 
 
@@ -240,7 +372,9 @@ class ANNSearcher(BaseSearcher):
     """Serves flat/quantized/IVF/graph artifacts; runtime ``nprobe`` and
     ``efSearch`` overrides."""
 
-    SUPPORTED = ("flat", "sq8", "ivf_flat", "ivf_sq8", "graph") + tuple(_NOT_PORTED_KINDS)
+    SUPPORTED = (
+        "flat", "pq", "sq8", "ivf_flat", "ivf_pq", "ivf_sq8", "graph",
+    ) + tuple(_NOT_PORTED_KINDS)
 
     def attach(self, artifact: IndexArtifact) -> None:
         if artifact.kind not in self.SUPPORTED:
@@ -325,6 +459,9 @@ class ANNSearcher(BaseSearcher):
         meta = art.metadata
         if meta.get("normalize_queries"):
             q = dops.normalize(q)
+        rotation = art.data.get("opq_rotation")
+        if rotation is not None:  # OPQ: queries follow the corpus
+            q = q @ rotation
         metric = self._score_metric()
         eff_k = min(k, meta["n_vectors"])
         kind = art.kind
@@ -337,6 +474,11 @@ class ANNSearcher(BaseSearcher):
             row_ids = d.get("row_ids")
             if row_ids is not None:  # mutable snapshot: stable-id mapping
                 ids = torch.where(ids >= 0, row_ids[ids.clamp(min=0)].long(), -1)
+        elif kind == "pq":
+            dists, ids = pqops.pq_search(
+                q, d["codes"], d["codebooks"], d["code_sqnorms"], eff_k,
+                metric=metric,
+            )
         elif kind == "sq8":
             dists, ids = sqops.sq_search(
                 q, d["codes"], d["vmin"], d["step"], d["code_sqnorms"], eff_k,
@@ -347,6 +489,16 @@ class ANNSearcher(BaseSearcher):
                 q, d["centroids"], d["slot_ids"], d["list_vecs"],
                 d["list_sqnorms"], eff_k, self._nprobe(), metric=metric,
                 full_vectors=d.get("full_vectors"), **self._probe_kwargs(),
+            )
+        elif kind == "ivf_pq":
+            rot_kw = {}
+            if d.get("list_rotations") is not None:
+                rot_kw = {"list_rotations": d["list_rotations"],
+                          "rot_bucket_lists": d["bucket_lists"]}
+            dists, ids = ivfops.ivf_pq_search(
+                q, d["centroids"], d["slot_ids"], d["list_codes"],
+                d["list_sqnorms"], d["codebooks"], eff_k, self._nprobe(),
+                metric=metric, **self._probe_kwargs(), **rot_kw,
             )
         elif kind == "graph":
             ef = int(self.params.get("efSearch", meta.get("efSearch", 100)))

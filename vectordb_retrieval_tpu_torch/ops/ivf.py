@@ -1,10 +1,13 @@
 """IVF: coarse k-means partition, bucketed inverted lists, probed search.
 
-Counterpart of ``vectordb_retrieval_tpu/ops/ivf.py`` for the Flat and SQ8
-payloads (IVF-PQ is ported with its own slice: :func:`ivf_pq_search`
-raises). Lists are dense ``[n_buckets, L, ...]`` tensors with ``-1`` id
-padding (:func:`build_bucketed_lists`, host NumPy): long lists split into
-several buckets of one length ``L`` that share their list's centroid row.
+Counterpart of ``vectordb_retrieval_tpu/ops/ivf.py`` for the Flat, SQ8
+and PQ payloads. Lists are dense ``[n_buckets, L, ...]`` tensors with
+``-1`` id padding (:func:`build_bucketed_lists`, host NumPy): long lists
+split into several buckets of one length ``L`` that share their list's
+centroid row. IVF-PQ decodes its lists to bf16 reconstructions
+(:func:`decode_resident`) and searches them as bf16 IVF-Flat lists, or, for
+indexes whose reconstruction would pass ``_IVFPQ_RESIDENT_BUDGET``, streams
+decoded chunks (:func:`ivf_pq_search`).
 
 Each search takes one of three regimes, chosen as the JAX package chooses:
 
@@ -41,6 +44,7 @@ import torch
 
 from vectordb_retrieval_tpu_torch.ops import distances as dops
 from vectordb_retrieval_tpu_torch.ops import kernels
+from vectordb_retrieval_tpu_torch.ops import pq
 
 _INF = float("inf")
 
@@ -261,6 +265,24 @@ def _use_stream(b: int, nprobe: int, n_buckets: int) -> bool:
     return b * nprobe >= n_buckets
 
 
+def _smallest_blocks(vals: torch.Tensor, blk: torch.Tensor, nb: int):
+    """The ``nb`` smallest block minima of each row of ``vals [B, M]``,
+    equal minima taken in ascending global block id ``blk [B, M]``
+    (distinct in a row, < 2^31): ``(values, positions)`` ``[B, nb]``.
+
+    Equal minima are common where quantised rows repeat (PQ codes collapse
+    a tight cluster to one reconstruction, every block holding a member
+    gets the same minimum); a top-k's own tie order differs between the
+    card and the host, and so would the blocks kept and the rows
+    rescored. One top-k over int64 keys (the minimum's order-preserving
+    bits, then the block id) has no ties.
+    """
+    bits = (vals + 0.0).view(torch.int32).long()  # + 0.0: -0.0 -> +0.0
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)  # ordered like the floats
+    _, pos = torch.topk((key << 32) | blk, nb, dim=1, largest=False, sorted=True)
+    return torch.gather(vals, 1, pos), pos
+
+
 def _rescore_blocks(
     blk: torch.Tensor,  # [B, nb] selected global block ids
     blk_vals: torch.Tensor,  # [B, nb] their block minima (+inf = unprobed)
@@ -333,7 +355,8 @@ def _ivf_blockmin(
         bms.append(dist.reshape(b, c * L // w, w).amin(dim=-1))
     bmins = torch.cat(bms, dim=1)  # [B, n_bkt*L/w]
     nb = min(k + slack, bmins.shape[1])
-    blk_vals, blk = dops.top_k_smallest(bmins, nb)
+    blk_ids = torch.arange(bmins.shape[1], device=dev).expand(b, -1)
+    blk_vals, blk = _smallest_blocks(bmins, blk_ids, nb)
     return _rescore_blocks(blk, blk_vals, slot_ids, payload, block_rescore, k, w)
 
 
@@ -386,7 +409,7 @@ def _probed_blocks(bm, probes, n_bkt, bpb, nb, probe_valid=None):
     ).reshape(b, -1)  # their global block ids
     if probe_valid is not None:
         mvals = torch.where(probe_valid.repeat_interleave(bpb, dim=1), mvals, _INF)
-    sel_vals, msel = dops.top_k_smallest(mvals, min(nb, mvals.shape[1]))
+    sel_vals, msel = _smallest_blocks(mvals, mem, min(nb, mvals.shape[1]))
     return sel_vals, torch.gather(mem, 1, msel)
 
 
@@ -549,10 +572,179 @@ def ivf_flat_search(
     return dists, ids
 
 
-def ivf_pq_search(*args, **kwargs):
-    raise NotImplementedError(
-        "IVF-PQ search is ported with the IVF-PQ slice, ROADMAP queue 1 item 4"
+# the resident regime's bf16 reconstruction budget (bytes); above it the
+# search streams decoded chunks instead
+_IVFPQ_RESIDENT_BUDGET = 512 * 1024 * 1024
+# the streaming regime's per-chunk decode budget (bf16 bytes)
+_IVFPQ_CHUNK_BUDGET = 48 * 1024 * 1024
+# reconstruction rows one resident decode step handles
+_IVFPQ_DECODE_ROWS = 65_536
+
+
+def _decode_lists(codes, cents, codebooks, rot=None):
+    """Decode bucket codes ``[c, L, m]`` -> bf16 ``x_hat [c, L, d]`` and
+    its f32 squared norms ``[c, L]``, taken BEFORE the bf16 cast.
+
+    ``cents [c, d]`` is each bucket's coarse centroid; ``rot [c, nb, bs,
+    bs]``, where given, each bucket's list rotation: the codes quantise
+    ``R_l r``, so ``R_l^T`` is applied before the centroid is added. That
+    product is summed in float64 and rounded once to f32, so the bf16 rows
+    do not depend on a device's summation order: an f32 sum taken in
+    another order would move a few values across a bf16 rounding edge, and
+    with them whole rescored distances (by ~2^-8 of a coordinate).
+    """
+    c, L, m = codes.shape
+    d = cents.shape[1]
+    y_hat = pq.pq_reconstruct(codes.reshape(c * L, m), codebooks)
+    if rot is not None:
+        bs = rot.shape[-1]
+        y_hat = torch.einsum(
+            "clbe,cbef->clbf", y_hat.reshape(c, L, d // bs, bs).double(), rot.double()
+        ).float()
+    x_hat = y_hat.reshape(c, L, d) + cents[:, None, :]
+    return x_hat.to(torch.bfloat16), torch.sum(x_hat * x_hat, dim=-1)
+
+
+def _bucket_rotations(list_rotations, rot_bucket_lists, c0, c1):
+    """Rotation blocks of buckets ``c0:c1`` (None without rotations)."""
+    if list_rotations is None:
+        return None
+    return list_rotations[rot_bucket_lists[c0:c1].long().clamp(min=0)]
+
+
+def decode_resident(
+    list_codes: torch.Tensor,  # [n_bkt, L, m] uint8
+    centroids: torch.Tensor,  # [n_bkt, d] per-bucket coarse table
+    codebooks: torch.Tensor,
+    list_rotations: Optional[torch.Tensor] = None,
+    rot_bucket_lists: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The resident regime's reconstruction of every list, ``(recon [n_bkt,
+    L, d] bf16, recon_sqn [n_bkt, L] f32)``, in steps of
+    ``ceil(65,536 / L)`` buckets so the f32 transient stays bounded."""
+    n_bkt, L, _ = list_codes.shape
+    d = centroids.shape[1]
+    chunk = max(1, min(n_bkt, -(-_IVFPQ_DECODE_ROWS // max(L, 1))))
+    recon = torch.empty((n_bkt, L, d), dtype=torch.bfloat16, device=list_codes.device)
+    recon_sqn = torch.empty((n_bkt, L), dtype=torch.float32, device=list_codes.device)
+    for c0 in range(0, n_bkt, chunk):
+        c1 = min(c0 + chunk, n_bkt)
+        recon[c0:c1], recon_sqn[c0:c1] = _decode_lists(
+            list_codes[c0:c1], centroids[c0:c1], codebooks,
+            _bucket_rotations(list_rotations, rot_bucket_lists, c0, c1),
+        )
+    return recon, recon_sqn
+
+
+def ivf_pq_search(
+    queries: torch.Tensor,
+    centroids: torch.Tensor,  # [n_bkt, d] coarse table, one row per BUCKET
+    slot_ids: torch.Tensor,
+    list_codes: torch.Tensor,  # [n_bkt, L, m] uint8 residual codes
+    list_sqnorms: torch.Tensor,  # ||residual_hat||^2 per slot (kept for parity)
+    codebooks: torch.Tensor,
+    k: int,
+    nprobe: int,
+    metric: str = "l2",
+    resident_budget: int = _IVFPQ_RESIDENT_BUDGET,
+    chunk_budget: int = _IVFPQ_CHUNK_BUDGET,
+    bucket_lists: Optional[torch.Tensor] = None,
+    nlist: int = 0,
+    nprobe_lists: int = 0,
+    list_rotations: Optional[torch.Tensor] = None,  # [nlist, nb, bs, bs]
+    rot_bucket_lists: Optional[torch.Tensor] = None,  # bucket -> list map
+    list_centroids: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IVF-PQ search by decode-on-read: ``(dists [B, k], ids [B, k] int64)``.
+
+    Resident regime (the bf16 reconstruction within ``resident_budget``):
+    every list is decoded once per call (:func:`decode_resident`, query-
+    independent), then searched as bf16 IVF-Flat lists: the fused stream
+    (K1 bf16 over the reconstructions, ``pen = ||x_hat||^2`` for l2, 0
+    for ip, +inf on dead slots; selected blocks rescored exactly against
+    the bf16 rows), the masked stream, or the probe scan, chosen as for
+    IVF-Flat. Streaming regime: chunks of ``chunk_budget`` bytes are
+    decoded, scored against every query with a bf16 product, masked to the
+    probed buckets and merged into a running top-k.
+    """
+    probes, pvalid = _probes(
+        queries, centroids, nprobe, bucket_lists, nlist, nprobe_lists,
+        list_centroids,
     )
+    b = queries.shape[0]
+    n_bkt, L, _ = list_codes.shape
+    d = centroids.shape[1]
+    qn = torch.sum(queries * queries, dim=-1)
+    q_bf = queries.to(torch.bfloat16)
+
+    if n_bkt * L * d * 2 <= resident_budget:
+        recon, recon_sqn = decode_resident(
+            list_codes, centroids, codebooks, list_rotations, rot_bucket_lists
+        )
+        block_rescore = _flat_block_rescore(queries, metric)
+        if _use_stream(b, probes.shape[1], n_bkt):
+            fw = _use_fused(n_bkt, L)
+            if fw:
+                return _ivf_probed_blockmin(
+                    probes, slot_ids, q_bf, recon.reshape(n_bkt * L, d),
+                    _fused_pen(slot_ids, recon_sqn, metric), (recon,),
+                    block_rescore, k, fw, probe_valid=pvalid,
+                )
+
+            def chunk_score(pl):
+                vecs, sqn = pl
+                dots = q_bf.float() @ vecs.reshape(-1, d).float().T
+                if metric == "l2":
+                    return qn[:, None] + sqn.reshape(1, -1) - 2.0 * dots
+                return -dots
+
+            return _ivf_blockmin(
+                probes, slot_ids, (recon, recon_sqn), chunk_score,
+                lambda pl: block_rescore((pl[0],)), k, probe_valid=pvalid,
+            )
+
+        def score(lists):
+            bq = lists.shape[0]
+            dots = torch.einsum("bgld,bd->bgl", recon[lists].float(), q_bf.float())
+            if metric == "l2":
+                dist = qn[:, None, None] + recon_sqn[lists] - 2.0 * dots
+            else:
+                dist = -dots
+            return dist.reshape(bq, -1), slot_ids[lists].reshape(bq, -1).long()
+
+        return _probe_scan(
+            probes, k, score, bucket_len=L, row_bytes=d * 2, valid=pvalid,
+        )
+
+    # streaming regime: decoded chunks in a bounded transient
+    dev = queries.device
+    chunk = max(1, min(n_bkt, chunk_budget // max(L * d * 2, 1)))
+    pv = torch.ones(probes.shape, dtype=torch.bool, device=dev) if pvalid is None else pvalid
+    best_d = torch.full((b, k), _INF, dtype=torch.float32, device=dev)
+    best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
+    for c0 in range(0, n_bkt, chunk):
+        c1 = min(c0 + chunk, n_bkt)
+        c = c1 - c0
+        x_hat, sqn = _decode_lists(
+            list_codes[c0:c1], centroids[c0:c1], codebooks,
+            _bucket_rotations(list_rotations, rot_bucket_lists, c0, c1),
+        )
+        local = probes - c0
+        inside = (local >= 0) & (local < c) & pv
+        # out-of-chunk and invalid probes land in a spare column
+        hit = torch.zeros((b, c + 1), dtype=torch.bool, device=dev)
+        hit.scatter_(1, torch.where(inside, local, c), True)
+        dots = q_bf.float() @ x_hat.reshape(c * L, d).float().T  # [B, c*L]
+        if metric == "l2":
+            dist = qn[:, None] + sqn.reshape(1, c * L) - 2.0 * dots
+        else:
+            dist = -dots
+        ids = slot_ids[c0:c1].reshape(1, c * L).long()
+        valid = (ids >= 0) & hit[:, :c].repeat_interleave(L, dim=1)
+        dist = torch.where(valid, dist, _INF)
+        best_d, sel = dops.top_k_smallest(torch.cat([best_d, dist], dim=1), k)
+        best_i = torch.gather(torch.cat([best_i, ids.expand(b, -1)], dim=1), 1, sel)
+    return best_d, torch.where(torch.isfinite(best_d), best_i, -1)
 
 
 def ivf_sq_search(
