@@ -13,7 +13,13 @@ on failure:
                    instructions in the SASS of each library: every kernel
                    runs on the tensor cores (libdist_blockmin_tc.so K1,
                    libassign.so K3, libslab_dots.so K2, libblockmin.so K4;
-                   none in any of them fails the run)
+                   none in any of them fails the run). Beside nvcc, ``make
+                   -C native`` (the host IO library) and
+                   scripts/make_sift1m_surrogate.py at its defaults (1M x
+                   128, 1,024 queries, seed 20) into _smoke_out/sift1m_synth;
+                   then the surrogate as the sift1m loader reads it: the
+                   reader (native), seconds to generate and read, the native
+                   read bit-identical to NumPy's
   3. kernels     - each kernel against its plain PyTorch version on the card:
                    dist_blockmin in its f32, bf16 and u8 modes (flagship,
                    ragged and 10%-dead shapes; every mode over every
@@ -41,9 +47,15 @@ on failure:
                    ground truth, timed batched search, recall@20 == 1.0, the
                    kernel's launch counts, and a float64 spot check of the
                    ground truth
-  5. IVF path    - the BenchmarkRunner's IVF-Flat, IVF-SQ8 and IVF-PQ
-                   (IVF1024,PQ32 np64) rows at the SIFT1M shape (1M x 128,
-                   l2, top-100; configs/sift1m.yaml) and the IVF-Flat and
+  5. IVF path    - the BenchmarkRunner's IVF-Flat, IVF-SQ8, IVF-PQ
+                   (IVF1024,PQ32 np64), exact and E2LSH (12 tables, hash 18,
+                   width 256, candidate_multiplier 8, with the fallback:
+                   the rows it answered by exact search reported) rows of
+                   configs/sift1m.yaml on the SIFT1M surrogate (1M x 128,
+                   l2, top-100, 256 queries), each held to the JAX
+                   package's committed recall@100 less 0.03 (exact 1.0,
+                   with a float64 spot check of its ground truth), and the
+                   IVF-Flat and
                    IVF-SQ8 rows at the MS MARCO MiniLM shape (100k x 384,
                    cosine, top-20; configs/benchmark_config.yaml msmarco):
                    per row, assign launched in the build and
@@ -63,27 +75,41 @@ on failure:
   5b. graph path - the BenchmarkRunner's hnsw rows: configs/msmarco_surrogate
                    .yaml on the msmarco_surrogate corpus (100k x 384, cosine,
                    top-20, auto mode: must build block mode, recall@20 >=
-                   0.90), configs/sift1m.yaml's block-mode row added to the
-                   SIFT1M-shape configuration, and a node-mode row added to
+                   0.90), configs/sift1m.yaml's block-mode row in the SIFT1M
+                   surrogate configuration, and a node-mode row added to
                    the MS MARCO-shape one; build time, index memory, recall
                    and slab_dots launches per row (the block rows must launch
                    it). The graph rows join the card-against-host check
                    (ids >= 0.99) and the block-mode MS MARCO row the round
                    trip
-  5c. cover tree - the BenchmarkRunner's two CoverTreeV2_2 rows of
+  5d. LSH path  - the BenchmarkRunner's faiss_lsh rows (BinaryLSHIndexer,
+                   512 bits, top-20) of configs/round5_faiss_lsh_refresh.yaml
+                   (random 20k x 64, multiplier 128; glove50_surrogate 20k x
+                   50, multiplier 512) and ..._sift.yaml (the SIFT1M
+                   surrogate, multiplier 64), each held to the JAX package's
+                   committed recall@20 less 0.03, with its build time, index
+                   memory, rerank path (gather or dense threshold) and QPS
+  5c. cover tree - the BenchmarkRunner's four CoverTreeV2_2 rows of
                    configs/covertree_refresh.yaml: msmarco_surrogate (100k x
                    384 unit vectors, cosine, top-20, 512 queries in one batch,
                    repeat 16; auto descent: must take the block walk and
-                   launch dist_blockmin_pair once per batch) and random (20k
-                   x 64, l2, top-20, 256 queries); recall@20 == 1.0, build
+                   launch dist_blockmin_pair once per batch), random (20k
+                   x 64, l2, top-20, 256 queries), glove50_surrogate (20k x
+                   50, l2, top-20) and sift1m on the SIFT1M surrogate (1M x
+                   128, l2, top-100, repeat 8); recall == 1.0, build
                    time by part, nodes, depths, w, index bytes, ndis, overflowed
                    queries. Then, on the first row's artifact, the block walk
                    against the stream walk; a forced fallback (a 40k-row tree
                    at err_c = 10: flagged, answered by exact search through
                    dist_blockmin f32, still exact); both rows joining the
                    card-against-host check (the host runs the block walk on
-                   the plain versions) and the first row a round trip
-     In 4, 5, 5b and 5c every kernel launch of the main path is also held
+                   the plain versions) and the first row a round trip.
+                   The card against the host covers every row of 5-5d: PQ
+                   rows modulo identical reconstructions, the SIFT
+                   surrogate's rows modulo exact distance ties (integer
+                   rows), LSH rows at ids >= 0.99 and recall within 0.005
+                   (16 queries for the 1M-row Hamming scan, 64 elsewhere)
+     In 4, 5, 5b, 5c and 5d every kernel launch of the main path is also held
      against its plain version on the very inputs it was launched with (the
      last launch of each kernel mode, shape and stage: ground truth, each
      build's k-means sample and corpus with its centroids, each timed
@@ -101,7 +127,11 @@ on failure:
                    and seed, per wave pop, slab_dots, merge, push; node
                    beam: seed, per iteration, rescore), slab_dots on every
                    wave's inputs once under set_sync_debug_mode("error")
-                   with the grouping's spread; the cover tree's
+                   with the grouping's spread; the SIFT surrogate's LSH
+                   rows: QPS and per-batch device time by stage (binary:
+                   query hashing, Hamming scan, threshold rerank; E2LSH:
+                   hashing, votes, gather rerank, exact search of the rows
+                   left short); the cover tree's
                    first row: QPS and per-batch device time by stage (the K1
                    pair launch, descent, selection, rescore, overflow read)
                    beside the host clock, and K1 bf16 (one pen) and the pair
@@ -179,6 +209,13 @@ HOST_REL_TOL = 1e-5
 # different blocks; ids agree on >= 99 %, distances are compared on the
 # queries whose id sets agree.
 GRAPH_HOST_MIN_AGREE = 0.99
+# LSH rows: a key is a floor or a sign of an f32 product, which the card
+# and the host sum in another order, so a value near a cell or sign edge
+# may hash otherwise and bring other candidates; ids agree on >= 99 %,
+# recall within 0.005, distances compared on the queries whose id sets
+# agree.
+LSH_HOST_MIN_AGREE = 0.99
+LSH_HOST_RECALL_TOL = 0.005
 # the MS MARCO surrogate's hnsw row must reach this recall@20 (the JAX
 # package recorded 0.9869 at the same parameters)
 GRAPH_MIN_RECALL = 0.90
@@ -266,9 +303,55 @@ def phase_device():
 # ---- 2. build ----------------------------------------------------------
 
 
-def phase_build() -> None:
+SIFT_SUBDIR = "sift1m_synth"
+SIFT_DIR = os.path.join(OUT_DIR, SIFT_SUBDIR)
+# scripts/make_sift1m_surrogate.py's defaults: base rows and query rows
+SIFT_ROWS = 1_000_000
+SIFT_QUERY_ROWS = 1024
+
+
+def _start_host_work() -> dict:
+    """Host work that runs beside nvcc: ``make -C native`` (the host IO
+    library the sift1m loader reads with) and
+    ``scripts/make_sift1m_surrogate.py`` at its defaults (1M base rows,
+    1,024 queries, seed 20; NumPy only) into ``_smoke_out/sift1m_synth/``."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    return {
+        "t0": t0,
+        "make": subprocess.Popen(["make", "-C", os.path.join(REPO, "native")],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+        "surrogate": subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "scripts", "make_sift1m_surrogate.py"),
+             "--n", str(SIFT_ROWS), "--queries", str(SIFT_QUERY_ROWS), "--seed", "20",
+             "--out", SIFT_DIR],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+    }
+
+
+def _finish_host_work(work: dict) -> dict:
+    """Wait for both processes; a failure of either fails the run."""
+    out = {}
+    for name in ("make", "surrogate"):
+        log, _ = work[name].communicate(timeout=600)
+        out[name] = {"rc": work[name].returncode, "seconds": time.perf_counter() - work["t0"],
+                     "log_tail": log.strip().splitlines()[-1:] if log.strip() else []}
+        if work[name].returncode != 0:
+            raise AssertionError(f"{name} failed (rc {work[name].returncode}):\n{log}")
+    return out
+
+
+def _stop_host_work(work: dict) -> None:
+    for name in ("make", "surrogate"):
+        if work[name].poll() is None:
+            work[name].kill()
+            work[name].wait()
+
+
+def phase_build(work: dict) -> dict:
     """Build every source; each library (K1, K2, K3, K4: every kernel runs
-    on the tensor cores) must hold HGMMA (wgmma) instructions in its SASS."""
+    on the tensor cores) must hold HGMMA (wgmma) instructions in its SASS.
+    The host work of ``work`` runs beside it; returns its outcome."""
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     secs = kernels.build()
@@ -283,11 +366,44 @@ def phase_build() -> None:
         sass = subprocess.run([cuobjdump, "-sass", kernels._lib_path(name)],
                               capture_output=True, text=True, timeout=300, check=True).stdout
         hgmma[name] = sum("HGMMA" in ln for ln in sass.splitlines())
+    host = _finish_host_work(work)
     emit({"phase": "build", "kernels": list(kernels.KERNEL_SOURCES),
-          "seconds": secs, "ptxas": ptxas, "hgmma": hgmma})
+          "seconds": secs, "ptxas": ptxas, "hgmma": hgmma, "host_work": host})
     for name, n in hgmma.items():
         if n < 1:
             raise AssertionError(f"lib{name}.so holds no HGMMA instruction")
+    return host
+
+
+def phase_sift_surrogate(host: dict) -> None:
+    """The SIFT1M surrogate as the sift1m loader reads it: which .fvecs
+    reader (the native library or NumPy), the seconds to generate and to
+    read, and the native read bit-identical to NumPy's parse."""
+    import numpy as np
+
+    from vectordb_retrieval_tpu_torch.data import datasets, native_io
+
+    reader = "native" if native_io.available() else "numpy"
+    base = os.path.join(SIFT_DIR, "sift_base.fvecs")
+    t0 = time.perf_counter()
+    x = datasets.read_fvecs(base)
+    q = datasets.read_fvecs(os.path.join(SIFT_DIR, "sift_query.fvecs"))
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_np = datasets._read_vecs_numpy(base, None, np.float32)
+    numpy_s = time.perf_counter() - t0
+    with open(os.path.join(SIFT_DIR, "PROVENANCE.json")) as f:
+        provenance = json.load(f)
+    ok = (reader == "native" and x.shape == (SIFT_ROWS, 128) and q.shape == (SIFT_QUERY_ROWS, 128)
+          and x.tobytes() == x_np.tobytes())
+    emit({"phase": "sift_surrogate", "dir": os.path.relpath(SIFT_DIR, REPO),
+          "generate_seconds": host["surrogate"]["seconds"], "reader": reader,
+          "read_seconds": read_s, "numpy_read_seconds": numpy_s,
+          "base": list(x.shape), "queries": list(q.shape), "provenance": provenance,
+          "native_equals_numpy": x.tobytes() == x_np.tobytes(),
+          "zero_fraction": float((x[:65_536] == 0).mean()), "ok": ok})
+    if not ok:
+        raise AssertionError(f"SIFT surrogate: reader {reader}, shapes {x.shape} {q.shape}")
 
 
 # ---- 3. kernel vs plain version ----------------------------------------
@@ -906,8 +1022,8 @@ def _runner_config(metric: str) -> dict:
     }
 
 
-def _check_gt_float64(train, queries, gt_ids, metric, n_check=64):
-    """The ground truth's top-20 distances against float64 difference-form
+def _check_gt_float64(train, queries, gt_ids, metric, n_check=64, k=TOPK):
+    """The ground truth's top-k distances against float64 difference-form
     distance rows on the card, compared as sorted values (tie-aware)."""
     import torch
 
@@ -916,11 +1032,11 @@ def _check_gt_float64(train, queries, gt_ids, metric, n_check=64):
     if metric == "cosine":
         x = x / x.norm(dim=1, keepdim=True).clamp_min(1e-12)
         q = q / q.norm(dim=1, keepdim=True).clamp_min(1e-12)
-    ids = torch.as_tensor(gt_ids[:n_check, :TOPK], device=DEV)
+    ids = torch.as_tensor(gt_ids[:n_check, :k], device=DEV)
     worst = 0.0
     for s in range(0, n_check, 8):
         rows = ((x[None, :, :] - q[s : s + 8, None, :]) ** 2).sum(-1)  # [8, N]
-        true = rows.topk(TOPK, dim=1, largest=False).values
+        true = rows.topk(k, dim=1, largest=False).values
         got = torch.gather(rows, 1, ids[s : s + 8]).sort(dim=1).values
         rel = float(((got - true).abs() / true.abs().amax(1, keepdim=True)).max())
         worst = max(worst, rel)
@@ -1024,17 +1140,19 @@ def phase_main_path(card: str, worst: dict) -> int:
 
 # ---- 5. IVF path and 5b. graph path ----------------------------------------
 
-# Configurations of the repo's own configs. The first two use random data at
-# the published shapes; the third is configs/msmarco_surrogate.yaml's hnsw
-# and PQ rows on the msmarco_surrogate corpus; the fourth the JAX package's
-# per-list rotations A/B on the manifold corpus. Rows: (indexer, searcher
-# nprobe).
+# Configurations of the repo's own configs. The first is configs/sift1m.yaml
+# on the SIFT1M surrogate; the second random data at the MS MARCO shape; the
+# third configs/msmarco_surrogate.yaml's hnsw and PQ rows on the
+# msmarco_surrogate corpus; the fourth the JAX package's per-list rotations
+# A/B on the manifold corpus. Rows: (indexer, searcher), the searcher an
+# ANNSearcher's nprobe or a searcher's config.
 IVF_CONFIGS = (
     {
-        "name": "sift1m_shape",
+        "name": "sift1m_surrogate",
         "source": ("configs/sift1m.yaml ivf_flat, ivf_sq8, hnsw (graph_l2, mode block), "
-                   "ivf_pq (ivf_pq_l2)"),
-        "metric": "l2", "n": 1_000_000, "d": 128, "topk": 100,
+                   "ivf_pq (ivf_pq_l2), exact, lsh on data/sift1m_synth"),
+        "dataset": "sift1m", "metric": "l2", "n": SIFT_ROWS, "d": 128, "topk": 100,
+        "queries": 256, "batch": 256, "gt_k": 100,
         "rows": {
             "ivf_flat": ({"type": "FactoryIndexer", "index_key": "IVF1024,Flat",
                           "nprobe": 32}, 32),
@@ -1044,6 +1162,11 @@ IVF_CONFIGS = (
                       "efSearch": 64, "mode": "block"}, 32),
             "ivf_pq": ({"type": "FactoryIndexer", "index_key": "IVF1024,PQ32",
                         "nprobe": 64}, 64),
+            "exact": ({"type": "BruteForceIndexer"}, {"type": "LinearSearcher"}),
+            "lsh": ({"type": "LSHIndexer", "num_tables": 12, "hash_size": 18,
+                     "bucket_width": 256.0, "seed": 42},
+                    {"type": "LSHSearcher", "candidate_multiplier": 8.0,
+                     "fallback_to_bruteforce": True}),
         },
     },
     {
@@ -1097,12 +1220,63 @@ MANIFOLD_CONFIG = {
                   "pq_rotations": "auto"}, 48),
     },
 }
-RUNNER_CONFIGS = IVF_CONFIGS + (SURROGATE_CONFIG, MANIFOLD_CONFIG)
+# configs/round5_faiss_lsh_refresh.yaml's faiss_lsh rows (BinaryLSHIndexer,
+# 512 bits, top-20) and configs/round5_faiss_lsh_refresh_sift.yaml's, each
+# with its dataset's options and its searcher's lsh_candidate_multiplier;
+# "committed" is the JAX package's recall@20 for the row
+# (benchmark_results/round5_faiss_lsh_refresh/faiss_lsh_refresh_20260820_233529
+# and .../faiss_lsh_refresh_sift_20260821_002202). The SIFT row's repeat is
+# the config's 32 cut to 4 for the run's time.
+def _faiss_lsh_config(name, dataset, n, d, mult, committed, **kw):
+    return dict({
+        "name": f"faiss_lsh_{name}",
+        "source": (f"configs/round5_faiss_lsh_refresh{'_sift' if dataset == 'sift1m' else ''}"
+                   f".yaml faiss_lsh ({dataset}, lsh_candidate_multiplier {mult:g})"),
+        "dataset": dataset, "metric": "l2", "n": n, "d": d, "topk": 20, "queries": 256,
+        "batch": 256, "repeat": 32, "committed": committed,
+        "rows": {"faiss_lsh": ({"type": "BinaryLSHIndexer", "num_bits": 512},
+                               {"type": "ANNSearcher", "lsh_candidate_multiplier": mult})},
+    }, **kw)
+
+
+LSH_CONFIGS = (
+    _faiss_lsh_config("random", "random", 20_000, 64, 128.0, 0.9918, test_size=512,
+                      gt_k=200, seed=7),
+    _faiss_lsh_config("glove50_surrogate", "glove50_surrogate", 20_000, 50, 512.0, 0.9984,
+                      gt_k=200, seed=11),
+    _faiss_lsh_config("sift1m_surrogate", "sift1m", SIFT_ROWS, 128, 64.0, 0.9898,
+                      gt_k=20, repeat=4),
+)
+# configs/sift1m.yaml's rows on the surrogate must reach the JAX package's
+# committed recall@100 less 0.03
+# (benchmark_results/sift1m_20260818_224815/sift1m_results.json, 256
+# queries; sift1m/config_used.yaml there holds each row's index_key and
+# nprobe, as above); exact must be 1.0
+SIFT_COMMITTED = {"ivf_flat": 0.9997, "ivf_sq8": 0.9978, "ivf_pq": 0.7994, "hnsw": 0.9919,
+                  "exact": 1.0, "lsh": 1.0}
+RECALL_MARGIN = 0.03
+RUNNER_CONFIGS = IVF_CONFIGS + (SURROGATE_CONFIG, MANIFOLD_CONFIG) + LSH_CONFIGS
 IVF_QUERIES = 2048
 HOST_QUERIES = 64
+# the host's Hamming scan over the 1M-row surrogate takes ~1.1 s a query
+# (8 CPU cores): the card-against-host check of that row uses this many
+HOST_QUERIES_1M_HAMMING = 16
 
 
 def _ivf_dataset(cfg) -> dict:
+    if cfg.get("dataset") == "sift1m":
+        return {
+            "name": "sift1m", "metric": cfg["metric"],
+            "dataset_options": {"subdir": SIFT_SUBDIR, "test_size": cfg["queries"],
+                                "ground_truth_k": cfg["gt_k"], "use_cache": False},
+        }
+    if cfg.get("dataset") == "glove50_surrogate":
+        return {
+            "name": "glove50_surrogate", "metric": cfg["metric"],
+            "dataset_options": {"train_limit": cfg["n"], "test_size": cfg["queries"],
+                                "ground_truth_k": cfg["gt_k"], "seed": cfg["seed"],
+                                "use_cache": False},
+        }
     if cfg.get("dataset") == "manifold":
         return {
             "name": "manifold", "metric": cfg["metric"],
@@ -1124,7 +1298,7 @@ def _ivf_dataset(cfg) -> dict:
             "dimensions": cfg["d"], "train_size": cfg["n"],
             "test_size": cfg.get("test_size", IVF_QUERIES),
             "ground_truth_k": cfg.get("gt_k", cfg["topk"]),
-            "seed": SEED, "use_cache": False,
+            "seed": cfg.get("seed", SEED), "use_cache": False,
         },
     }
 
@@ -1132,10 +1306,11 @@ def _ivf_dataset(cfg) -> dict:
 def _ivf_runner_config(cfg) -> dict:
     metric = cfg["metric"]
     indexers, searchers, algorithms = {}, {}, {}
-    for row, (indexer, nprobe) in cfg["rows"].items():
+    for row, (indexer, searcher) in cfg["rows"].items():
         indexers[f"{row}_ix"] = dict(indexer, metric=metric)
-        searchers[f"{row}_search"] = {"type": "ANNSearcher", "metric": metric,
-                                      "nprobe": nprobe}
+        if not isinstance(searcher, dict):  # an ANNSearcher's nprobe
+            searcher = {"type": "ANNSearcher", "nprobe": searcher}
+        searchers[f"{row}_search"] = dict(searcher, metric=metric)
         algorithms[row] = {"indexer_ref": f"{row}_ix",
                            "searcher_ref": f"{row}_search", "metric": metric}
     return {
@@ -1144,9 +1319,13 @@ def _ivf_runner_config(cfg) -> dict:
         "topk": cfg["topk"], "n_queries": cfg.get("queries", IVF_QUERIES),
         "query_batch_size": cfg.get("batch", BATCH), "repeat": cfg.get("repeat", 1),
         "output_dir": os.path.join(OUT_DIR, "runs"),
-        "data_dir": os.path.join(OUT_DIR, "data"),
-        "output_prefix": cfg["name"], "seed": 42,
+        "data_dir": _data_dir(cfg), "output_prefix": cfg["name"], "seed": 42,
     }
+
+
+def _data_dir(cfg) -> str:
+    """The runner's data_dir: the SIFT surrogate lies in ``_smoke_out/``."""
+    return OUT_DIR if cfg.get("dataset") == "sift1m" else os.path.join(OUT_DIR, "data")
 
 
 def _row_mode(algo) -> str:
@@ -1156,14 +1335,49 @@ def _row_mode(algo) -> str:
 
 
 def _row_kernel(algo):
-    """The kernel a row's timed search must launch (None: a node beam or
-    the flat PQ scan, which runs no kernel of the repo)."""
+    """The kernel a row's timed search must launch (None: a node beam, the
+    flat PQ scan or the LSH scans, which run no kernel of the repo; an LSH
+    row's exact fallback launches dist_blockmin where rows fall short)."""
     kind = algo.artifact.kind
-    if kind == "pq":
+    if kind in ("pq", "lsh", "binary_lsh"):
         return None
+    if kind == "flat":
+        return "dist_blockmin"
     if kind != "graph":
         return _row_mode(algo)
     return "slab_dots" if algo.artifact.metadata.get("mode") == "block" else None
+
+
+def _row_builds_kmeans(algo) -> bool:
+    """Whether a row's build runs k-means (and so launches assign)."""
+    return algo.artifact.kind not in ("flat", "lsh", "binary_lsh")
+
+
+def _lsh_row_line(algo, queries, k, bsz) -> dict:
+    """An LSH row's own numbers: for multi-table LSH the rows answered by
+    exact search (the fallback), for binary LSH the rerank path."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.models import lsh as lsh_models
+
+    meta = algo.artifact.metadata
+    q = torch.as_tensor(queries, device=DEV)
+    if algo.artifact.kind == "lsh":
+        s = algo.searcher
+        short = sum(s._answer(q[i : i + bsz], k)[2] for i in range(0, len(q), bsz))
+        cand = torch.cat([s.vote(s.hash_queries(q[i : i + bsz])[1], min(k, meta["n_vectors"]))
+                          for i in range(0, len(q), bsz)])
+        return {"phase": "lsh_main_path", "num_tables": meta["num_tables"],
+                "hash_size": meta["hash_size"], "bucket_width": meta["bucket_width"],
+                "candidate_multiplier": s.candidate_multiplier,
+                "candidates": cand.shape[1], "colliding_candidates_share":
+                    float((cand >= 0).float().mean()),
+                "fallback_rows": short, "queries": len(q)}
+    mult = float(algo.searcher.params.get("lsh_candidate_multiplier", 32.0))
+    n_cand = lsh_models.binary_n_candidates(algo.artifact, k, mult)
+    return {"phase": "binary_lsh_main_path", "num_bits": meta["num_bits"],
+            "lsh_candidate_multiplier": mult, "candidates": n_cand,
+            "rerank_path": lsh_models.binary_rerank_path(n_cand)}
 
 
 def _dsub_launches(counts: dict, row: str, dsub: int) -> int:
@@ -1184,7 +1398,7 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
     from vectordb_retrieval_tpu_torch.bench import experiment
     from vectordb_retrieval_tpu_torch.bench.runner import BenchmarkRunner
     from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm
-    from vectordb_retrieval_tpu_torch.ops import kernels
+    from vectordb_retrieval_tpu_torch.ops import distances, kernels
 
     runners, builds, searches = [], {}, {}
     launched, stage, counts = {}, ["ground_truth"], {}
@@ -1240,10 +1454,10 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
     ds = results[ds_name]
     if "error" in ds:
         raise AssertionError(f"{cfg['name']}: dataset error {ds['error']}")
-    if launches["dist_blockmin"] < 1:
+    if cfg["n"] > distances._DENSE_PATH_MAX_ROWS and launches["dist_blockmin"] < 1:
         raise AssertionError(f"{cfg['name']}: ground truth did not launch dist_blockmin")
     runner = runners[-1]
-    queries, _ = runner._select_query_subset()
+    queries, gt = runner._select_query_subset()
     topk = cfg["topk"]
     rows = {}
     for row, (indexer, nprobe) in cfg["rows"].items():
@@ -1253,7 +1467,7 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
         algo = runner.algorithms[row]
         kernel = _row_kernel(algo)
         b, s = builds.get(row, {}), searches.get(row, {})
-        if b.get("assign", 0) < 1:
+        if _row_builds_kmeans(algo) and b.get("assign", 0) < 1:
             raise AssertionError(f"{cfg['name']}/{row}: the build did not launch assign")
         if kernel is not None and s.get(kernel, 0) < 1:
             raise AssertionError(f"{cfg['name']}/{row}: the timed search did not launch {kernel}")
@@ -1297,6 +1511,15 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
             line["slab_dots_launches"] = b.get("slab_dots", 0) + s.get("slab_dots", 0)
         elif algo.artifact.kind == "pq":
             line.update({"phase": "pq_main_path", "index_key": meta["index_key"]})
+        elif algo.artifact.kind in ("lsh", "binary_lsh"):
+            line.update(_lsh_row_line(algo, queries, min(topk, cfg["n"]), cfg.get("batch", BATCH)))
+        elif algo.artifact.kind == "flat":
+            rel = _check_gt_float64(runner.dataset.train_vectors, queries, gt, cfg["metric"],
+                                    k=topk)
+            line.update({"phase": "exact_main_path", "gt_float64_max_rel_err": rel,
+                         "gt_float64_tol": GT_REL_TOL})
+            if rel > GT_REL_TOL:
+                raise AssertionError(f"{cfg['name']}/{row}: ground truth vs float64 rel err {rel}")
         else:
             line.update({
                 "phase": "ivf_main_path", "index_key": meta["index_key"],
@@ -1307,8 +1530,8 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
             })
         line.update(pq_line)
         emit(line)
-        rows[row] = {"algo": algo, "queries": queries, "k": min(topk, cfg["n"]),
-                     "batch": cfg.get("batch", BATCH)}
+        rows[row] = {"algo": algo, "queries": queries, "gt": gt, "k": min(topk, cfg["n"]),
+                     "batch": cfg.get("batch", BATCH), "recall": recall}
     if cfg is SURROGATE_CONFIG:
         meta = rows["hnsw"]["algo"].artifact.metadata
         recall = ds["hnsw"][f"recall@{topk}"]
@@ -1332,9 +1555,31 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
               "card": card, "ok": ok})
         if not ok:
             raise AssertionError(f"manifold A/B: plain {plain}, auto {auto}, {rec}")
+    if cfg is IVF_CONFIGS[0] or cfg in LSH_CONFIGS:
+        _recall_gate(card, cfg, ds, runner)
     emit({"phase": "main_path_run", "config": cfg["name"], "card": card,
           "runner_seconds": seconds, "launches": launches})
-    return {"name": cfg["name"], "launches": launches, "rows": rows, "counts": counts}
+    out = {"name": cfg["name"], "launches": launches, "rows": rows, "counts": counts}
+    if cfg.get("dataset") == "sift1m":  # integer rows: exact ties (card vs host)
+        out["train"] = runner.dataset.train_vectors
+    return out
+
+
+def _recall_gate(card: str, cfg, ds, runner) -> None:
+    """The SIFT surrogate's rows and the faiss_lsh rows against the JAX
+    package's committed recall less RECALL_MARGIN (exact: 1.0)."""
+    topk = cfg["topk"]
+    committed = SIFT_COMMITTED if cfg is IVF_CONFIGS[0] else {"faiss_lsh": cfg["committed"]}
+    got = {row: ds[row][f"recall@{topk}"] for row in committed}
+    floors = {row: (1.0 if row == "exact" else c - RECALL_MARGIN) for row, c in committed.items()}
+    ok = all(got[row] >= floors[row] for row in committed)
+    emit({"phase": "recall_gate", "config": cfg["name"], "source": cfg["source"],
+          f"recall@{topk}": got, "committed": committed, "floors": floors,
+          "surrogate": runner.dataset.metadata.get("surrogate"),
+          "surrogate_for": runner.dataset.metadata.get("surrogate_for"),
+          "card": card, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{cfg['name']}: rows below their floors: {got} < {floors}")
 
 
 def _ivf_stages(info):
@@ -1439,71 +1684,123 @@ def _reconstruction_classes(art):
     return canon
 
 
-def phase_card_vs_host(card: str, paths) -> None:
-    """Each built artifact copied to the CPU and searched there by the port
-    (the kernels' plain versions) for 64 queries, against the card; the
-    cover tree's host side runs the block walk, as the card does. PQ rows
-    compare ids modulo bit-identical reconstructions
-    (:func:`_reconstruction_classes`); the plain agreement is printed
-    beside it."""
-    import numpy as np
+def _recall(ids, gt, k) -> float:
+    return float(np.mean([len(set(a[:k]) & set(b[:k])) / k for a, b in zip(ids, gt)]))
 
+
+def _distance_classes(train, q, ci, hi):
+    """Ids as their exact squared distances to the query (float64 sums of
+    the integer rows' squares, exact): rows at one distance form a class,
+    and which of them fills a top-k's last places is the top-k's tie
+    order. Returns the card's and the host's classes."""
+    q64 = q.astype(np.float64)
+
+    def dist(ids):
+        rows = train[np.maximum(ids, 0)].astype(np.float64)
+        return np.where(ids >= 0, ((rows - q64[:, None, :]) ** 2).sum(-1), -1.0)
+
+    return dist(ci), dist(hi)
+
+
+def _multiset_agreement(ci, hi, k):
+    """Per query, the share of entries the two lists have in common, as
+    multisets: ``(mean share, per-query equality)``."""
+    share, same = [], []
+    for a, b in zip(ci, hi):
+        common = collections.Counter(a.tolist()) & collections.Counter(b.tolist())
+        share.append(sum(common.values()) / k)
+        same.append(sorted(a.tolist()) == sorted(b.tolist()))
+    return float(np.mean(share)), same
+
+
+def _host_searcher(algo):
+    """The row's searcher on the CPU, over a host copy of its artifact (the
+    kernels' plain versions); the cover tree runs the block walk there, as
+    the card does."""
     from vectordb_retrieval_tpu_torch.models.base import IndexArtifact
     from vectordb_retrieval_tpu_torch.models.covertree import CoverTree
     from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
+    from vectordb_retrieval_tpu_torch.models.lsh import LSHSearcher
 
+    art = algo.artifact
+    host_art = IndexArtifact(art.kind, {k: v.cpu() for k, v in art.data.items()}, dict(art.metadata))
+    if art.kind == "covertree":
+        host = CoverTree(algo.dimension, metric=algo.metric, err_c=algo.err_c,
+                         descent="blockwalk", device="cpu")
+        host.artifact, host.is_built = host_art, True
+        return host, algo.batch_search
+    s = algo.searcher
+    if art.kind == "lsh":
+        host = LSHSearcher(
+            metric=s.metric, device="cpu", candidate_multiplier=s.candidate_multiplier,
+            fallback_to_bruteforce=s.fallback_to_bruteforce, **s.params)
+    else:
+        host = ANNSearcher(metric=s.metric, device="cpu", **s.params)
+    host.attach(host_art)
+    return host, s.batch_search
+
+
+def phase_card_vs_host(card: str, paths) -> None:
+    """Each built artifact copied to the CPU and searched there by the port
+    (the kernels' plain versions) for 64 queries (16 for a 1M-row Hamming
+    scan), against the card. PQ rows compare ids modulo bit-identical
+    reconstructions (:func:`_reconstruction_classes`), the SIFT surrogate's
+    other rows modulo exact distance ties (:func:`_distance_classes`: its
+    rows are integers); the plain agreement is printed beside it. LSH rows
+    also hold the card's recall to the host's."""
     for path in paths:
         for row, info in path["rows"].items():
             algo = info["algo"]
             art = algo.artifact
-            host_art = IndexArtifact(
-                art.kind, {k: v.cpu() for k, v in art.data.items()}, dict(art.metadata))
-            if art.kind == "covertree":
-                host = CoverTree(algo.dimension, metric=algo.metric, err_c=algo.err_c,
-                                 descent="blockwalk", device="cpu")
-                host.artifact, host.is_built = host_art, True
-                card_search = algo.batch_search
-            else:
-                host = ANNSearcher(metric=algo.searcher.metric, device="cpu",
-                                   **algo.searcher.params)
-                host.attach(host_art)
-                card_search = algo.searcher.batch_search
-            q = info["queries"][:HOST_QUERIES]
+            host, card_search = _host_searcher(algo)
+            n = art.metadata["n_vectors"]
+            n_q = HOST_QUERIES_1M_HAMMING if art.kind == "binary_lsh" and n >= 1_000_000 else HOST_QUERIES
+            q = info["queries"][:n_q]
             k = info["k"]
             t0 = time.perf_counter()
             hd, hi = host.batch_search(q, k)
             host_s = time.perf_counter() - t0
             cd, ci = card_search(q, k)
-            raw_agree = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ci, hi)]))
+            raw_agree, raw_same = _multiset_agreement(ci, hi, k)
             canon = _reconstruction_classes(art)
-            if canon is None:
-                same = [set(a) == set(b) for a, b in zip(ci, hi)]
-                agree = raw_agree
-            else:  # classes as multisets: a top-k may hold several rows of one
-                ci, hi = (np.where(ids >= 0, canon[np.maximum(ids, 0)], -1) for ids in (ci, hi))
-                same = [sorted(a) == sorted(b) for a, b in zip(ci, hi)]
-                agree = float(np.mean([
-                    sum((collections.Counter(a.tolist()) & collections.Counter(b.tolist())).values())
-                    / k for a, b in zip(ci, hi)]))
-            min_agree = GRAPH_HOST_MIN_AGREE if art.kind == "graph" else HOST_MIN_AGREE
+            if canon is not None:  # classes as multisets: a top-k may hold several rows of one
+                classes = "identical_reconstructions"
+                agree, same = _multiset_agreement(
+                    *(np.where(ids >= 0, canon[np.maximum(ids, 0)], -1) for ids in (ci, hi)), k)
+            elif "train" in path:
+                classes = "equal_distances"
+                agree, same = _multiset_agreement(*_distance_classes(path["train"], q, ci, hi), k)
+            else:
+                classes, agree, same = None, raw_agree, raw_same
+            lsh = art.kind in ("lsh", "binary_lsh")
+            min_agree = (GRAPH_HOST_MIN_AGREE if art.kind == "graph"
+                         else LSH_HOST_MIN_AGREE if lsh else HOST_MIN_AGREE)
             # distances on the queries whose id sets agree (all of them for
-            # the IVF rows, which must agree on >= 99.9 %)
-            rows_ok = np.asarray(same) if art.kind == "graph" else np.ones(len(q), bool)
-            scale = float(np.abs(hd).max())
-            err = float(np.abs(np.sort(cd, 1) - np.sort(hd, 1))[rows_ok].max()) if rows_ok.any() else 0.0
+            # the exact, IVF and PQ rows, which must agree on >= 99.9 %)
+            rows_ok = np.asarray(same) if art.kind == "graph" or lsh else np.ones(len(q), bool)
+            scale = float(np.abs(hd[np.isfinite(hd)]).max())
+            cs, hs = np.sort(cd, 1), np.sort(hd, 1)
+            diff = np.where(np.isinf(cs) & (cs == hs), 0.0, np.abs(cs - hs))  # padding: inf in both
+            err = float(diff[rows_ok].max()) if rows_ok.any() else 0.0
+            recalls = {"card": _recall(ci, info["gt"], k), "host": _recall(hi, info["gt"], k)}
             ok = agree >= min_agree and err <= HOST_REL_TOL * scale
+            if lsh:
+                ok = ok and abs(recalls["card"] - recalls["host"]) <= LSH_HOST_RECALL_TOL
             emit({"phase": "card_vs_host", "config": path["name"], "row": row,
-                  "queries": len(q), "k": k, "id_agreement": agree,
-                  "modulo_identical_reconstructions": canon is not None,
+                  "kind": art.kind, "queries": len(q), "k": k, "id_agreement": agree,
+                  "modulo": classes,
                   "largest_identical_class": None if canon is None else int(np.bincount(canon).max()),
                   "raw_id_agreement": raw_agree,
-                  "queries_with_equal_ids": int(np.sum(same)),
+                  "queries_with_equal_ids": int(np.sum(raw_same)),
+                  "queries_equal_modulo_classes": int(np.sum(same)),
                   "min_agreement": min_agree, "max_abs_dist_err": err,
-                  "tol": HOST_REL_TOL * scale, "host_seconds": host_s,
-                  "card": card, "ok": ok})
+                  "tol": HOST_REL_TOL * scale, "recall_on_these_queries": recalls,
+                  "recall_tol": LSH_HOST_RECALL_TOL if lsh else None,
+                  "host_seconds": host_s, "card": card, "ok": ok})
             if not ok:
                 raise AssertionError(
-                    f"card vs host {path['name']}/{row}: agreement {agree}, err {err}")
+                    f"card vs host {path['name']}/{row}: agreement {agree}, err {err}, "
+                    f"recalls {recalls}")
 
 
 def phase_persistence_round_trip(card: str, cfg, row: str) -> None:
@@ -1579,9 +1876,11 @@ def phase_persistence_round_trip(card: str, cfg, row: str) -> None:
 
 # ---- 5c. cover-tree path --------------------------------------------------
 
-# Two CoverTreeV2_2 rows of configs/covertree_refresh.yaml: the MS MARCO
-# MiniLM shape and the file's random row. Its glove50_surrogate row waits for
-# the port's copy of that generator; its sift1m row reads files.
+# The four CoverTreeV2_2 rows of configs/covertree_refresh.yaml: the MS
+# MARCO MiniLM shape, the file's random row, its glove50_surrogate row and
+# its sift1m row on the SIFT1M surrogate (1M rows, uncut: the build takes
+# about 35 s on one H100 80GB HBM3, PERF.md, under the 300 s past which the
+# loader's base_limit would cut the row).
 COVERTREE_CONFIGS = (
     {
         "name": "covertree_msmarco",
@@ -1595,6 +1894,20 @@ COVERTREE_CONFIGS = (
         "source": "configs/covertree_refresh.yaml random (CoverTreeV2_2)",
         "metric": "l2", "n": 20_000, "d": 64, "topk": 20, "queries": 256,
         "batch": 256, "test_size": 512, "gt_k": 200, "repeat": 16,
+        "rows": {"covertree_v2_2": {"type": "CoverTreeV2_2", "metric": "l2"}},
+    },
+    {
+        "name": "covertree_glove50_surrogate",
+        "source": "configs/covertree_refresh.yaml glove50_surrogate (CoverTreeV2_2)",
+        "dataset": "glove50_surrogate", "metric": "l2", "n": 20_000, "d": 50, "topk": 20,
+        "queries": 256, "batch": 256, "gt_k": 200, "seed": 11, "repeat": 16,
+        "rows": {"covertree_v2_2": {"type": "CoverTreeV2_2", "metric": "l2"}},
+    },
+    {
+        "name": "covertree_sift1m_surrogate",
+        "source": "configs/covertree_refresh.yaml sift1m (CoverTreeV2_2, subdir sift1m_synth)",
+        "dataset": "sift1m", "metric": "l2", "n": SIFT_ROWS, "d": 128, "topk": 100,
+        "queries": 256, "batch": 256, "gt_k": 100, "repeat": 8,
         "rows": {"covertree_v2_2": {"type": "CoverTreeV2_2", "metric": "l2"}},
     },
 )
@@ -1614,8 +1927,7 @@ def _ct_runner_config(cfg) -> dict:
         "topk": cfg["topk"], "n_queries": cfg["queries"],
         "query_batch_size": cfg["batch"], "repeat": cfg["repeat"],
         "output_dir": os.path.join(OUT_DIR, "runs"),
-        "data_dir": os.path.join(OUT_DIR, "data"),
-        "output_prefix": cfg["name"], "seed": 42,
+        "data_dir": _data_dir(cfg), "output_prefix": cfg["name"], "seed": 42,
     }
 
 
@@ -1700,7 +2012,7 @@ def phase_covertree_path(card: str, cfg, worst: dict) -> dict:
     if "error" in ds:
         raise AssertionError(f"{cfg['name']}: dataset error {ds['error']}")
     runner = runners[-1]
-    queries, _ = runner._select_query_subset()
+    queries, gt = runner._select_query_subset()
     topk, bsz = cfg["topk"], cfg["batch"]
     rows = {}
     for row in cfg["rows"]:
@@ -1741,10 +2053,14 @@ def phase_covertree_path(card: str, cfg, worst: dict) -> dict:
             "dist_blockmin_pair_per_batch": s["dist_blockmin_bf16"] / calls,
             "launch_inputs_checked": n_checked,
         })
-        rows[row] = {"algo": algo, "queries": queries, "k": k, "batch": bsz}
+        rows[row] = {"algo": algo, "queries": queries, "gt": gt, "k": k, "batch": bsz,
+                     "recall": recall}
     emit({"phase": "main_path_run", "config": cfg["name"], "card": card,
           "runner_seconds": seconds, "launches": launches})
-    return {"name": cfg["name"], "launches": launches, "rows": rows}
+    out = {"name": cfg["name"], "launches": launches, "rows": rows}
+    if cfg.get("dataset") == "sift1m":  # integer rows: exact ties (card vs host)
+        out["train"] = runner.dataset.train_vectors
+    return out
 
 
 def phase_covertree_walks(card: str, info) -> None:
@@ -1907,6 +2223,26 @@ def phase_throughput(card: str, n: int, d: int, batches: int) -> dict:
     return out
 
 
+def _qps(search, qs, bsz, k, n_vectors, name) -> tuple:
+    """Seconds per pass over ``qs`` in batches of ``bsz`` (at least 8
+    batches on the clock, which stops with the ids on the host)."""
+    import torch
+
+    batches = qs.shape[0] // bsz
+    passes = max(1, -(-8 // batches))
+    search(qs[:bsz], k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        ids = [search(qs[i * bsz : (i + 1) * bsz], k)[1] for i in range(batches)]
+        torch.cuda.synchronize()
+        ids_host = torch.cat(ids).cpu().numpy()
+    elapsed = (time.perf_counter() - t0) / passes
+    if ids_host.shape != (batches * bsz, k) or ids_host.max() >= n_vectors:
+        raise AssertionError(f"{name}: ids malformed {ids_host.shape}")
+    return elapsed, batches, passes
+
+
 def phase_ivf_throughput(card: str, path_name: str, row: str, info, launches=None) -> dict:
     """One IVF row: QPS over its queries (the clock stops with the ids on
     the host; at least 8 batches on the clock), then one batch's device
@@ -1921,19 +2257,9 @@ def phase_ivf_throughput(card: str, path_name: str, row: str, info, launches=Non
     st = _ivf_stages(info)
     searcher, k, bsz = st.searcher, st.k, info["batch"]
     qs = torch.as_tensor(info["queries"], device=DEV)
-    batches = qs.shape[0] // bsz
-    passes = max(1, -(-8 // batches))
-    searcher.device_kernel(qs[:bsz], k)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(passes):
-        ids = [searcher.device_kernel(qs[i * bsz : (i + 1) * bsz], k)[1]
-               for i in range(batches)]
-        torch.cuda.synchronize()
-        ids_host = torch.cat(ids).cpu().numpy()
-    elapsed = (time.perf_counter() - t0) / passes
-    if ids_host.shape != (batches * bsz, k) or ids_host.max() >= info["algo"].artifact.metadata["n_vectors"]:
-        raise AssertionError(f"{path_name}/{row}: ids malformed {ids_host.shape}")
+    elapsed, batches, passes = _qps(searcher.device_kernel, qs, bsz, k,
+                                    info["algo"].artifact.metadata["n_vectors"],
+                                    f"{path_name}/{row}")
 
     # the stages of one batch, each on the inputs the main path gives it,
     # timed on the device (primed: host launches are not what is measured)
@@ -1991,6 +2317,102 @@ def phase_ivf_throughput(card: str, path_name: str, row: str, info, launches=Non
     }
     emit(out)
     del bm, qs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rows_within_radius(qw, words, ham) -> int:
+    """Rows the threshold rerank scores: Hamming distance <= each query's
+    radius, counted in the scan's chunks."""
+    from vectordb_retrieval_tpu_torch.ops import lsh as lshops
+
+    n = words.shape[0]
+    c = lshops.chunk_rows(qw.shape[0] * qw.shape[1] * 8, n)
+    return sum(int((lshops._hamming(qw, words[i : i + c]) <= ham[:, -1:]).sum())
+               for i in range(0, n, c))
+
+
+def phase_lsh_throughput(card: str, path_name: str, row: str, info) -> dict:
+    """One LSH row: QPS, then one batch's device time by stage, each stage
+    on the inputs the search gives it (events, 3 calls after 1). Binary
+    LSH: query hashing, Hamming scan (the n-th smallest distance), and the
+    dense threshold rerank or the gather rerank; multi-table LSH: hashing,
+    votes, gather rerank, and exact search of the rows left short (the
+    fallback, K1 f32 above exact search's dense-path limit) after the
+    host read of their flags."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.models import lsh as lm
+    from vectordb_retrieval_tpu_torch.ops import lsh as lshops
+
+    algo = info["algo"]
+    art, meta = algo.artifact, algo.artifact.metadata
+    bsz, k = info["batch"], info["k"]
+    qs = torch.as_tensor(info["queries"], device=DEV)
+    name = f"{path_name}/{row}"
+    elapsed, batches, passes = _qps(algo.device_kernel, qs, bsz, k, meta["n_vectors"], name)
+    q = qs[:bsz]
+
+    def tm(fn):
+        return time_ms(fn, reps=3, warmup=1, prime=True)
+
+    out = {"phase": "lsh_throughput", "config": path_name, "row": row, "kind": art.kind,
+           "card": card, "qps": batches * bsz / elapsed, "seconds": elapsed,
+           "batches": batches, "passes": passes, "ms_per_batch": elapsed / batches * 1e3,
+           "shape": [bsz, meta["n_vectors"], meta["dimension"]], "k": k}
+    if art.kind == "binary_lsh":
+        d = art.data
+        mult = float(algo.searcher.params.get("lsh_candidate_multiplier", 32.0))
+        n_cand = lm.binary_n_candidates(art, k, mult)
+        hash_ms = tm(lambda: lm.binary_words(q, d["projections"]))
+        qw = lm.binary_words(q, d["projections"])
+        scan_ms = tm(lambda: lshops.hamming_candidates(qw, d["words"], n_cand))
+        ham, cand = lshops.hamming_candidates(qw, d["words"], n_cand)
+        path = lm.binary_rerank_path(n_cand)
+        if path == "threshold":
+            def rerank():
+                return lshops.hamming_threshold_rerank(q, qw, d["vectors"], d["words"],
+                                                       ham[:, -1:], k)
+        else:
+            def rerank():
+                return lshops.rerank(q, d["vectors"], cand, k)
+        rerank_ms = tm(rerank)
+        stages = {"hash_ms": hash_ms, "hamming_scan_ms": scan_ms, f"{path}_rerank_ms": rerank_ms}
+        out.update({"num_bits": meta["num_bits"], "words": d["words"].shape[1],
+                    "candidates": n_cand, "rerank_path": path,
+                    "scan_chunk_rows": lshops.chunk_rows(bsz * d["words"].shape[1] * 8,
+                                                         meta["n_vectors"]),
+                    "rows_within_radius_per_query": _rows_within_radius(qw, d["words"], ham) / bsz})
+        same = torch.equal(rerank()[1], algo.device_kernel(q, k)[1])
+    else:
+        s = algo.searcher
+        eff_k = min(k, meta["n_vectors"])
+        hash_ms = tm(lambda: s.hash_queries(q))
+        qq, qk = s.hash_queries(q)
+        vote_ms = tm(lambda: s.vote(qk, eff_k))
+        cand = s.vote(qk, eff_k)
+        rerank_ms = tm(lambda: s.rerank(qq, cand, eff_k))
+        _, ids = s.rerank(qq, cand, eff_k)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            short = ((ids >= 0).sum(dim=1) < eff_k).nonzero()[:, 0]  # the batch's host read
+        read_host_ms = (time.perf_counter() - t1) / 5 * 1e3
+        fallback_ms = tm(lambda: s.fallback(qq[short], eff_k)) if short.numel() else 0.0
+        stages = {"hash_ms": hash_ms, "votes_ms": vote_ms, "gather_rerank_ms": rerank_ms,
+                  "fallback_exact_ms": fallback_ms}
+        out.update({"num_tables": meta["num_tables"], "hash_size": meta["hash_size"],
+                    "candidates": cand.shape[1], "fallback_rows": int(short.numel()),
+                    "short_read_host_ms": read_host_ms})
+        same = True
+    batch_ms = time_ms(lambda: algo.device_kernel(q, k), reps=3, warmup=1, prime=True)
+    out.update(stages)
+    out.update({"batch_device_ms": batch_ms, "rest_ms": batch_ms - sum(stages.values()),
+                "stages_equal_search": same})
+    emit(out)
+    if not same:
+        raise AssertionError(f"{name}: the stage split differs from the search")
+    del qs
     torch.cuda.empty_cache()
     return out
 
@@ -2095,19 +2517,8 @@ def phase_graph_throughput(card: str, path_name: str, row: str, info) -> dict:
     meta, data = art.metadata, art.data
     bsz, k = info["batch"], min(info["k"], meta["n_vectors"])
     qs = torch.as_tensor(info["queries"], device=DEV)
-    batches = qs.shape[0] // bsz
-    passes = max(1, -(-8 // batches))  # at least 8 batches on the clock
-    searcher.device_kernel(qs[:bsz], k)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(passes):
-        ids = [searcher.device_kernel(qs[i * bsz : (i + 1) * bsz], k)[1]
-               for i in range(batches)]
-        torch.cuda.synchronize()
-        ids_host = torch.cat(ids).cpu().numpy()
-    elapsed = (time.perf_counter() - t0) / passes
-    if ids_host.shape != (batches * bsz, k) or ids_host.max() >= meta["n_vectors"]:
-        raise AssertionError(f"{path_name}/{row}: ids malformed {ids_host.shape}")
+    elapsed, batches, passes = _qps(searcher.device_kernel, qs, bsz, k, meta["n_vectors"],
+                                    f"{path_name}/{row}")
 
     q_raw = qs[:bsz]
     q = dops.normalize(q_raw) if meta.get("normalize_queries") else q_raw
@@ -2202,18 +2613,7 @@ def phase_covertree_throughput(card: str, path_name: str, info) -> dict:
     meta, data = algo.artifact.metadata, algo.artifact.data
     bsz, k = info["batch"], info["k"]
     qs = torch.as_tensor(info["queries"], device=DEV)
-    batches = qs.shape[0] // bsz
-    passes = max(1, -(-8 // batches))  # at least 8 batches on the clock
-    algo.device_kernel(qs[:bsz], k)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(passes):
-        ids = [algo.device_kernel(qs[i * bsz : (i + 1) * bsz], k)[1] for i in range(batches)]
-        torch.cuda.synchronize()
-        ids_host = torch.cat(ids).cpu().numpy()
-    elapsed = (time.perf_counter() - t0) / passes
-    if ids_host.shape != (batches * bsz, k) or ids_host.max() >= meta["n_vectors"]:
-        raise AssertionError(f"{path_name}: ids malformed {ids_host.shape}")
+    elapsed, batches, passes = _qps(algo.device_kernel, qs, bsz, k, meta["n_vectors"], path_name)
 
     q_raw = qs[:bsz]
     q = _ct_queries(algo, q_raw)
@@ -2395,7 +2795,12 @@ def main() -> int:
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     card = phase_device()
-    phase_build()
+    work = _start_host_work()
+    try:
+        host = phase_build(work)
+    finally:
+        _stop_host_work(work)
+    phase_sift_surrogate(host)
     worst = phase_kernels()
     phase_product_precision(card)
     launches = {name: 0 for name in worst}
@@ -2429,6 +2834,9 @@ def main() -> int:
     }
     for row in ("ivf_flat", "ivf_sq8"):
         phase_ivf_throughput(card, paths[1]["name"], row, paths[1]["rows"][row])
+    phase_lsh_throughput(card, paths[0]["name"], "lsh", sift["lsh"])
+    sift_binary = next(p for p in paths if p["name"] == LSH_CONFIGS[-1]["name"])
+    phase_lsh_throughput(card, sift_binary["name"], "faiss_lsh", sift_binary["rows"]["faiss_lsh"])
 
     def k1_launches(path, row):
         return sum(n for key, n in path["counts"].items()

@@ -336,10 +336,10 @@ def test_pick_entry_points_from_the_same_centers(data, monkeypatch):
 
 
 def test_streaming_block_build_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9b"):
         tg.build_block_graph_stream()
     mm = np.zeros((8, 4), np.float32).view(np.memmap)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9b"):
         tmg.GraphIndexer(device="cpu").build(mm, 4)
 
 

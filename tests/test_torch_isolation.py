@@ -29,7 +29,7 @@ def _port_modules():
 
 def test_port_modules_do_not_load_jax_or_the_jax_package():
     mods = _port_modules()
-    assert len(mods) >= 20, mods
+    assert len(mods) >= 37, mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -166,6 +166,27 @@ def _entry_point(name, tmp_path):
         from vectordb_retrieval_tpu_torch.models.factory import FactoryIndexer
 
         FactoryIndexer(index_key="OPQ4,IVF4,PQ4", pq_rotations="auto")
+    elif name == "LSHIndexer":
+        from vectordb_retrieval_tpu_torch.models.lsh import LSHIndexer
+
+        LSHIndexer()
+    elif name == "LSHSearcher":
+        from vectordb_retrieval_tpu_torch.models.lsh import LSHSearcher
+
+        LSHSearcher()
+    elif name == "BinaryLSHIndexer":
+        from vectordb_retrieval_tpu_torch.models.lsh import BinaryLSHIndexer
+
+        BinaryLSHIndexer()
+    elif name == "LSH":
+        from vectordb_retrieval_tpu_torch.models import get_algorithm_instance
+
+        get_algorithm_instance("lsh", 4)
+    elif name == "glove50_surrogate":
+        from vectordb_retrieval_tpu_torch.data.datasets import Dataset
+
+        Dataset("glove50_surrogate", str(tmp_path),
+                {"train_limit": 32, "test_size": 2, "ground_truth_k": 1}).load()
     elif name == "BenchmarkRunner":
         from vectordb_retrieval_tpu_torch.bench.runner import BenchmarkRunner
 
@@ -180,7 +201,8 @@ def _entry_point(name, tmp_path):
      "ExactSearch", "artifact_from_numpy", "ExperimentRunner", "BenchmarkRunner",
      "FactoryIndexer", "ANNSearcher", "ApproximateSearch", "load_artifact",
      "GraphIndexer", "HNSW", "CoverTree", "msmarco_surrogate", "manifold",
-     "FactoryIndexer_pq"],
+     "FactoryIndexer_pq", "LSHIndexer", "LSHSearcher", "BinaryLSHIndexer", "LSH",
+     "glove50_surrogate"],
 )
 def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
     if torch.cuda.is_available():

@@ -231,9 +231,11 @@ def test_timed_blocking_returns_host_arrays():
 def test_unknown_algorithm_type_raises_like_jax():
     from vectordb_retrieval_tpu.models import get_algorithm_instance as jax_get
 
-    # not ported yet: unknown to the port's registry
-    with pytest.raises(ValueError, match="unknown algorithm type 'lsh'"):
-        get_algorithm_instance("lsh", 8, device="cpu")
+    # a config's algorithm name, not a registry type: both registries reject it
+    with pytest.raises(ValueError, match="unknown algorithm type 'faiss_lsh'"):
+        get_algorithm_instance("faiss_lsh", 8, device="cpu")
+    with pytest.raises(ValueError, match="unknown algorithm type 'faiss_lsh'"):
+        jax_get("faiss_lsh", 8)
     with pytest.raises(ValueError, match="unknown algorithm type 'nope'; known: ") as t:
         get_algorithm_instance("nope", 8, device="cpu")
     with pytest.raises(ValueError, match="unknown algorithm type 'nope'; known: "):
@@ -246,7 +248,11 @@ def _not_ported(kind, tmp_path):
         mm = np.memmap(tmp_path / "m.bin", dtype=np.float32, mode="w+", shape=(4, 2))
         corpus_to_device(mm, device="cpu")
     elif kind == "dataset":
-        tdata.Dataset("sift1m", str(tmp_path), device="cpu").load()
+        # msmarco's default memmap corpus: its ground truth is out-of-core
+        np.save(tmp_path / "passage_embeddings.npy", np.ones((8, 4), np.float32))
+        np.save(tmp_path / "query_embeddings.npy", np.ones((2, 4), np.float32))
+        tdata.Dataset("msmarco", str(tmp_path), {"embedded_dataset_dir": str(tmp_path)},
+                      device="cpu").load()
     elif kind == "storage_memmap":
         tdata.Dataset("random", str(tmp_path), {"storage": "memmap"},
                       device="cpu").load()

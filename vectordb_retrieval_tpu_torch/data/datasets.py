@@ -1,12 +1,19 @@
-"""Dataset manager: seeded synthesis, exact ground truth, npz cache.
+"""Dataset manager: loaders of the catalog, exact ground truth, npz cache.
 
 Counterpart of ``vectordb_retrieval_tpu/data/datasets.py``. Ground truth is
-computed on the device with the port's exact search. Ported loaders:
-``random``, ``msmarco_surrogate`` and ``manifold`` (numpy only, so the same
-seed gives the same vectors bit for bit in both packages). The other
-loaders of the catalog (glove50, glove50_surrogate, sift1m, msmarco) and
-the out-of-core ``storage: memmap`` staging come with the data-layer
-slice, ROADMAP queue 1 item 9.
+computed on the device with the port's exact search. Every loader of the
+catalog is ported:
+  * seeded synthesis (``random``, ``glove50_surrogate``,
+    ``msmarco_surrogate``, ``manifold``): NumPy only, so the same seed gives
+    the same vectors bit for bit in both packages;
+  * files: ``sift1m`` (.fvecs/.ivecs, through ``data/native_io.py`` where
+    ``native/libvrt_io.so`` is built), ``glove50`` (GloVe txt) and
+    ``msmarco`` (pre-embedded .npy directory, or TSV text through
+    ``data/tfidf.py``). A missing file is downloaded where the host has
+    egress, else ``FileNotFoundError``.
+Out-of-core corpora (``storage: memmap`` staging, and ground truth over a
+``np.memmap`` such as ``msmarco``'s default ``use_memmap_cache: true``)
+come with ROADMAP queue 1 item 9b.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ CACHE_KEY_VERSION = 3
 # The port's own tag: its cache files never mix with the JAX package's.
 GROUND_TRUTH_METHOD = "torch_exact_v1"
 
-_NOT_PORTED = "is ported with the data layer, ROADMAP queue 1 item 9"
+_OUT_OF_CORE = "is ported with the out-of-core data layer, ROADMAP queue 1 item 9b"
 
 
 def compute_ground_truth(
@@ -46,7 +53,7 @@ def compute_ground_truth(
     from vectordb_retrieval_tpu_torch.ops import distances as dops
 
     if is_out_of_core(train):
-        raise NotImplementedError(f"ground truth over out-of-core corpora {_NOT_PORTED}")
+        raise NotImplementedError(f"ground truth over out-of-core corpora {_OUT_OF_CORE}")
     dev = resolve_device(device)
     x = corpus_to_device(train, device=dev)
     q = torch.as_tensor(np.ascontiguousarray(queries, dtype=np.float32), device=dev)
@@ -57,6 +64,104 @@ def compute_ground_truth(
     k = min(k, x.shape[0])
     _, ids = dops.exact_search(q, x, k, metric=metric, refine=True, device=dev)
     return ids.cpu().numpy().astype(np.int64)
+
+
+def _read_vecs_numpy(path: str, limit: Optional[int], dtype) -> np.ndarray:
+    """Parse .fvecs/.ivecs with NumPy: per row an int32 dim header, then dim
+    values; every header must agree."""
+    raw = np.fromfile(path, dtype=np.int32)
+    if raw.size == 0:
+        return np.zeros((0, 0), dtype=dtype)
+    dim = int(raw[0])
+    row = dim + 1
+    n = raw.size // row
+    if limit is not None:
+        n = min(n, limit)
+    mat = raw[: n * row].reshape(n, row)
+    if not np.all(mat[:, 0] == dim):
+        raise ValueError(f"inconsistent vecs dims in {path}")
+    return mat[:, 1:].view(dtype).copy()
+
+
+def read_fvecs(path: str, limit: Optional[int] = None) -> np.ndarray:
+    """Parse .fvecs with the native mmap/multithreaded parser
+    (``native/vrt_io.cpp``) where the library is built, NumPy otherwise."""
+    from vectordb_retrieval_tpu_torch.data import native_io
+
+    if native_io.available():
+        return native_io.read_fvecs(path, limit)
+    return _read_vecs_numpy(path, limit, np.float32)
+
+
+def read_ivecs(path: str, limit: Optional[int] = None) -> np.ndarray:
+    """Parse .ivecs, as :func:`read_fvecs`."""
+    from vectordb_retrieval_tpu_torch.data import native_io
+
+    if native_io.available():
+        return native_io.read_ivecs(path, limit)
+    return _read_vecs_numpy(path, limit, np.int32)
+
+
+def _download(url: str, dest: str) -> None:
+    """Fetch ``url`` to ``dest`` atomically; a partial file is removed on
+    error. Works for http(s) and ftp URLs."""
+    import urllib.request
+
+    os.makedirs(os.path.dirname(dest), exist_ok=True)
+    tmp = dest + ".part"
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r, open(tmp, "wb") as f:
+            while True:
+                chunk = r.read(1 << 20)
+                if not chunk:
+                    break
+                f.write(chunk)
+        os.replace(tmp, dest)
+    except Exception:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise
+
+
+SIFT1M_URL = "ftp://ftp.irisa.fr/local/texmex/corpus/sift.tar.gz"
+GLOVE_URL = "https://nlp.stanford.edu/data/glove.6B.zip"
+
+
+def ensure_sift1m(root: str) -> None:
+    """Download + extract SIFT1M if the .fvecs files are absent."""
+    if os.path.exists(os.path.join(root, "sift_base.fvecs")):
+        return
+    import tarfile
+
+    archive = os.path.join(root, "sift.tar.gz")
+    if not os.path.exists(archive):
+        _download(SIFT1M_URL, archive)
+    with tarfile.open(archive, "r:gz") as tf:
+        # the 'data' filter blocks path traversal from a tampered archive
+        tf.extractall(root, filter="data")
+    inner = os.path.join(root, "sift")  # the archive extracts into sift/
+    if os.path.isdir(inner):
+        for name in os.listdir(inner):
+            os.replace(os.path.join(inner, name), os.path.join(root, name))
+
+
+def ensure_glove50(path: str) -> None:
+    """Download + extract glove.6B.50d.txt if absent."""
+    if os.path.exists(path):
+        return
+    import zipfile
+
+    root = os.path.dirname(path)
+    archive = os.path.join(root, "glove.6B.zip")
+    if not os.path.exists(archive):
+        _download(GLOVE_URL, archive)
+    with zipfile.ZipFile(archive) as zf:
+        zf.extract("glove.6B.50d.txt", root)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"glove archive extracted to {root} but {path} still missing "
+            "(custom glove_path must point at glove.6B.50d.txt)"
+        )
 
 
 class Dataset:
@@ -71,7 +176,6 @@ class Dataset:
         "random", "glove50", "glove50_surrogate", "sift1m", "msmarco",
         "msmarco_surrogate", "manifold",
     )
-    PORTED = ("random", "msmarco_surrogate", "manifold")
 
     def __init__(
         self,
@@ -141,8 +245,6 @@ class Dataset:
             raise ValueError(
                 f"unknown dataset {self.name!r}; known: {self.CATALOG}"
             )
-        if self.name not in self.PORTED:
-            raise NotImplementedError(f"dataset {self.name!r} {_NOT_PORTED}")
         use_cache = bool(self.options.get("use_cache", True))
         if use_cache and self._load_cache():
             return self
@@ -168,7 +270,7 @@ class Dataset:
     def _load_random(self) -> None:
         """Seeded gaussian synthesis (the same draws as the JAX package)."""
         if self.options.get("storage") == "memmap":
-            raise NotImplementedError(f"'storage: memmap' {_NOT_PORTED}")
+            raise NotImplementedError(f"'storage: memmap' {_OUT_OF_CORE}")
         dim = int(self.options.get("dimensions", 128))
         n_train = int(self.options.get("train_size", 10000))
         n_test = int(self.options.get("test_size", 1000))
@@ -432,6 +534,226 @@ class Dataset:
         self.metadata["surrogate_for"] = (
             "per-list-structured corpora (synthetic manifold evidence set)"
         )
+        self.ground_truth = compute_ground_truth(
+            self.train_vectors, self.test_vectors, self._gt_k(), self.metric,
+            device=self.device,
+        )
+
+    def _load_sift1m(self) -> None:
+        """SIFT1M from local .fvecs/.ivecs files.
+
+        Expects ``{data_dir}/{subdir}/sift_{base,query}.fvecs`` (``subdir``
+        defaults to ``sift1m``) and optionally ``sift_groundtruth.ivecs``.
+        The TEXMEX ground truth is read only for l2, with no ``base_limit``,
+        when it is at least ``ground_truth_k`` wide; otherwise it is
+        computed on the device. A directory holding ``PROVENANCE.json`` or
+        named ``*synth*`` (``scripts/make_sift1m_surrogate.py``'s output)
+        is labelled surrogate.
+        """
+        root = os.path.join(self.data_dir, self.options.get("subdir", "sift1m"))
+        if not os.path.exists(os.path.join(root, "sift_base.fvecs")):
+            try:
+                ensure_sift1m(root)
+            except Exception as exc:
+                raise FileNotFoundError(
+                    f"SIFT1M files missing under {root} and download failed "
+                    f"({exc}); place sift_base.fvecs / sift_query.fvecs there"
+                ) from exc
+        if os.path.exists(os.path.join(root, "PROVENANCE.json")) or "synth" in os.path.basename(root):
+            self.metadata["surrogate"] = True
+            self.metadata["surrogate_for"] = "SIFT1M (TEXMEX 128d)"
+        base_limit = self.options.get("base_limit")
+        query_limit = self.options.get("test_size", self.options.get("query_limit"))
+        base = read_fvecs(os.path.join(root, "sift_base.fvecs"), base_limit)
+        queries = read_fvecs(os.path.join(root, "sift_query.fvecs"), query_limit)
+        self.train_vectors = base
+        self.test_vectors = queries
+        gt_path = os.path.join(root, "sift_groundtruth.ivecs")
+        gt = None
+        if base_limit is None and self.metric == "l2" and os.path.exists(gt_path):
+            gt = read_ivecs(gt_path, query_limit).astype(np.int64)
+            if gt.shape[1] < self._gt_k():
+                gt = None
+        if gt is not None:
+            self.ground_truth = gt[:, : self._gt_k()]
+        else:
+            self.ground_truth = compute_ground_truth(
+                base, queries, self._gt_k(), self.metric, device=self.device
+            )
+
+    def _load_glove50(self) -> None:
+        """GloVe-50 from a local txt: parse, optional subsample, seeded
+        train/test split, device ground truth."""
+        path = self.options.get(
+            "glove_path", os.path.join(self.data_dir, "glove50", "glove.6B.50d.txt")
+        )
+        if not os.path.exists(path):
+            try:
+                ensure_glove50(path)
+            except Exception as exc:
+                raise FileNotFoundError(
+                    f"GloVe file missing at {path} and download failed "
+                    f"({exc}); place glove.6B.50d.txt there"
+                ) from exc
+        train_limit = self.options.get("train_limit")
+        test_size = int(self.options.get("test_size", 1000))
+        seed = int(self.options.get("seed", 42))
+        vecs = []
+        limit_rows = (train_limit + test_size) if train_limit else None
+        with open(path, "r", encoding="utf-8") as f:
+            for line_no, line in enumerate(f):
+                if limit_rows is not None and line_no >= limit_rows:
+                    break
+                parts = line.rstrip().split(" ")
+                vecs.append(np.asarray(parts[1:], dtype=np.float32))
+        mat = np.stack(vecs)
+        perm = np.random.default_rng(seed).permutation(mat.shape[0])
+        test_idx, train_idx = perm[:test_size], perm[test_size:]
+        if train_limit:
+            train_idx = train_idx[:train_limit]
+        self.train_vectors = np.ascontiguousarray(mat[train_idx])
+        self.test_vectors = np.ascontiguousarray(mat[test_idx])
+        self.ground_truth = compute_ground_truth(
+            self.train_vectors, self.test_vectors, self._gt_k(), self.metric,
+            device=self.device,
+        )
+
+    def _load_glove50_surrogate(self) -> None:
+        """Distribution-matched GloVe-50 stand-in (NOT real data).
+
+        Synthesises a corpus with glove.6B.50d's structural statistics:
+        an optional anisotropic spectrum (per-component scale ~
+        (i+1)^-alpha), Zipf-weighted hierarchical clusters (parents and
+        tight children), a common mean offset and a log-normal radial
+        spread rescaled to a mean norm of ~4.4. The defaults are the JAX
+        package's calibration (``scripts/calibrate_glove_surrogate.py``:
+        its five glove50 rows land within 0.015 of the reference's
+        recalls). Results are labelled surrogate.
+        """
+        d = 50
+        n_train = int(self.options.get("train_limit", 20000))
+        n_test = int(self.options.get("test_size", 256))
+        seed = int(self.options.get("seed", 11))
+        alpha = float(self.options.get("anisotropy", 0.0))
+        n_parents = int(self.options.get("n_parents", 160))
+        children_per = int(self.options.get("children_per_parent", 6))
+        child_scale = float(self.options.get("child_scale", 1.2))
+        point_scale = float(self.options.get("point_scale", 1.7))
+        mean_norm = float(self.options.get("mean_norm", 4.4))
+
+        rng = np.random.default_rng(seed)
+        n = n_train + n_test
+        spectrum = (np.arange(1, d + 1, dtype=np.float32)) ** (-alpha)
+        spectrum /= np.sqrt(np.mean(spectrum**2))
+
+        parents = rng.standard_normal((n_parents, d)).astype(np.float32)
+        children = (
+            parents[:, None, :]
+            + child_scale
+            * rng.standard_normal((n_parents, children_per, d)).astype(np.float32)
+        ).reshape(n_parents * children_per, d)
+        # Zipfian cluster occupancy (frequency-skewed semantic clusters)
+        ranks = np.arange(1, children.shape[0] + 1, dtype=np.float64)
+        probs = ranks**-0.85
+        probs /= probs.sum()
+        assign = rng.choice(children.shape[0], size=n, p=probs)
+        pts = children[assign] + point_scale * rng.standard_normal((n, d)).astype(np.float32)
+        # diffuse background mass (rare words scatter far from any cluster)
+        bg_frac = float(self.options.get("background_frac", 0.0))
+        if bg_frac > 0:
+            n_bg = int(n * bg_frac)
+            bg_rows = rng.choice(n, size=n_bg, replace=False)
+            bg_scale = float(np.linalg.norm(pts, axis=1).mean()) / np.sqrt(d)
+            pts[bg_rows] = bg_scale * rng.standard_normal((n_bg, d)).astype(np.float32)
+        pts *= spectrum[None, :]
+        # common (non-centred) offset along a fixed direction
+        mu_dir = rng.standard_normal(d).astype(np.float32) * spectrum
+        mu_dir /= np.linalg.norm(mu_dir)
+        pts += 0.35 * np.linalg.norm(pts, axis=1).mean() * mu_dir[None, :]
+        # log-normal radial spread, rescaled to the target mean norm
+        radial = rng.lognormal(0.0, 0.28, size=n).astype(np.float32)
+        pts *= radial[:, None]
+        pts *= mean_norm / np.linalg.norm(pts, axis=1).mean()
+
+        perm = rng.permutation(n)
+        self.train_vectors = np.ascontiguousarray(pts[perm[:n_train]])
+        self.test_vectors = np.ascontiguousarray(pts[perm[n_train:]])
+        self.metadata["surrogate"] = True
+        self.metadata["surrogate_for"] = "glove50"
+        self.ground_truth = compute_ground_truth(
+            self.train_vectors, self.test_vectors, self._gt_k(), self.metric,
+            device=self.device,
+        )
+
+    def _load_msmarco_tfidf(self) -> None:
+        """TF-IDF text path: corpus/queries TSVs -> hashing tf-idf + random
+        projection (``data/tfidf.py``) -> unit vectors + ground truth."""
+        from vectordb_retrieval_tpu_torch.data.tfidf import read_tsv, texts_to_vectors
+
+        corpus_tsv = self.options.get("corpus_tsv")
+        queries_tsv = self.options.get("queries_tsv")
+        if not corpus_tsv or not queries_tsv:
+            raise ValueError(
+                "msmarco tf-idf mode needs options.corpus_tsv and options.queries_tsv"
+            )
+        dim = int(self.options.get("dimensions", 384))
+        seed = int(self.options.get("seed", 42))
+        _, passages = read_tsv(corpus_tsv)
+        _, queries = read_tsv(queries_tsv)
+        base_limit = self.options.get("base_limit")
+        query_limit = self.options.get("query_limit")
+        if base_limit:
+            passages = passages[: int(base_limit)]
+        if query_limit:
+            queries = queries[: int(query_limit)]
+        train, vectorizer = texts_to_vectors(passages, dim=dim, seed=seed)
+        test, _ = texts_to_vectors(queries, dim=dim, seed=seed, vectorizer=vectorizer)
+        self.train_vectors = train
+        self.test_vectors = test
+        self.metric = self.options.get("metric", "cosine")
+        self.ground_truth = compute_ground_truth(
+            train, test, self._gt_k(), self.metric, device=self.device
+        )
+
+    def _load_msmarco(self) -> None:
+        """Pre-embedded MS MARCO .npy directory: ``passage_embeddings.npy``
+        + ``query_embeddings.npy`` with ``base_limit``/``query_limit``
+        prefix slicing and device ground truth; ``use_tfidf`` takes the TSV
+        text path instead. With the default ``use_memmap_cache: true`` the
+        corpus stays a read-only ``np.memmap``, whose ground truth is
+        out-of-core (ROADMAP queue 1 item 9b); ``use_memmap_cache: false``
+        reads it into memory."""
+        if self.options.get("use_tfidf"):
+            self._load_msmarco_tfidf()
+            return
+        emb_dir = self.options.get("embedded_dataset_dir")
+        if not emb_dir:
+            raise ValueError(
+                "msmarco requires options.embedded_dataset_dir pointing at "
+                "passage_embeddings.npy / query_embeddings.npy "
+                "(or use_tfidf with corpus_tsv/queries_tsv)"
+            )
+        mmap = "r" if self.options.get("use_memmap_cache", True) else None
+        passages = np.load(os.path.join(emb_dir, "passage_embeddings.npy"), mmap_mode=mmap)
+        queries = np.load(os.path.join(emb_dir, "query_embeddings.npy"), mmap_mode=mmap)
+        base_limit = self.options.get("base_limit")
+        query_limit = self.options.get("query_limit")
+        if base_limit:
+            passages = passages[: int(base_limit)]
+        if query_limit:
+            queries = queries[: int(query_limit)]
+        # keep the memmap view where possible: np.ascontiguousarray would
+        # strip the np.memmap wrapper and with it the out-of-core path
+        if (
+            isinstance(passages, np.memmap)
+            and passages.dtype == np.float32
+            and passages.flags["C_CONTIGUOUS"]
+        ):
+            self.train_vectors = passages
+        else:
+            self.train_vectors = np.ascontiguousarray(passages, dtype=np.float32)
+        self.test_vectors = np.ascontiguousarray(queries, dtype=np.float32)
+        self.metric = self.options.get("metric", "cosine")
         self.ground_truth = compute_ground_truth(
             self.train_vectors, self.test_vectors, self._gt_k(), self.metric,
             device=self.device,

@@ -2,7 +2,7 @@
 
 Only in-memory corpora are ported so far. Out-of-core inputs (``np.memmap``,
 the JAX package's ``BigStore``) and the streaming exact search over them
-come with the data-layer slice, ROADMAP queue 1 item 9.
+come with the out-of-core data layer, ROADMAP queue 1 item 9b.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import torch
 
 from vectordb_retrieval_tpu_torch.utils.device import DeviceLike, resolve_device
 
-_OUT_OF_CORE = "out-of-core corpora are ported with the data layer, ROADMAP queue 1 item 9"
+_OUT_OF_CORE = "out-of-core corpora are ported with the out-of-core data layer, ROADMAP queue 1 item 9b"
 
 
 def is_out_of_core(vectors) -> bool:

@@ -1,12 +1,15 @@
 """Index families and the algorithm registry.
 
-Ported so far: the exact family (``exact``/``ExactSearch``, flat
-artifacts), the factory family for IVF-Flat, IVF-SQ8 and SQ8
-(``approx``/``ApproximateSearch``; ``FactoryIndexer``/``ANNSearcher`` and
-their ``Faiss*`` aliases in the component registries), the graph family
-(``hnsw``/``HNSW``; ``GraphIndexer``/``HNSWIndexer``) and the cover tree
-(``covertree``/``CoverTree``/``CoverTreeV2_2``). The other name of the JAX
-registry (LSH) is unknown here and raises the same ``ValueError``.
+Every name of the JAX registry is ported: the exact family
+(``exact``/``ExactSearch``, flat artifacts), the factory family for
+IVF-Flat/PQ/SQ8, PQ and SQ8 (``approx``/``ApproximateSearch``;
+``FactoryIndexer``/``ANNSearcher`` and their ``Faiss*`` aliases in the
+component registries), the graph family
+(``hnsw``/``HNSW``; ``GraphIndexer``/``HNSWIndexer``), the cover tree
+(``covertree``/``CoverTree``/``CoverTreeV2_2``) and the LSH family
+(``lsh``/``LSH``; ``LSHIndexer``/``LSHSearcher``, ``BinaryLSHIndexer``/
+``FaissLSHIndexer``). An unknown name raises the same ``ValueError`` as
+there.
 """
 
 from typing import Any, Dict, Type
@@ -26,6 +29,7 @@ from vectordb_retrieval_tpu_torch.models.base import (  # noqa: F401
 # Importing this module populates the indexer/searcher registries.
 from vectordb_retrieval_tpu_torch.models import flat  # noqa: F401,E402
 from vectordb_retrieval_tpu_torch.models import factory  # noqa: F401,E402
+from vectordb_retrieval_tpu_torch.models import lsh as _lsh  # noqa: E402
 from vectordb_retrieval_tpu_torch.models import graph as _graph  # noqa: E402
 from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm  # noqa: E402
 from vectordb_retrieval_tpu_torch.models.covertree import CoverTree  # noqa: E402
@@ -41,6 +45,8 @@ ALGORITHM_REGISTRY: Dict[str, Type[BaseAlgorithm]] = {
     "composite": CompositeAlgorithm,
     "CompositeAlgorithm": CompositeAlgorithm,
     "modular": CompositeAlgorithm,
+    "lsh": _lsh.LSH,
+    "LSH": _lsh.LSH,
     "hnsw": _graph.HNSW,
     "HNSW": _graph.HNSW,
     "covertree": CoverTree,

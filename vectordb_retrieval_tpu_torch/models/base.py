@@ -50,7 +50,8 @@ def leaf_to_tensor(
     persisted format) or as a numpy array whose dtype is named
     ``bfloat16`` (a JAX array taken with ``np.asarray``); both become
     ``torch.bfloat16`` through an ``int16`` view of the bits, so no
-    bfloat16 numpy type is needed.
+    bfloat16 numpy type is needed. uint32 leaves become ``int32`` views of
+    the same bits.
     """
     if isinstance(arr, torch.Tensor):
         return key, arr.to(device)
@@ -62,6 +63,8 @@ def leaf_to_tensor(
         return key, torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
     if arr.dtype.name == "bfloat16":
         return key, torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    if arr.dtype == np.uint32:  # int32 views: torch's uint32 has no CPU shifts
+        return key, torch.from_numpy(arr.view(np.int32)).to(device)
     return key, torch.as_tensor(arr, device=device)
 
 
@@ -192,6 +195,13 @@ class BaseSearcher(ABC):
     def estimated_ops_per_query(self, n_database: int) -> int:
         """Analytic distance-op estimate."""
         return int(n_database)
+
+
+def check_artifact_device(artifact: IndexArtifact, device: torch.device) -> None:
+    """Raise unless every tensor of ``artifact`` lies on ``device``."""
+    for key, t in artifact.data.items():
+        if isinstance(t, torch.Tensor) and t.device != device:
+            raise ValueError(f"artifact tensor {key!r} lives on {t.device}, searcher on {device}")
 
 
 INDEXER_REGISTRY: Dict[str, Type[BaseIndexer]] = {}

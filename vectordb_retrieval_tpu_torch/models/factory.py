@@ -5,14 +5,14 @@ Counterpart of ``vectordb_retrieval_tpu/models/factory.py``:
 ``IVF{n},PQ{m}`` (residual PQ, optional per-list rotations:
 ``pq_rotations`` = a block size or ``'auto'``), ``IVF{n},SQ8``, bare
 ``PQ{m}`` and ``SQ8``, each optionally behind an ``OPQ{m},`` rotation. The
-streaming build of out-of-core corpora and the artifact kinds of unported
-families (LSH, sharded) raise ``NotImplementedError`` naming their ROADMAP
-item.
+streaming build of out-of-core corpora and the row-sharded artifact kinds
+raise ``NotImplementedError`` naming their ROADMAP item.
 
 ``ANNSearcher`` dispatches on artifact kind with runtime params (``nprobe``
 from searcher params or artifact metadata; ``efSearch`` for ``graph``
-artifacts, ``models/graph.py``). Registry aliases keep the
-JAX package's YAML configs loadable verbatim: ``FaissFactoryIndexer`` ->
+artifacts, ``models/graph.py``; ``lsh_candidate_multiplier``, default
+32, for ``binary_lsh`` artifacts, ``models/lsh.py``). Registry aliases keep
+the JAX package's YAML configs loadable verbatim: ``FaissFactoryIndexer`` ->
 :class:`FactoryIndexer`, ``FaissIVFIndexer`` -> :class:`IVFIndexer`,
 ``FaissSearcher`` -> :class:`ANNSearcher`. Batches are not padded (the JAX
 searcher pads to powers of two only to bound XLA recompiles).
@@ -29,10 +29,12 @@ import torch
 
 from vectordb_retrieval_tpu_torch.data.storage import corpus_to_device, is_out_of_core
 from vectordb_retrieval_tpu_torch.models import graph as graph_models
+from vectordb_retrieval_tpu_torch.models import lsh as lsh_models
 from vectordb_retrieval_tpu_torch.models.base import (
     BaseIndexer,
     BaseSearcher,
     IndexArtifact,
+    check_artifact_device,
     register_indexer,
     register_searcher,
 )
@@ -53,7 +55,6 @@ _FACTORY_RE = re.compile(
 
 # artifact kinds of families not ported yet -> their ROADMAP item
 _NOT_PORTED_KINDS = {
-    "binary_lsh": "ROADMAP queue 1 item 7 (LSH)",
     "ivf_flat_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
     "ivf_pq_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
     "ivf_sq8_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
@@ -200,7 +201,7 @@ class FactoryIndexer(BaseIndexer):
         if is_out_of_core(vectors) and spec["nlist"] is not None:
             raise NotImplementedError(
                 "the streaming IVF build of out-of-core corpora is ported with "
-                "the data layer, ROADMAP queue 1 item 9"
+                "the out-of-core data layer, ROADMAP queue 1 item 9b"
             )
         self.build_seconds = {}
         self._t = time.perf_counter()
@@ -373,7 +374,7 @@ class ANNSearcher(BaseSearcher):
     ``efSearch`` overrides."""
 
     SUPPORTED = (
-        "flat", "pq", "sq8", "ivf_flat", "ivf_pq", "ivf_sq8", "graph",
+        "flat", "pq", "sq8", "ivf_flat", "ivf_pq", "ivf_sq8", "binary_lsh", "graph",
     ) + tuple(_NOT_PORTED_KINDS)
 
     def attach(self, artifact: IndexArtifact) -> None:
@@ -386,12 +387,7 @@ class ANNSearcher(BaseSearcher):
                 f"artifact kind {artifact.kind!r} is ported with "
                 f"{_NOT_PORTED_KINDS[artifact.kind]}"
             )
-        for key, t in artifact.data.items():
-            if isinstance(t, torch.Tensor) and t.device != self.device:
-                raise ValueError(
-                    f"artifact tensor {key!r} lives on {t.device}, searcher on "
-                    f"{self.device}"
-                )
+        check_artifact_device(artifact, self.device)
         self.artifact = artifact
 
     def _nprobe(self) -> int:
@@ -503,6 +499,11 @@ class ANNSearcher(BaseSearcher):
         elif kind == "graph":
             ef = int(self.params.get("efSearch", meta.get("efSearch", 100)))
             dists, ids = graph_models.graph_artifact_search(art, q, eff_k, metric, ef)
+        elif kind == "binary_lsh":
+            dists, ids = lsh_models.binary_lsh_search(
+                art, q, eff_k, metric,
+                float(self.params.get("lsh_candidate_multiplier", 32.0)),
+            )
         else:  # ivf_sq8
             dists, ids = ivfops.ivf_sq_search(
                 q, d["centroids"], d["slot_ids"], d["list_codes"],

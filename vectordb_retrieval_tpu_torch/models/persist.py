@@ -13,7 +13,10 @@ on-disk format, so either package loads the other's artifacts:
     is written under a temporary name and moved into place.
 
 bf16 goes through ``int16`` views of the raw bits, so no bfloat16 numpy
-type (``ml_dtypes``) is needed.
+type (``ml_dtypes``) is needed. The JAX package's uint32 leaves (the
+``binary_lsh`` artifact's packed ``words``) load as ``int32`` views of the
+same bits (torch's uint32 has no shifts on the CPU) and are written back as
+uint32.
 """
 
 from __future__ import annotations
@@ -38,14 +41,18 @@ SCHEMA_VERSION = 1
 SENTINEL = "WRITE_COMPLETE"
 MANIFEST = "manifest.json"
 ARRAYS = "arrays.npz"
+# (kind, key) of the leaves the JAX package stores as uint32
+_UINT32_LEAVES = {("binary_lsh", "words")}
 
 
-def _flatten(data: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(data: Dict[str, Any], prefix: str = "", kind: str = "") -> Dict[str, np.ndarray]:
     flat: Dict[str, np.ndarray] = {}
     for key, val in data.items():
         full = f"{prefix}{key}"
         if isinstance(val, dict):
-            flat.update(_flatten(val, prefix=full + "/"))
+            flat.update(_flatten(val, prefix=full + "/", kind=kind))
+        elif (kind, full) in _UINT32_LEAVES:
+            flat[full] = val.detach().cpu().contiguous().numpy().view(np.uint32)
         elif val is None:
             continue
         elif isinstance(val, torch.Tensor) and val.dtype == torch.bfloat16:
@@ -79,7 +86,7 @@ def save_artifact(
     os.makedirs(parent, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".artifact_tmp_", dir=parent)
     try:
-        arrays = _flatten(artifact.data)
+        arrays = _flatten(artifact.data, kind=artifact.kind)
         np.savez(os.path.join(tmp, ARRAYS), **arrays)
         manifest = {
             "schema_version": SCHEMA_VERSION,

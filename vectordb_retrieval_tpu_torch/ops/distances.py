@@ -131,6 +131,25 @@ def top_k_smallest(
     return torch.topk(distances, k, dim=1, largest=False, sorted=True)
 
 
+def top_k_smallest_by_id(
+    vals: torch.Tensor, ids: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest entries of each row of ``vals [B, M]`` (f32), equal
+    values taken in ascending ``ids`` (int64 in ``[0, 2^32)``, distinct in
+    a row, ``[B, M]`` or ``[1, M]``): ``(values, positions)`` ``[B, k]``.
+
+    A top-k's own tie order differs between the card and the host; one
+    top-k over int64 keys (the value's order-preserving bits, then the id)
+    has no ties, so both keep the same entries. With column indices for
+    ``ids`` it keeps the lower index among equals, as ``jax.lax.top_k``
+    does.
+    """
+    bits = (vals + 0.0).view(torch.int32).long()  # + 0.0: -0.0 -> +0.0
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)  # ordered like the floats
+    _, pos = torch.topk((key << 32) | ids, k, dim=1, largest=False, sorted=True)
+    return torch.gather(vals, 1, pos), pos
+
+
 def _exact_search_dense(
     queries: torch.Tensor,
     database: torch.Tensor,

@@ -46,7 +46,7 @@ from vectordb_retrieval_tpu_torch.ops import kernels
 _BUILD_BATCH = 1024
 _IVF_BUILD_THRESHOLD = 300_000
 _INF = float("inf")
-_STREAM_ITEM = "ROADMAP queue 1 item 9 (data layer: out-of-core corpora)"
+_STREAM_ITEM = "ROADMAP queue 1 item 9b (data layer: out-of-core corpora)"
 
 
 def _tril(n: int, device: torch.device) -> torch.Tensor:

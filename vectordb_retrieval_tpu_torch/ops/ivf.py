@@ -272,15 +272,11 @@ def _smallest_blocks(vals: torch.Tensor, blk: torch.Tensor, nb: int):
 
     Equal minima are common where quantised rows repeat (PQ codes collapse
     a tight cluster to one reconstruction, every block holding a member
-    gets the same minimum); a top-k's own tie order differs between the
-    card and the host, and so would the blocks kept and the rows
-    rescored. One top-k over int64 keys (the minimum's order-preserving
-    bits, then the block id) has no ties.
+    gets the same minimum), and a top-k's own tie order differs between the
+    card and the host: :func:`~vectordb_retrieval_tpu_torch.ops.distances.
+    top_k_smallest_by_id` has no ties.
     """
-    bits = (vals + 0.0).view(torch.int32).long()  # + 0.0: -0.0 -> +0.0
-    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)  # ordered like the floats
-    _, pos = torch.topk((key << 32) | blk, nb, dim=1, largest=False, sorted=True)
-    return torch.gather(vals, 1, pos), pos
+    return dops.top_k_smallest_by_id(vals, blk, nb)
 
 
 def _rescore_blocks(
