@@ -109,7 +109,43 @@ on failure:
                    surrogate's rows modulo exact distance ties (integer
                    rows), LSH rows at ids >= 0.99 and recall within 0.005
                    (16 queries for the 1M-row Hamming scan, 64 elsewhere)
-     In 4, 5, 5b, 5c and 5d every kernel launch of the main path is also held
+  5e. serving   - MutableFlatIndex at the MS MARCO MiniLM shape (random 100k x
+                   384, cosine: the scan's dense branch) and on the SIFT1M
+                   surrogate (1M x 128, l2, 16 adds of 62,500: 8 streamed
+                   chunks), each from the default capacity: searches at top
+                   20 and 100 held to exact search over the live rows
+                   (modulo exact distance ties), 30 % deleted (compaction),
+                   filtered searches (10 % of live ids, 1,000 ids) held to
+                   exact search over the allowed rows, 100k rows re-added
+                   (ids from next_id), save -> load (ids identical) and the
+                   snapshot to ANNSearcher; MutableIVFIndex(nlist 1024,
+                   nprobe 32) built over a seeded random half of the
+                   surrogate, the other half added in 10 batches (bucket
+                   growth), 20 % deleted: recall@100 >= the committed
+                   IVF1024,Flat np32 row less 0.03, filtered answers only
+                   allowed live ids, save -> load and the snapshot (full
+                   probe) modulo ties; each index's QPS (256-query batches,
+                   unfiltered and filtered), device ms by stage and route,
+                   add / delete rates, compaction seconds; every sequence
+                   replayed on a host index (64 queries; the IVF one loaded
+                   from a save made right after the card's build) and held
+                   to the card at >= 99.9 % modulo distance classes
+  5f. out of core - python -m vectordb_retrieval_tpu_torch.bench.validate_
+                   bigcorpus in a fresh process at its defaults (4M x 128
+                   random, storage: memmap, streamed ground truth, the
+                   streamed IVF1024,SQ8 build, nprobe 128, k 20), started by
+                   a launcher made before this process grows: the growth
+                   of peak RSS over the start-up's (torch, its CUDA
+                   libraries, the context, the kernels) under the corpus
+                   size, the absolute peak printed, recall@20 >= the JAX package's
+                   committed 0.5158 less 0.03, built_streaming; then here
+                   the chunked upload's GB/s, the streamed ground truth of
+                   64 queries against a resident exact search, and the
+                   streamed build again under the launch capture; then the
+                   SIFT surrogate written to a BigStore in chunks and its
+                   hnsw block row stream-built: recall@100 within 0.05 of
+                   the in-memory row
+     In 4, 5, 5b, 5c, 5d, 5e and 5f every kernel launch of the main path is also held
      against its plain version on the very inputs it was launched with (the
      last launch of each kernel mode, shape and stage: ground truth, each
      build's k-means sample and corpus with its centroids, each timed
@@ -152,6 +188,7 @@ import collections
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2782,7 +2819,704 @@ def phase_assign_dsub_throughput(card: str, launches: dict, n: int = 65_536) -> 
     return out
 
 
+# ---- 5e. serving (mutable flat and IVF indexes) ---------------------------
+
+# Each mutable flat index starts at the default capacity and fills by adds:
+# the MS MARCO MiniLM shape (random 100k x 384, cosine; capacity 131,072,
+# the scan's dense branch) and the SIFT1M surrogate (1M x 128, l2, 16
+# batches of 62,500; capacity 1,048,576, 8 streamed chunks).
+SERVING_FLAT_SHAPES = (
+    {"name": "msmarco_shape", "n": 100_000, "d": 384, "metric": "cosine", "batches": 10},
+    {"name": "sift1m_surrogate", "n": SIFT_ROWS, "d": 128, "metric": "l2", "batches": 16},
+)
+SERVING_KS = (20, 100)
+SERVING_DELETE = 0.30  # share of ids deleted (the flat indexes compact)
+SERVING_FILTER = 0.10  # share of live ids in the wide allow-list
+SERVING_FILTER_IDS = 1000  # the narrow allow-list
+SERVING_READD = 100_000
+# MutableIVFIndex over a seeded random half of the SIFT surrogate, the
+# other half added in 10 batches (bucket growth), 20 % of ids deleted.
+SERVING_IVF = {"nlist": 1024, "nprobe": 32, "add_batches": 10, "delete": 0.20}
+# configs/sift1m.yaml's committed IVF1024,Flat np32 recall@100 less the
+# margin: the serving probe budget is a superset of the immutable row's
+SERVING_IVF_MIN_RECALL = SIFT_COMMITTED["ivf_flat"] - RECALL_MARGIN
+
+
+def _timed_compact(idx, seconds: list) -> None:
+    """Record the seconds of every compaction of ``idx`` (also the ones a
+    delete or a snapshot triggers)."""
+    from vectordb_retrieval_tpu_torch.utils.device import synchronize
+
+    inner = idx.compact
+
+    def compact():
+        t = time.perf_counter()
+        inner()
+        synchronize(idx.device)
+        seconds.append(time.perf_counter() - t)
+
+    idx.compact = compact
+
+
+def _exact_distances(rows, q, metric):
+    """float64 distances ``[B, M]`` of ``rows [M, d]`` to ``q [B, d]`` in the
+    index's convention (l2: squared, cosine: negated cosine)."""
+    r, qq = rows.astype(np.float64), q.astype(np.float64)
+    if metric == "cosine":
+        r = r / np.maximum(np.linalg.norm(r, axis=1, keepdims=True), 1e-12)
+        qq = qq / np.maximum(np.linalg.norm(qq, axis=1, keepdims=True), 1e-12)
+        return -(qq @ r.T)
+    return ((qq[:, None, :] - r[None, :, :]) ** 2).sum(-1)
+
+
+def _id_classes(vec_of, q, ids, metric):
+    """Each stable id as its float64 distance to its query: rows at one
+    distance form a class (the SIFT surrogate's integer rows tie exactly;
+    random float rows never do), -1 stays -1."""
+    out = np.full(ids.shape, -1.0)
+    for i in range(ids.shape[0]):
+        ok = ids[i] >= 0
+        if ok.any():
+            out[i, ok] = _exact_distances(vec_of(ids[i, ok]), q[i : i + 1], metric)[0]
+    return out
+
+
+def _exact_live(vec_of, live, q, k, metric):
+    """Stable ids of the exact top-k over ``live`` on the card (the port's
+    exact search, refine), and their distances."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import distances as dops
+
+    rows = torch.as_tensor(vec_of(live), device=DEV)
+    qd = torch.as_tensor(q, device=DEV)
+    score = metric
+    if metric == "cosine":
+        rows, qd, score = dops.normalize(rows), dops.normalize(qd), "ip"
+    d, pos = dops.exact_search(qd, rows, min(k, len(live)), metric=score, refine=True)
+    del rows
+    return live[pos.cpu().numpy()], d.cpu().numpy()
+
+
+def _hold_to_exact(name, vec_of, q, searches, metric, min_agree):
+    """Every search of a serving sequence against the exact top-k over its
+    allowed live rows: ids modulo distance classes, every id allowed and
+    live, distances to the float64 tolerance. Returns a line per search."""
+    out = {}
+    for label, (k, live, (dists, ids)) in searches.items():
+        want, _ = _exact_live(vec_of, live, q, k, metric)
+        agree, same = _multiset_agreement(*(_id_classes(vec_of, q, x, metric) for x in (ids, want)),
+                                          k)
+        raw, _ = _multiset_agreement(ids, want, k)
+        inside = bool(np.isin(ids[ids >= 0], live).all())
+        got_d = np.sort(dists, 1)[:, : want.shape[1]]
+        want_d = np.sort(np.stack([_exact_distances(vec_of(w), q[i : i + 1], metric)[0]
+                                   for i, w in enumerate(want)]), 1)
+        err = float(np.abs(got_d - want_d).max())
+        tol = GT_REL_TOL * float(np.abs(want_d).max())
+        ok = agree >= min_agree and inside and err <= tol
+        out[label] = {"k": k, "allowed_live": int(len(live)), "id_agreement": agree,
+                      "raw_id_agreement": raw, "queries_equal_modulo_classes": int(np.sum(same)),
+                      "ids_allowed_and_live": inside, "max_abs_dist_err": err, "tol": tol,
+                      "ok": ok}
+        if not ok:
+            raise AssertionError(f"serving {name}/{label}: {out[label]}")
+    return out
+
+
+def _flat_plan(n, seed):
+    g = np.random.default_rng(seed)
+    dead = g.choice(n, int(SERVING_DELETE * n), replace=False)
+    live = np.setdiff1d(np.arange(n), dead)
+    return {
+        "dead": dead,
+        "allow": np.sort(g.choice(live, int(SERVING_FILTER * len(live)), replace=False)),
+        "allow_small": np.sort(g.choice(live, SERVING_FILTER_IDS, replace=False)),
+        "readd": np.sort(dead)[:SERVING_READD],  # re-added rows: the deleted rows' vectors
+    }
+
+
+def _flat_sequence(idx, base, batches, plan, q, stage=None):
+    """The flat serving sequence on ``idx``: fill by adds, search, delete
+    (compacting), search, filtered searches, re-add, search. Returns the
+    searches ``{label: (k, allowed live ids, (dists, ids))}``, the stable
+    id -> row map and the seconds of each mutation."""
+    from vectordb_retrieval_tpu_torch.utils.device import synchronize
+
+    n = base.shape[0]
+    secs = {}
+    searches = {}
+    if stage is not None:
+        stage[0] = "add"
+    t = time.perf_counter()
+    for part in np.array_split(np.arange(n), batches):
+        idx.add(base[part[0] : part[-1] + 1])
+    synchronize(idx.device)
+    secs["add"] = time.perf_counter() - t
+    secs["capacity_filled"] = idx.capacity
+    alive = np.arange(n)
+    if stage is not None:
+        stage[0] = "search"
+    for k in SERVING_KS:
+        searches[f"filled_k{k}"] = (k, alive, idx.search(q, k))
+    t = time.perf_counter()
+    deleted = idx.delete(plan["dead"])
+    synchronize(idx.device)
+    secs["delete"] = time.perf_counter() - t
+    if deleted != len(plan["dead"]):
+        raise AssertionError(f"delete removed {deleted} of {len(plan['dead'])}")
+    secs["capacity_after_delete"] = idx.capacity
+    alive = np.setdiff1d(alive, plan["dead"])
+    for k in SERVING_KS:
+        searches[f"deleted_k{k}"] = (k, alive, idx.search(q, k))
+    k = SERVING_KS[-1]
+    searches["filter_10pct"] = (k, plan["allow"], idx.search(q, k, filter_ids=plan["allow"]))
+    searches["filter_1000"] = (k, plan["allow_small"],
+                               idx.search(q, k, filter_ids=plan["allow_small"]))
+    first = idx._next_id
+    t = time.perf_counter()
+    new = idx.add(base[plan["readd"]])
+    synchronize(idx.device)
+    secs["readd"] = time.perf_counter() - t
+    if not np.array_equal(new, np.arange(first, first + len(plan["readd"]))) or first != n:
+        raise AssertionError("re-added ids do not continue from next_id")
+    alive = np.concatenate([alive, new])
+    for k in SERVING_KS:
+        searches[f"readded_k{k}"] = (k, alive, idx.search(q, k))
+    row_of = np.concatenate([np.arange(n), plan["readd"]])
+    return searches, row_of, secs
+
+
+def _flat_data(shape, sift):
+    """(base rows, 256 queries) of one serving shape."""
+    if shape["name"] == "sift1m_surrogate":
+        return sift["train"], sift["rows"]["exact"]["queries"]
+    g = np.random.default_rng(SEED + 11)
+    return (g.standard_normal((shape["n"], shape["d"]), dtype=np.float32),
+            g.standard_normal((BATCH, shape["d"]), dtype=np.float32))
+
+
+def phase_serving_flat(card: str, shape, sift, worst: dict) -> dict:
+    """One MutableFlatIndex on the card through the serving sequence, each
+    search held to the exact top-k over its allowed live rows; QPS and the
+    scan's device time; save -> load and the snapshot handoff; then the
+    same sequence on a host index (64 queries) against the card."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch import serving
+    from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    name = f"serving_flat/{shape['name']}"
+    base, q = _flat_data(shape, sift)
+    metric = shape["metric"]
+    plan = _flat_plan(shape["n"], SEED + 12)
+    launched, stage, compacts = {}, ["add"], []
+    with capture_launch_inputs(launched, stage):
+        kernels.reset_launch_counts()
+        idx = serving.MutableFlatIndex(shape["d"], metric=metric)
+        _timed_compact(idx, compacts)
+        searches, row_of, secs = _flat_sequence(idx, base, shape["batches"], plan, q, stage)
+        launches = dict(kernels.LAUNCHES)
+        capacity = idx.capacity
+        k = SERVING_KS[-1]
+        # the device time of one batch: the filter's penalty, the scan
+        qd = torch.as_tensor(q, device=DEV)
+        scan_ms = time_ms(lambda: idx.device_search(qd, k), prime=True)
+        filtered_ms = time_ms(lambda: idx.device_search(qd, k, plan["allow"]), prime=True)
+        allow_dev = torch.as_tensor(plan["allow"], device=DEV)
+        pen_ms = time_ms(lambda: torch.isin(idx._slot_ids_device(), allow_dev), prime=True)
+        qps = {}
+        for label, fid in (("unfiltered", None), ("filtered_10pct", plan["allow"])):
+            elapsed, batches, passes = _qps(
+                lambda qq, kk, fid=fid: idx.device_search(qq, kk, fid), qd, BATCH, k,
+                capacity, f"{name}/{label}")
+            qps[label] = {"qps": batches * BATCH / elapsed, "ms_per_batch": elapsed / batches * 1e3,
+                          "batches_on_clock": batches * passes}
+        before = dict(kernels.LAUNCHES)
+        # save -> load on the card: the same ids
+        stage[0] = "persist"
+        path = os.path.join(OUT_DIR, "serving", shape["name"])
+        t = time.perf_counter()
+        idx.save(path)
+        loaded = serving.MutableFlatIndex.load(path)
+        load_s = time.perf_counter() - t
+        d0, i0 = idx.search(q, k)
+        d1, i1 = loaded.search(q, k)
+        del loaded
+        shutil.rmtree(path)
+        # the snapshot handoff (compacts first): ANNSearcher's exact search
+        stage[0] = "snapshot"
+        snap = ANNSearcher()
+        snap.attach(idx.to_artifact())
+        _, is_ = snap.batch_search(q, k)
+        for key, v in kernels.LAUNCHES.items():
+            launches[key] += v - before[key]
+    check_launched(launched, name, worst)
+    vec_of = lambda ids: base[row_of[ids]]  # noqa: E731
+    checks = _hold_to_exact(name, vec_of, q, searches, metric, HOST_MIN_AGREE)
+    persist_same = bool(np.array_equal(i0, i1) and np.array_equal(d0, d1))
+    snap_agree, _ = _multiset_agreement(*(_id_classes(vec_of, q, x, metric) for x in (i0, is_)), k)
+    snap_raw, _ = _multiset_agreement(i0, is_, k)
+
+    host = serving.MutableFlatIndex(shape["d"], metric=metric, device="cpu")
+    t = time.perf_counter()
+    host_searches, _, _ = _flat_sequence(host, base, shape["batches"], plan, q[:HOST_QUERIES])
+    host_s = time.perf_counter() - t
+    vs_host = {}
+    for label, (k_, _, (_, hi)) in host_searches.items():
+        ci = searches[label][2][1][:HOST_QUERIES]
+        agree, _ = _multiset_agreement(
+            *(_id_classes(vec_of, q[:HOST_QUERIES], x, metric) for x in (ci, hi)), k_)
+        vs_host[label] = agree
+    out = {
+        "phase": "serving_flat", "shape": [shape["n"], shape["d"]], "config": shape["name"],
+        "metric": metric, "card": card, "capacity_filled": secs["capacity_filled"],
+        "capacity_after_delete": secs["capacity_after_delete"], "capacity_timed": capacity,
+        "scan_filled": "dense" if secs["capacity_filled"] <= serving.FLAT_CHUNK_ROWS else "streamed",
+        "scan_timed": "dense" if capacity <= serving.FLAT_CHUNK_ROWS else "streamed",
+        "add_rows_per_s": shape["n"] / secs["add"], "readd_rows_per_s": SERVING_READD / secs["readd"],
+        "delete_ids_per_s": len(plan["dead"]) / secs["delete"], "delete_s": secs["delete"],
+        "compact_seconds": compacts, "checks": checks,
+        "save_load_ids_identical": persist_same, "save_load_s": load_s,
+        "snapshot_id_agreement": snap_agree, "snapshot_raw_id_agreement": snap_raw,
+        "qps": qps, "batch_device_ms": scan_ms, "filtered_batch_device_ms": filtered_ms,
+        "filter_penalty_ms": pen_ms,
+        "host_clock_over_device_batch": qps["unfiltered"]["ms_per_batch"] / scan_ms,
+        "card_vs_host": vs_host, "host_queries": HOST_QUERIES, "host_seconds": host_s,
+        "launches": launches,
+    }
+    emit(out)
+    ok = (persist_same and snap_agree == 1.0
+          and min(vs_host.values()) >= HOST_MIN_AGREE)
+    if not ok:
+        raise AssertionError(f"{name}: save/load {persist_same}, snapshot {snap_agree}, "
+                             f"host {vs_host}")
+    del idx, snap, host
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ivf_serving_stages(idx, qd, k):
+    """One unfiltered batch of a MutableIVFIndex cut into the stages of the
+    route it takes (fused: K1 f32; masked: the masked stream), each on the
+    inputs the search gives it; the staged result must equal the search."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import ivf
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    b = qd.shape[0]
+    route = idx.route(b)
+    eff = idx.probe_budget()
+    slot_ids, vecs, sqn = idx._slot_ids, idx._list_vecs, idx._list_sqn
+    n_bkt, L = slot_ids.shape
+    slack = ivf._BLOCKMIN_SLACK
+    k = min(k, n_bkt * L)
+    probes = ivf._coarse_probes(qd, idx._coarse, eff)
+    stages = {"coarse": lambda: ivf._coarse_probes(qd, idx._coarse, eff)}
+    if route == "fused":
+        w = ivf._use_fused(n_bkt, L)
+        pen = ivf._fused_pen(slot_ids, sqn, "l2").reshape(-1, w)
+        payload = vecs.reshape(n_bkt * L, -1)
+        stages["dist_blockmin"] = lambda: kernels.dist_blockmin(qd, payload, pen, w=w)
+        bm = stages["dist_blockmin"]()
+        stages["select"] = lambda: ivf._probed_blocks(bm, probes, n_bkt, L // w, k + slack)
+    elif route == "masked":
+        w = ivf._BLOCKMIN_W
+        score = ivf._flat_chunk_score(qd, torch.sum(qd * qd, dim=-1), "l2")
+        stages["masked_stream"] = lambda: ivf._masked_minima(probes, slot_ids, (vecs, sqn), score, w)
+        bm = stages["masked_stream"]()
+        blk_ids = torch.arange(bm.shape[1], device=DEV).expand(b, -1)
+        stages["select"] = lambda: ivf._smallest_blocks(bm, blk_ids, min(k + slack, bm.shape[1]))
+    else:
+        raise AssertionError(f"a batch of {b} took the probe scan")
+    sel_vals, blk = stages["select"]()
+    rescore = ivf._flat_block_rescore(qd, "l2")
+    stages["rescore"] = lambda: ivf._rescore_blocks(blk, sel_vals, slot_ids, (vecs,), rescore, k, w)
+    if not torch.equal(stages["rescore"]()[1], idx.device_search(qd, k)[1]):
+        raise AssertionError("serving IVF: the stage split differs from the search")
+    return route, w, stages
+
+
+def _ivf_sequence(idx, base, row_of, rest_batches, dead, plan, q, stage=None):
+    """The IVF serving sequence after the build: add the other half in
+    batches, delete, search (unfiltered and filtered). Returns the searches
+    and the seconds of each mutation."""
+    from vectordb_retrieval_tpu_torch.utils.device import synchronize
+
+    secs = {}
+    if stage is not None:
+        stage[0] = "add"
+    t = time.perf_counter()
+    for part in rest_batches:
+        idx.add(base[part])
+    synchronize(idx.device)
+    secs["add"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if idx.delete(dead) != len(dead):
+        raise AssertionError("serving IVF: delete missed live ids")
+    synchronize(idx.device)
+    secs["delete"] = time.perf_counter() - t
+    if stage is not None:
+        stage[0] = "search"
+    k = SERVING_KS[-1]
+    alive = np.setdiff1d(np.arange(len(row_of)), dead)
+    searches = {
+        "unfiltered": (k, alive, idx.search(q, k)),
+        "filter_10pct": (k, plan["allow"], idx.search(q, k, filter_ids=plan["allow"])),
+        "filter_1000": (k, plan["allow_small"], idx.search(q, k, filter_ids=plan["allow_small"])),
+    }
+    return searches, secs
+
+
+def phase_serving_ivf(card: str, sift, worst: dict) -> dict:
+    """MutableIVFIndex(nlist=1024, nprobe=32) on the SIFT surrogate: built
+    over a seeded random half, the other half added in 10 batches (bucket
+    growth), 20 % deleted, then unfiltered and filtered searches; recall@100
+    against exact search over the live rows (gated), filtered answers only
+    allowed live ids; save -> load and the snapshot handoff; the card
+    against a host replay from the save made right after the build."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch import serving
+    from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    name = "serving_ivf/sift1m_surrogate"
+    base, q = sift["train"], sift["rows"]["exact"]["queries"]
+    n = base.shape[0]
+    g = np.random.default_rng(SEED + 21)
+    perm = g.permutation(n)
+    init, rest = perm[: n // 2], perm[n // 2 :]
+    row_of = np.concatenate([init, rest])  # stable id -> row of base
+    rest_batches = np.array_split(rest, SERVING_IVF["add_batches"])
+    dead = g.choice(n, int(SERVING_IVF["delete"] * n), replace=False)
+    alive = np.setdiff1d(np.arange(n), dead)
+    plan = {"allow": np.sort(g.choice(alive, int(SERVING_FILTER * len(alive)), replace=False)),
+            "allow_small": np.sort(g.choice(alive, SERVING_FILTER_IDS, replace=False))}
+    built_path = os.path.join(OUT_DIR, "serving", "ivf_built")
+    launched, stage, compacts = {}, ["build"], []
+    with capture_launch_inputs(launched, stage):
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        idx = serving.MutableIVFIndex(base[init], nlist=SERVING_IVF["nlist"],
+                                      nprobe=SERVING_IVF["nprobe"])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        build_launches = dict(kernels.LAUNCHES)
+        _timed_compact(idx, compacts)
+        idx.save(built_path)
+        physical0, nb0 = int(idx._slot_ids.shape[0]), idx._nb
+        searches, secs = _ivf_sequence(idx, base, row_of, rest_batches, dead, plan, q, stage)
+        launches = dict(kernels.LAUNCHES)
+        physical1, nb1 = int(idx._slot_ids.shape[0]), idx._nb
+        k = SERVING_KS[-1]
+        qd = torch.as_tensor(q, device=DEV)
+        route, w, stages = _ivf_serving_stages(idx, qd, k)
+        stage_ms = {s: time_ms(fn, prime=True) for s, fn in stages.items()}
+        batch_ms = time_ms(lambda: idx.device_search(qd, k), prime=True)
+        filtered_ms = time_ms(lambda: idx.device_search(qd, k, filter_ids=plan["allow"]),
+                              prime=True)
+        allow_dev = torch.as_tensor(serving._pad_allow_list(plan["allow"]), device=DEV)
+        pen_ms = time_ms(lambda: serving._allow_penalty(idx._slot_ids, allow_dev), prime=True)
+        qps = {}
+        for label, fid in (("unfiltered", None), ("filtered_10pct", plan["allow"])):
+            elapsed, batches, passes = _qps(
+                lambda qq, kk, fid=fid: idx.device_search(qq, kk, filter_ids=fid), qd, BATCH, k,
+                idx._next_id, f"{name}/{label}")
+            qps[label] = {"qps": batches * BATCH / elapsed, "ms_per_batch": elapsed / batches * 1e3,
+                          "batches_on_clock": batches * passes}
+        before = dict(kernels.LAUNCHES)
+        stage[0] = "persist"
+        path = os.path.join(OUT_DIR, "serving", "ivf_saved")
+        idx.save(path)
+        loaded = serving.MutableIVFIndex.load(path)
+        d0, i0 = idx.search(q, k)
+        d1, i1 = loaded.search(q, k)
+        loaded_route = loaded.route(BATCH)
+        del loaded
+        shutil.rmtree(path)
+        # the snapshot handoff, both exact at full probe
+        stage[0] = "snapshot"
+        full_live = idx.search(q, k, nprobe=idx.nlist)
+        snap = ANNSearcher(nprobe=idx.nlist)
+        snap.attach(idx.to_artifact())
+        _, is_ = snap.batch_search(q, k)
+        snap32 = ANNSearcher(nprobe=SERVING_IVF["nprobe"])
+        snap32.attach(snap.artifact)
+        _, i32 = snap32.batch_search(q, k)
+        for key, v in kernels.LAUNCHES.items():
+            launches[key] += v - before[key]
+    check_launched(launched, name, worst)
+
+    vec_of = lambda ids: base[row_of[ids]]  # noqa: E731
+    exact_ids, _ = _exact_live(vec_of, alive, q, k, "l2")
+    recall = _recall(searches["unfiltered"][2][1], exact_ids, k)
+    recall_snap32 = _recall(i32, exact_ids, k)
+    filtered = {}
+    for label in ("filter_10pct", "filter_1000"):
+        _, allow, (_, ids) = searches[label]
+        want, _ = _exact_live(vec_of, allow, q, k, "l2")
+        filtered[label] = {"recall": _recall(ids, want, k),
+                           "ids_allowed_and_live": bool(np.isin(ids[ids >= 0], allow).all())}
+    cls = lambda ids: _id_classes(vec_of, q, ids, "l2")  # noqa: E731
+    persist_agree, _ = _multiset_agreement(cls(i0), cls(i1), k)
+    snap_agree, _ = _multiset_agreement(cls(full_live[1]), cls(is_), k)
+
+    host = serving.MutableIVFIndex.load(built_path, device="cpu")
+    t = time.perf_counter()
+    host_searches, _ = _ivf_sequence(host, base, row_of, rest_batches, dead, plan, q[:HOST_QUERIES])
+    host_s = time.perf_counter() - t
+    vs_host = {}
+    shutil.rmtree(built_path)
+    for label, (k_, _, (_, hi)) in host_searches.items():
+        ci = searches[label][2][1][:HOST_QUERIES]
+        vs_host[label] = _multiset_agreement(
+            *(_id_classes(vec_of, q[:HOST_QUERIES], x, "l2") for x in (ci, hi)), k_)[0]
+    out = {
+        "phase": "serving_ivf", "config": "sift1m_surrogate", "shape": [n, 128],
+        "nlist": SERVING_IVF["nlist"], "nprobe": SERVING_IVF["nprobe"], "card": card,
+        "build_s": build_s, "build_launches": build_launches,
+        "buckets_after_build": nb0, "physical_after_build": physical0,
+        "buckets_after_adds": nb1, "physical_after_adds": physical1,
+        "buckets_after_compact": idx._nb,
+        "bucket_len": idx._L, "probe_budget": idx.probe_budget(),
+        "add_rows_per_s": len(rest) / secs["add"], "delete_ids_per_s": len(dead) / secs["delete"],
+        "compact_seconds": compacts, "route": route, "loaded_route": loaded_route, "w": w,
+        f"recall@{k}": recall, "min_recall": SERVING_IVF_MIN_RECALL,
+        f"snapshot_np{SERVING_IVF['nprobe']}_recall@{k}": recall_snap32,
+        "filtered": filtered, "save_load_id_agreement": persist_agree,
+        "snapshot_full_probe_id_agreement": snap_agree,
+        "qps": qps, "stage_ms": stage_ms, "batch_device_ms": batch_ms,
+        "filtered_batch_device_ms": filtered_ms, "filter_penalty_ms": pen_ms,
+        "host_clock_over_device_batch": qps["unfiltered"]["ms_per_batch"] / batch_ms,
+        "card_vs_host": vs_host, "host_queries": HOST_QUERIES, "host_seconds": host_s,
+        "launches": launches,
+    }
+    emit(out)
+    ok = (recall >= SERVING_IVF_MIN_RECALL and nb1 > nb0
+          and all(f["ids_allowed_and_live"] for f in filtered.values())
+          and persist_agree == 1.0 and snap_agree == 1.0
+          and min(vs_host.values()) >= HOST_MIN_AGREE
+          and launches["assign"] >= 1 + SERVING_IVF["add_batches"])
+    if not ok:
+        raise AssertionError(f"{name}: recall {recall}, filtered {filtered}, save/load "
+                             f"{persist_agree}, snapshot {snap_agree}, host {vs_host}, "
+                             f"launches {launches}")
+    del idx, snap, snap32, host
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---- 5f. out of core --------------------------------------------------------
+
+BIGCORPUS_DIR = os.path.join(OUT_DIR, "bigcorpus")
+# validate_bigcorpus runs at its defaults (4M x 128, IVF1024,SQ8 np128, k 20)
+BIGCORPUS_ARGS = ["--data-dir", BIGCORPUS_DIR, "--keep"]
+# benchmark_results/round2_bigcorpus/validation_runs.jsonl line 2: the JAX
+# package's IVF1024,SQ8 np128 row at 4M x 128 (k 20, 256 queries); its
+# times are CPU times and no baseline
+BIGCORPUS_COMMITTED_RECALL = 0.5158
+BIGCORPUS_GT_CHECK = 64
+GRAPH_STREAM_MARGIN = 0.05  # tests/data/test_storage.py's resident-class bound
+SIFT_STORE = os.path.join(OUT_DIR, "sift_store", "sift_base.bin")
+
+
+# A process that starts the out-of-core check: made first thing in main(),
+# while this process is small. The card's machine carries a parent's
+# resident size into a child's peak RSS (ru_maxrss and VmHWM alike), so
+# the check's own process must descend from a small one.
+_LAUNCHER = (
+    "import json, subprocess, sys\n"
+    "line = sys.stdin.readline()\n"
+    "if line:\n"
+    "    p = subprocess.run(json.loads(line), capture_output=True, text=True, timeout=900)\n"
+    "    sys.stdout.write(json.dumps([p.returncode, p.stdout, p.stderr]))\n"
+)
+
+
+def _start_launcher():
+    return subprocess.Popen([sys.executable, "-c", _LAUNCHER], cwd=REPO, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True, start_new_session=True)
+
+
+def _stop_launcher(launcher) -> None:
+    """Stop the launcher and whatever it started (its own session)."""
+    if launcher.poll() is None:
+        import signal
+
+        os.killpg(launcher.pid, signal.SIGKILL)
+        launcher.wait()
+
+
+def phase_out_of_core(card: str, worst: dict, launcher) -> dict:
+    """``python -m vectordb_retrieval_tpu_torch.bench.validate_bigcorpus``
+    in a fresh process at its defaults (peak RSS is a process-lifetime
+    peak): 4M x 128 ``random`` with ``storage: memmap``, streamed ground
+    truth, the streamed IVF1024,SQ8 build, search. Then, in this process:
+    the chunked upload's GB/s, the streamed ground truth of 64 queries
+    against a resident exact search, and the same streamed build under the
+    launch capture (its K3 and K1 u8 launches held to their plain
+    versions)."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.bench import validate_bigcorpus
+    from vectordb_retrieval_tpu_torch.data import datasets
+    from vectordb_retrieval_tpu_torch.data.storage import corpus_to_device
+    from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm
+    from vectordb_retrieval_tpu_torch.ops import distances as dops
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    args = validate_bigcorpus.parse_args(BIGCORPUS_ARGS)
+    cmd = [sys.executable, "-m", "vectordb_retrieval_tpu_torch.bench.validate_bigcorpus"]
+    t = time.perf_counter()
+    sent, _ = launcher.communicate(json.dumps(cmd + BIGCORPUS_ARGS) + "\n", timeout=960)
+    sub_s = time.perf_counter() - t
+    rc, stdout, stderr = json.loads(sent)
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"validate_bigcorpus rc {rc}:\n{stdout}\n{stderr}")
+    res = json.loads(lines[-1])  # exit code 1: peak RSS over the corpus, gated below
+    res["returncode"] = rc
+    k = args.k
+    min_recall = BIGCORPUS_COMMITTED_RECALL - RECALL_MARGIN
+
+    ds = datasets.Dataset("random", data_dir=args.data_dir,
+                          options=validate_bigcorpus.dataset_options(args), device=args.device).load()
+    if not isinstance(ds.train_vectors, np.memmap):
+        raise AssertionError("the cached 4M corpus did not reload as a memmap")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    x = corpus_to_device(ds.train_vectors)
+    torch.cuda.synchronize()
+    put_s = time.perf_counter() - t
+    gbps = x.numel() * 4 / put_s / 1e9
+    rows = np.sort(np.random.default_rng(SEED).choice(x.shape[0], 64, replace=False))
+    upload_exact = bool(np.array_equal(x[torch.as_tensor(rows, device=DEV)].cpu().numpy(),
+                                       np.asarray(ds.train_vectors[rows])))
+    qs = ds.test_vectors[:BIGCORPUS_GT_CHECK]
+    _, ids = dops.exact_search(qs, x, k, refine=True)
+    ids = ids.cpu().numpy()
+    del x
+    torch.cuda.empty_cache()
+    gt = ds.ground_truth[:BIGCORPUS_GT_CHECK, :k]
+    mm = ds.train_vectors
+    want = np.sort(np.stack([_exact_distances(mm[np.sort(r)], qs[i : i + 1], "l2")[0]
+                             for i, r in enumerate(ids)]), 1)
+    got = np.sort(np.stack([_exact_distances(mm[np.sort(r)], qs[i : i + 1], "l2")[0]
+                            for i, r in enumerate(gt)]), 1)
+    gt_err = float((np.abs(got - want) / np.abs(want).max(1, keepdims=True)).max())
+    gt_ids_equal = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ids, gt)]))
+
+    launched, stage = {}, ["bigcorpus/build"]
+    with capture_launch_inputs(launched, stage):
+        kernels.reset_launch_counts()
+        algo = CompositeAlgorithm(
+            dimension=args.dim,
+            indexer={"type": "IVFIndexer", "index_type": f"IVF{args.nlist},{args.coding}"},
+            searcher={"type": "ANNSearcher", "nprobe": args.nprobe}, metric="l2")
+        t = time.perf_counter()
+        algo.build_index(ds.train_vectors)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        stage[0] = "bigcorpus/search"
+        _, got_ids = algo.batch_search(ds.test_vectors, k)
+        launches = dict(kernels.LAUNCHES)
+    check_launched(launched, "out_of_core", worst)
+    recall_here = _recall(got_ids, ds.ground_truth[:, :k], k)
+    meta = algo.artifact.metadata
+    out = {
+        "phase": "out_of_core", "card": card, "validate_bigcorpus": res,
+        "subprocess_seconds": sub_s, "min_recall": min_recall,
+        "chunked_device_put_gb_per_s": gbps, "chunked_device_put_s": put_s,
+        "upload_rows_exact": upload_exact,
+        "gt_check_queries": BIGCORPUS_GT_CHECK, "gt_vs_resident_max_rel_err": gt_err,
+        "gt_vs_resident_id_agreement": gt_ids_equal, "gt_tol": GT_REL_TOL,
+        "in_process_build_s": build_s, "in_process_build_seconds": dict(algo.indexer.build_seconds),
+        f"in_process_recall@{k}": recall_here, "route": _row_mode(algo),
+        "n_buckets": meta["n_buckets"], "bucket_len": meta["max_list_len"],
+        "launches": launches,
+    }
+    emit(out)
+    ok = (res["rss_growth_under_corpus"] and res["built_streaming"]
+          and res[f"recall@{k}"] >= min_recall
+          and upload_exact and gt_err <= GT_REL_TOL and meta.get("built_streaming")
+          and recall_here >= min_recall and launches["dist_blockmin_u8"] >= 1
+          and launches["assign"] >= 1)
+    if not ok:
+        raise AssertionError(f"out of core: {out}")
+    del algo
+    torch.cuda.empty_cache()
+    shutil.rmtree(args.data_dir, ignore_errors=True)
+    return launches
+
+
+def phase_graph_stream(card: str, sift, worst: dict) -> dict:
+    """The SIFT surrogate written into a BigStore in chunks, then the
+    streamed block-graph build of its hnsw row (M 16, efSearch 64, block
+    mode); recall@100 on the 256 surrogate queries against the in-memory
+    row's less 0.05."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.data.storage import BigStore
+    from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    row = sift["rows"]["hnsw"]
+    indexer, nprobe = IVF_CONFIGS[0]["rows"]["hnsw"]
+    base = sift["train"]
+    t = time.perf_counter()
+    with BigStore.create(SIFT_STORE, base.shape[1]) as w:
+        for s in range(0, base.shape[0], 262_144):
+            w.append(base[s : s + 262_144])
+    write_s = time.perf_counter() - t
+    store = BigStore.open(SIFT_STORE)
+    launched, stage = {}, ["graph_stream/build"]
+    with capture_launch_inputs(launched, stage):
+        kernels.reset_launch_counts()
+        algo = CompositeAlgorithm(dimension=base.shape[1], indexer=dict(indexer),
+                                  searcher={"type": "ANNSearcher", "nprobe": nprobe}, metric="l2")
+        t = time.perf_counter()
+        algo.build_index(store)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        stage[0] = "graph_stream/search"
+        _, ids = algo.batch_search(row["queries"], row["k"])
+        launches = dict(kernels.LAUNCHES)
+    check_launched(launched, "graph_stream", worst)
+    recall = _recall(ids, row["gt"], row["k"])
+    meta = algo.artifact.metadata
+    out = {
+        "phase": "graph_stream", "config": "sift1m_surrogate", "card": card,
+        "store_write_s": write_s, "build_s": build_s, "mode": meta["mode"],
+        "built_streaming": meta.get("built_streaming"), "selfcheck_recall": meta["selfcheck_recall"],
+        "n_blocks": meta["n_blocks"], "block_len": meta["block_len"],
+        "n_entries": meta["n_entries"], f"recall@{row['k']}": recall,
+        "resident_recall": row["recall"], "margin": GRAPH_STREAM_MARGIN,
+        "index_memory_mb": algo.artifact.device_nbytes() / 2**20, "launches": launches,
+    }
+    emit(out)
+    ok = (meta.get("built_streaming") and meta["mode"] == "block"
+          and recall >= row["recall"] - GRAPH_STREAM_MARGIN
+          and launches["slab_dots"] >= 1 and launches["assign"] >= 1)
+    if not ok:
+        raise AssertionError(f"graph stream: {out}")
+    del algo
+    torch.cuda.empty_cache()
+    os.remove(SIFT_STORE)
+    return launches
+
+
 def main() -> int:
+    launcher = _start_launcher()
+    try:
+        return _main(launcher)
+    finally:
+        _stop_launcher(launcher)
+
+
+def _main(launcher) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2825,6 +3559,12 @@ def main() -> int:
     phase_persistence_round_trip(card, SURROGATE_CONFIG, "hnsw")
     phase_persistence_round_trip(card, SURROGATE_CONFIG, "ivf_pq")
     phase_persistence_round_trip(card, COVERTREE_CONFIGS[0], "covertree_v2_2")
+    sift_path = paths[0]
+    for run in [phase_serving_flat(card, shape, sift_path, worst) for shape in SERVING_FLAT_SHAPES]:
+        add(run, False)
+    add(phase_serving_ivf(card, sift_path, worst), False)
+    add(phase_out_of_core(card, worst, launcher), False)
+    add(phase_graph_stream(card, sift_path, worst), False)
     flagship = phase_throughput(card, 100_000, 384, 96)
     phase_throughput(card, 1_000_000, 128, 96)
     sift = paths[0]["rows"]

@@ -328,11 +328,19 @@ def test_msmarco_npy_loader_matches_jax(limits, msmarco_dir):
 
 
 def test_msmarco_memmap_default_waits_for_item_9b(msmarco_dir):
-    ds = tdata.Dataset("msmarco", str(msmarco_dir / "data"),
-                       {"embedded_dataset_dir": str(msmarco_dir), "use_cache": False},
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9b"):
-        ds.load()
+    """The default ``use_memmap_cache: true`` loads (ROADMAP item 9b, once
+    a stub that raised): the corpus stays an ``np.memmap`` and its streamed
+    ground truth equals the JAX package's."""
+    opts = {"embedded_dataset_dir": str(msmarco_dir), "ground_truth_k": 10}
+    jds, tds = _both("msmarco", msmarco_dir / "data", opts)
+    assert isinstance(tds.train_vectors, np.memmap)
+    assert isinstance(jds.train_vectors, np.memmap)
+    assert tds.metric == "cosine"
+    assert np.asarray(tds.train_vectors).tobytes() == np.asarray(jds.train_vectors).tobytes()
+    np.testing.assert_array_equal(tds.ground_truth, jds.ground_truth)
+    dense = tdata.Dataset("msmarco", str(msmarco_dir / "data"),
+                          dict(opts, use_memmap_cache=False, use_cache=False), device="cpu").load()
+    np.testing.assert_array_equal(tds.ground_truth, dense.ground_truth)
 
 
 def test_msmarco_requires_a_source(tmp_path):

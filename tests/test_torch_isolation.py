@@ -187,6 +187,26 @@ def _entry_point(name, tmp_path):
 
         Dataset("glove50_surrogate", str(tmp_path),
                 {"train_limit": 32, "test_size": 2, "ground_truth_k": 1}).load()
+    elif name == "MutableFlatIndex":
+        from vectordb_retrieval_tpu_torch.serving import MutableFlatIndex
+
+        MutableFlatIndex(4)
+    elif name == "MutableIVFIndex":
+        from vectordb_retrieval_tpu_torch.serving import MutableIVFIndex
+
+        MutableIVFIndex(x, nlist=2)
+    elif name == "corpus_to_device":
+        from vectordb_retrieval_tpu_torch.data.storage import corpus_to_device
+
+        corpus_to_device(x)
+    elif name == "streamed_exact_search":
+        from vectordb_retrieval_tpu_torch.data.storage import streamed_exact_search
+
+        streamed_exact_search(q, x, 1)
+    elif name == "validate_bigcorpus":
+        from vectordb_retrieval_tpu_torch.bench import validate_bigcorpus
+
+        validate_bigcorpus.main(["--rows", "64", "--data-dir", str(tmp_path / "bc")])
     elif name == "BenchmarkRunner":
         from vectordb_retrieval_tpu_torch.bench.runner import BenchmarkRunner
 
@@ -202,7 +222,8 @@ def _entry_point(name, tmp_path):
      "FactoryIndexer", "ANNSearcher", "ApproximateSearch", "load_artifact",
      "GraphIndexer", "HNSW", "CoverTree", "msmarco_surrogate", "manifold",
      "FactoryIndexer_pq", "LSHIndexer", "LSHSearcher", "BinaryLSHIndexer", "LSH",
-     "glove50_surrogate"],
+     "glove50_surrogate", "MutableFlatIndex", "MutableIVFIndex", "corpus_to_device",
+     "streamed_exact_search", "validate_bigcorpus"],
 )
 def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
     if torch.cuda.is_available():

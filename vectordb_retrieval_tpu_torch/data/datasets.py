@@ -11,9 +11,11 @@ catalog is ported:
     ``msmarco`` (pre-embedded .npy directory, or TSV text through
     ``data/tfidf.py``). A missing file is downloaded where the host has
     egress, else ``FileNotFoundError``.
-Out-of-core corpora (``storage: memmap`` staging, and ground truth over a
-``np.memmap`` such as ``msmarco``'s default ``use_memmap_cache: true``)
-come with ROADMAP queue 1 item 9b.
+Out-of-core corpora stay off the host's heap: ``storage: memmap`` draws the
+``random`` corpus chunk by chunk straight into a ``BigStore``
+(``data/storage.py``) and reloads it as a read-only ``np.memmap``, and the
+ground truth of a memmap or ``BigStore`` corpus (``msmarco``'s default
+``use_memmap_cache: true`` included) is ``streamed_exact_search``.
 """
 
 from __future__ import annotations
@@ -25,15 +27,18 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from vectordb_retrieval_tpu_torch.data.storage import corpus_to_device, is_out_of_core
+from vectordb_retrieval_tpu_torch.data.storage import (
+    BigStore,
+    corpus_to_device,
+    is_out_of_core,
+    streamed_exact_search,
+)
 from vectordb_retrieval_tpu_torch.utils.device import DeviceLike, resolve_device
 from vectordb_retrieval_tpu_torch.utils.hashing import stable_hash
 
 CACHE_KEY_VERSION = 3
 # The port's own tag: its cache files never mix with the JAX package's.
 GROUND_TRUTH_METHOD = "torch_exact_v1"
-
-_OUT_OF_CORE = "is ported with the out-of-core data layer, ROADMAP queue 1 item 9b"
 
 
 def compute_ground_truth(
@@ -48,13 +53,20 @@ def compute_ground_truth(
 
     Runs ``exact_search(refine=True)``: cancellation-free rescoring makes
     the ranking exact to f32 rounding. Cosine normalises both sides and
-    scores as ip.
+    scores as ip. ``train`` may be a tensor, an ndarray, an ``np.memmap``
+    or a ``BigStore``; out-of-core sources run the fully streaming scan
+    (O(chunk) host and device memory, the same rescore).
     """
     from vectordb_retrieval_tpu_torch.ops import distances as dops
 
-    if is_out_of_core(train):
-        raise NotImplementedError(f"ground truth over out-of-core corpora {_OUT_OF_CORE}")
     dev = resolve_device(device)
+    if is_out_of_core(train):
+        norm = metric == "cosine" or normalize
+        _, ids = streamed_exact_search(
+            queries, train, min(k, train.shape[0]),
+            metric="ip" if norm else metric, normalize=norm, device=dev,
+        )
+        return ids.astype(np.int64)
     x = corpus_to_device(train, device=dev)
     q = torch.as_tensor(np.ascontiguousarray(queries, dtype=np.float32), device=dev)
     if metric == "cosine" or normalize:
@@ -209,13 +221,30 @@ class Dataset:
             self.data_dir, "cache", f"{self.name}_{self._cache_key()}.npz"
         )
 
+    def _store_path(self) -> str:
+        return os.path.join(
+            self.data_dir, "cache", f"{self.name}_{self._cache_key()}_train.bin"
+        )
+
+    @property
+    def _memmap_mode(self) -> bool:
+        """True when the train corpus lives in an out-of-core BigStore
+        (the ``storage: memmap`` option: the >RAM staging path)."""
+        return self.options.get("storage") == "memmap"
+
     def _load_cache(self) -> bool:
         path = self._cache_path()
         if not os.path.exists(path):
             return False
         try:
             with np.load(path, allow_pickle=False) as z:
-                self.train_vectors = z["train"]
+                if "train" in z.files:
+                    self.train_vectors = z["train"]
+                elif BigStore.exists(self._store_path()):
+                    # out-of-core train corpus: a lazy read-only memmap view
+                    self.train_vectors = BigStore.open(self._store_path()).as_memmap()
+                else:
+                    return False
                 self.test_vectors = z["test"]
                 self.ground_truth = z["gt"]
             meta_path = path + ".json"
@@ -231,10 +260,13 @@ class Dataset:
         path = self._cache_path()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = path + ".tmp.npz"
-        np.savez(
-            tmp, train=self.train_vectors, test=self.test_vectors,
-            gt=self.ground_truth,
-        )
+        payload = {"test": self.test_vectors, "gt": self.ground_truth}
+        if not isinstance(self.train_vectors, np.memmap):
+            # a memmap corpus already lives on disk (the BigStore beside the
+            # npz, or the loader's own file): copying it into the npz would
+            # defeat the RSS bound
+            payload["train"] = self.train_vectors
+        np.savez(tmp, **payload)
         os.replace(tmp, path)
         with open(path + ".json", "w") as f:
             json.dump(self.metadata, f, indent=2)
@@ -268,15 +300,27 @@ class Dataset:
         return int(self.options.get("ground_truth_k", 100))
 
     def _load_random(self) -> None:
-        """Seeded gaussian synthesis (the same draws as the JAX package)."""
-        if self.options.get("storage") == "memmap":
-            raise NotImplementedError(f"'storage: memmap' {_OUT_OF_CORE}")
+        """Seeded gaussian synthesis (the same draws as the JAX package).
+
+        With ``storage: memmap`` the train corpus is drawn ``chunk_rows``
+        rows at a time straight into an on-disk BigStore (never whole on
+        the host) and exposed as a read-only memmap: the same draws in the
+        same order, so both packages write byte-identical stores."""
         dim = int(self.options.get("dimensions", 128))
         n_train = int(self.options.get("train_size", 10000))
         n_test = int(self.options.get("test_size", 1000))
         seed = int(self.options.get("seed", 42))
         rng = np.random.default_rng(seed)
-        self.train_vectors = rng.standard_normal((n_train, dim), dtype=np.float32)
+        if self._memmap_mode:
+            chunk = int(self.options.get("chunk_rows", 1 << 18))
+            with BigStore.create(self._store_path(), dim) as store:
+                for start in range(0, n_train, chunk):
+                    rows = min(chunk, n_train - start)
+                    store.append(rng.standard_normal((rows, dim), dtype=np.float32))
+            self.train_vectors = BigStore.open(self._store_path()).as_memmap()
+            self.metadata["train_store"] = self._store_path()
+        else:
+            self.train_vectors = rng.standard_normal((n_train, dim), dtype=np.float32)
         self.test_vectors = rng.standard_normal((n_test, dim), dtype=np.float32)
         self.ground_truth = compute_ground_truth(
             self.train_vectors, self.test_vectors, self._gt_k(), self.metric,
@@ -720,9 +764,9 @@ class Dataset:
         + ``query_embeddings.npy`` with ``base_limit``/``query_limit``
         prefix slicing and device ground truth; ``use_tfidf`` takes the TSV
         text path instead. With the default ``use_memmap_cache: true`` the
-        corpus stays a read-only ``np.memmap``, whose ground truth is
-        out-of-core (ROADMAP queue 1 item 9b); ``use_memmap_cache: false``
-        reads it into memory."""
+        corpus stays a read-only ``np.memmap`` and its ground truth streams
+        (``streamed_exact_search``); ``use_memmap_cache: false`` reads it
+        into memory."""
         if self.options.get("use_tfidf"):
             self._load_msmarco_tfidf()
             return

@@ -4,9 +4,12 @@ Counterpart of ``vectordb_retrieval_tpu/models/factory.py``:
 ``IVF{n},Flat`` (bf16 or f32 lists, optional exact rescore),
 ``IVF{n},PQ{m}`` (residual PQ, optional per-list rotations:
 ``pq_rotations`` = a block size or ``'auto'``), ``IVF{n},SQ8``, bare
-``PQ{m}`` and ``SQ8``, each optionally behind an ``OPQ{m},`` rotation. The
-streaming build of out-of-core corpora and the row-sharded artifact kinds
-raise ``NotImplementedError`` naming their ROADMAP item.
+``PQ{m}`` and ``SQ8``, each optionally behind an ``OPQ{m},`` rotation.
+Out-of-core corpora (``np.memmap``, ``BigStore``) upload in chunks, and
+``IVF{n},PQ{m}`` / ``IVF{n},SQ8`` without OPQ build fully streaming
+(:meth:`FactoryIndexer._build_ivf_stream`: neither host nor device ever
+holds the raw corpus). The row-sharded artifact kinds raise
+``NotImplementedError`` naming their ROADMAP item.
 
 ``ANNSearcher`` dispatches on artifact kind with runtime params (``nprobe``
 from searcher params or artifact metadata; ``efSearch`` for ``graph``
@@ -27,7 +30,12 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from vectordb_retrieval_tpu_torch.data.storage import corpus_to_device, is_out_of_core
+from vectordb_retrieval_tpu_torch.data.storage import (
+    _read_chunk,
+    corpus_to_device,
+    is_out_of_core,
+    iter_device_chunks,
+)
 from vectordb_retrieval_tpu_torch.models import graph as graph_models
 from vectordb_retrieval_tpu_torch.models import lsh as lsh_models
 from vectordb_retrieval_tpu_torch.models.base import (
@@ -198,13 +206,16 @@ class FactoryIndexer(BaseIndexer):
 
     def build(self, vectors: np.ndarray, dimension: int) -> IndexArtifact:
         spec = parse_index_key(self.index_key)
-        if is_out_of_core(vectors) and spec["nlist"] is not None:
-            raise NotImplementedError(
-                "the streaming IVF build of out-of-core corpora is ported with "
-                "the out-of-core data layer, ROADMAP queue 1 item 9b"
-            )
         self.build_seconds = {}
         self._t = time.perf_counter()
+        if (
+            is_out_of_core(vectors)
+            and spec["nlist"] is not None
+            and spec["coding"] in ("pq", "sq8")
+            and not spec["opq"]
+        ):
+            return self._build_ivf_stream(vectors, spec)
+        # memmap / BigStore corpora upload in bounded chunks
         x = corpus_to_device(vectors, device=self.device)
         if self.metric == "cosine":
             x = dops.normalize(x)
@@ -265,6 +276,118 @@ class FactoryIndexer(BaseIndexer):
         data = {"codes": codes, "vmin": vmin, "step": step, "code_sqnorms": sqn}
         self._lap("encode")
         return IndexArtifact("sq8", data, meta)
+
+    # -- out-of-core IVF (streamed build, compressed payload) ------------
+    def _build_ivf_stream(
+        self, store, spec: Dict[str, Any], chunk_rows: int = 262_144
+    ) -> IndexArtifact:
+        """IVF-PQ / IVF-SQ8 build over an out-of-core corpus.
+
+        The quantizers (coarse k-means; PQ codebooks or SQ ranges) train on
+        an evenly spaced sample of 4,096-row blocks, ``max(32 nlist,
+        65,536)`` rows; then the corpus streams through the device one
+        chunk at a time for assignment (K3) and encoding, and only the
+        codes (4-32x smaller than the rows), their squared norms and the
+        assignment are kept, on the device. Peak host memory is O(chunk),
+        device memory O(chunk + codes). The bucket layout is the JAX
+        package's (``build_bucketed_lists`` at its defaults).
+        """
+        n, d = (int(s) for s in store.shape)
+        dev = self.device
+        nlist = min(spec["nlist"], n)
+        meta: Dict[str, Any] = {
+            "metric": self.metric,
+            "dimension": d,
+            "n_vectors": n,
+            "normalize_queries": self.metric == "cosine",
+            "index_key": self.index_key,
+            "nprobe": self.nprobe,
+            "built_streaming": True,
+        }
+
+        def prep(rows: torch.Tensor) -> torch.Tensor:
+            return dops.normalize(rows) if self.metric == "cosine" else rows
+
+        target = min(n, max(nlist * 32, 65_536))
+        block = 4096
+        stride = max(1, n // max(1, -(-target // block)))
+        sample = prep(torch.as_tensor(np.concatenate(
+            [_read_chunk(store, s, min(s + block, n)) for s in range(0, n, stride)]
+        )[:target], device=dev))
+        self._lap("sample")
+        centroids, _ = kmeans_fit(sample, nlist, seed=self.seed, iters=self.train_iters)
+        self._lap("coarse_kmeans")
+        rots = None
+        if spec["coding"] == "pq":
+            m = spec["m"]
+            meta["m"] = m
+            s_assign = kmeans_assign(sample, centroids)
+            rots, codebooks = self._residual_coding(
+                sample - centroids[s_assign], s_assign, nlist, m, meta, seed=self.seed + 1,
+            )
+            code_w = m
+        else:
+            vmin, step = sqops.sq_train(sample)
+            code_w = d
+            self._lap("sq_train")
+        del sample
+
+        codes = torch.empty((n, code_w), dtype=torch.uint8, device=dev)
+        sqn = torch.empty((n,), dtype=torch.float32, device=dev)
+        assign = torch.empty((n,), dtype=torch.int64, device=dev)
+        for start, rows in iter_device_chunks(store, chunk_rows, dev):
+            stop = start + rows.shape[0]
+            rows = prep(rows)
+            a = kmeans_assign(rows, centroids)
+            if spec["coding"] == "pq":
+                residuals = rows - centroids[a]
+                if rots is not None:
+                    c = pqops.pq_encode_rotated(residuals, a, rots, codebooks)
+                else:
+                    c = pqops.pq_encode(residuals, codebooks)
+                sn = pqops.pq_code_sqnorms(c, codebooks)
+            else:
+                c = sqops.sq_encode(rows, vmin, step)
+                sn = dops.sq_norms(sqops.sq_decode(c, vmin, step))
+            codes[start:stop], sqn[start:stop], assign[start:stop] = c, sn, a
+            del rows
+        self._lap("encode")
+
+        slot_ids_np, bucket_lists_np, pad_ratio = ivfops.build_bucketed_lists(
+            assign.cpu().numpy(), nlist
+        )
+        del assign
+        meta.update(
+            {
+                "nlist": int(nlist),
+                "n_buckets": int(slot_ids_np.shape[0]),
+                "pad_ratio": pad_ratio,
+                "max_list_len": int(slot_ids_np.shape[1]),
+                "probe_cum": [
+                    int(v) for v in ivfops.probe_budget_cum(bucket_lists_np, nlist)
+                ],
+            }
+        )
+        data: Dict[str, Any] = {
+            "centroids": ivfops.coarse_table(centroids, bucket_lists_np),
+            "list_centroids": centroids,  # scatter-free exact-probe table
+            "bucket_lists": torch.as_tensor(bucket_lists_np, device=dev),
+            "slot_ids": torch.as_tensor(slot_ids_np, device=dev),
+            "list_codes": _gather_slots(codes, slot_ids_np),
+            "list_sqnorms": _gather_slots(sqn, slot_ids_np),
+        }
+        del codes, sqn
+        if spec["coding"] == "pq":
+            data["codebooks"] = codebooks
+            if rots is not None:
+                data["list_rotations"] = rots
+            kind = "ivf_pq"
+        else:
+            data["vmin"] = vmin
+            data["step"] = step
+            kind = "ivf_sq8"
+        self._lap("layout")
+        return IndexArtifact(kind, data, meta)
 
     # -- IVF variants ----------------------------------------------------
     def _build_ivf(

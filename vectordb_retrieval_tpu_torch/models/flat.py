@@ -28,7 +28,9 @@ class BruteForceIndexer(BaseIndexer):
     """Stores raw float32 vectors as a device-resident ``flat`` artifact.
 
     For ``cosine`` the database is L2-normalised once at build time and the
-    artifact instructs searchers to normalise queries.
+    artifact instructs searchers to normalise queries. Memmap and BigStore
+    corpora upload in chunks (``data/storage.corpus_to_device``), so host
+    RSS stays O(chunk).
     """
 
     def build(self, vectors: np.ndarray, dimension: int) -> IndexArtifact:

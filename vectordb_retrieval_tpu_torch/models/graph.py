@@ -15,8 +15,10 @@ artifact kind ``graph``:
     it above ``_BLOCK_AUTO_THRESHOLD`` rows and keeps it when a 256-row
     self-check scores recall@10 >= 0.85, else builds node mode.
 
-``ANNSearcher`` serves the artifact with a runtime ``efSearch``. The
-streaming build of out-of-core corpora is not ported yet (it raises).
+``ANNSearcher`` serves the artifact with a runtime ``efSearch``.
+Out-of-core corpora (``np.memmap``, ``BigStore``) always build block mode,
+streamed in sequential chunk passes (``ops/graph.build_block_graph_stream``),
+with a self-check against a streamed exact search.
 """
 
 from __future__ import annotations
@@ -27,7 +29,12 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 
-from vectordb_retrieval_tpu_torch.data.storage import corpus_to_device
+from vectordb_retrieval_tpu_torch.data.storage import (
+    _read_chunk,
+    corpus_to_device,
+    is_out_of_core,
+    streamed_exact_search,
+)
 from vectordb_retrieval_tpu_torch.models.base import (
     BaseIndexer,
     IndexArtifact,
@@ -115,6 +122,21 @@ class GraphIndexer(BaseIndexer):
         )
         return self._package_block(parts, dimension, n)
 
+    def _build_block_stream(self, store, dimension: int) -> IndexArtifact:
+        """Out-of-core block build: the memmap / BigStore corpus streamed in
+        sequential passes; host RSS O(chunk), device memory the layout
+        plus one chunk."""
+        n = int(store.shape[0])
+        n_blocks, degree = self._block_geom(n, dimension)
+        parts = gops.build_block_graph_stream(
+            store, n_blocks, degree, seed=self.seed,
+            normalize=self.metric == "cosine", spill=self.spill,
+            slab_dtype=self.slab_dtype, device=self.device,
+        )
+        art = self._package_block(parts, dimension, n)
+        art.metadata["built_streaming"] = True
+        return art
+
     def _package_block(self, parts, dimension: int, n: int) -> IndexArtifact:
         entries, entry_block, slot_ids, list_vecs, list_sqn, adj, mu = parts
         data = {
@@ -162,8 +184,32 @@ class GraphIndexer(BaseIndexer):
         _, got = graph_artifact_search(artifact, sample, 10, metric, self.efSearch)
         return float(recall_at_k(gt.cpu().numpy(), got.cpu().numpy(), 10))
 
+    def _selfcheck_stream(self, artifact: IndexArtifact, store) -> float:
+        """:meth:`_block_selfcheck` of an out-of-core corpus: 256 evenly
+        spaced rows read from the store, their ground truth by a streamed
+        exact search (O(chunk) memory)."""
+        from vectordb_retrieval_tpu_torch.bench.metrics import recall_at_k
+
+        n = int(store.shape[0])
+        idx = np.linspace(0, n - 1, num=min(256, n), dtype=np.int64)
+        sample = np.concatenate([_read_chunk(store, int(i), int(i) + 1) for i in idx])
+        metric = "ip" if self.metric in ("ip", "cosine") else "l2"
+        norm = self.metric == "cosine"
+        if norm:
+            sample /= np.maximum(np.linalg.norm(sample, axis=1, keepdims=True), 1e-12)
+        _, gt = streamed_exact_search(
+            sample, store, 10, metric=metric, normalize=norm, device=self.device)
+        _, got = graph_artifact_search(
+            artifact, torch.as_tensor(sample, device=self.device), 10, metric, self.efSearch)
+        return float(recall_at_k(gt, got.cpu().numpy(), 10))
+
     def build(self, vectors: np.ndarray, dimension: int) -> IndexArtifact:
-        # out-of-core corpora (the streaming block build) raise here
+        if is_out_of_core(vectors):
+            # larger-than-RAM corpora: the streamed block build (node mode
+            # would need the corpus resident for its kNN graph and table)
+            art = self._build_block_stream(vectors, dimension)
+            art.metadata["selfcheck_recall"] = round(self._selfcheck_stream(art, vectors), 4)
+            return art
         x = corpus_to_device(vectors, device=self.device)
         if self.metric == "cosine":
             x = dops.normalize(x)

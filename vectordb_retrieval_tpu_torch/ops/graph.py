@@ -27,7 +27,9 @@ are visited or already in the frontier).
 
 Determinism: the block layout's router entries are segment means summed by
 a one-hot batched product (no atomics), so two builds from the same inputs
-give the same entries. The out-of-core streaming build is not ported yet.
+give the same entries. :func:`build_block_graph_stream` builds the same
+layout from an out-of-core corpus (``np.memmap``, ``BigStore``) in
+sequential chunk passes.
 """
 
 from __future__ import annotations
@@ -40,13 +42,13 @@ import torch.nn.functional as F
 
 from vectordb_retrieval_tpu_torch.ops import distances as dops
 from vectordb_retrieval_tpu_torch.ops import kernels
+from vectordb_retrieval_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # 1024 keeps the kNN-graph build's per-batch candidate rescore within a
 # sane transient footprint
 _BUILD_BATCH = 1024
 _IVF_BUILD_THRESHOLD = 300_000
 _INF = float("inf")
-_STREAM_ITEM = "ROADMAP queue 1 item 9b (data layer: out-of-core corpora)"
 
 
 def _tril(n: int, device: torch.device) -> torch.Tensor:
@@ -336,6 +338,67 @@ def build_block_graph(
     return _block_layout(vectors, centroids, degree, spill, slab_dtype)
 
 
+def _spilled(a1: np.ndarray, a2: np.ndarray, margin: np.ndarray, spill: float):
+    """SOAR-style spilled assignment: the ``spill * N`` rows of smallest
+    runner-up margin are cloned into their runner-up cluster. Boundary
+    rows are the ones whose true neighbours live across the partition
+    cut. Returns ``(row_of [n_ext], assign_ext [n_ext], clones)``: the
+    first N entries are the rows themselves, then the clones."""
+    n = a1.shape[0]
+    n_spill = int(spill * n)
+    sel = np.argpartition(margin, max(n_spill - 1, 0))[:n_spill].astype(np.int64)
+    row_of = np.concatenate([np.arange(n, dtype=np.int64), sel])
+    return row_of, np.concatenate([a1, a2[sel]]), sel
+
+
+def _chop(row_of: np.ndarray, assign_ext: np.ndarray, n: int, n_blocks: int):
+    """The block layout of the (possibly spilled) assignment: entries
+    stably sorted by cluster and chopped into exact blocks of
+    ``ceil(N / n_blocks)`` rows (from the PRE-spill count, so the slab
+    shape does not depend on the spill knob; only the last block carries
+    pad slots, -1). Segments are the maximal runs of one cluster inside
+    one block. Returns ``(order, slot_np [Nb, L], seg_ids [n_ext],
+    entry_block [Ne])``."""
+    n_ext = row_of.shape[0]
+    block_len = max(1, -(-n // n_blocks))
+    n_blocks = -(-n_ext // block_len)
+    order = np.argsort(assign_ext, kind="stable").astype(np.int64)
+    pad = n_blocks * block_len - n_ext
+    slot_np = np.concatenate(
+        [row_of[order].astype(np.int32), np.full(pad, -1, np.int32)]
+    ).reshape(n_blocks, block_len)
+    sorted_assign = assign_ext[order]
+    block_of = np.arange(n_ext) // block_len
+    boundary = np.ones(n_ext, dtype=bool)
+    boundary[1:] = (sorted_assign[1:] != sorted_assign[:-1]) | (
+        block_of[1:] != block_of[:-1]
+    )
+    return order, slot_np, np.cumsum(boundary) - 1, block_of[boundary]
+
+
+def _finish_layout(list_vecs, slot_np, seg_ids, entry_block_np, degree, slab_dtype):
+    """Router entries (segment means), their exact RNG graph and the slab
+    encoding of the sorted corpus ``list_vecs [Nb, L, d]`` (pad rows 0):
+    the 7-tuple of :func:`build_block_graph`."""
+    dev = list_vecs.device
+    n_entries = int(seg_ids[-1]) + 1 if seg_ids.shape[0] else 1
+    entries = _segment_means(list_vecs, seg_ids, entry_block_np, n_entries)
+    # entry-level RNG graph: an exact build at Ne ~ 1.5 N / L rows
+    adj = build_knn_graph(entries, min(degree, entries.shape[0] - 1), method="exact")
+    slot_ids = torch.as_tensor(slot_np, device=dev)
+    list_vecs, list_sqn, list_mu = _encode_slabs(
+        list_vecs, (slot_ids >= 0)[:, :, None], slab_dtype)
+    return (
+        entries,
+        torch.as_tensor(entry_block_np.astype(np.int32), device=dev),
+        slot_ids,
+        list_vecs,
+        list_sqn,
+        adj,
+        list_mu,
+    )
+
+
 def _block_layout(
     vectors: torch.Tensor,
     centroids: torch.Tensor,
@@ -355,60 +418,21 @@ def _block_layout(
     """
     from vectordb_retrieval_tpu_torch.ops.kmeans import kmeans_assign, kmeans_assign2
 
-    n, d = vectors.shape
-    dev = vectors.device
+    n = vectors.shape[0]
     n_blocks = centroids.shape[0]
     # the chunk bounds the [chunk, n_blocks] distance transient at ~512 MB
     chunk = max(256, min(16_384, (512 << 20) // max(n_blocks * 4, 1)))
     if spill > 0.0 and n_blocks >= 2:
         a1, a2, margin = kmeans_assign2(vectors, centroids, chunk=chunk)
-        assign = a1.cpu().numpy()
-        # SOAR-style spilled assignment: boundary rows are the ones whose
-        # true neighbours live across the partition cut
-        margin_np = margin.cpu().numpy()
-        n_spill = int(spill * n)
-        sel = np.argpartition(margin_np, n_spill - 1)[:n_spill]
-        row_of = np.concatenate([np.arange(n, dtype=np.int64), sel.astype(np.int64)])
-        assign = np.concatenate([assign, a2.cpu().numpy()[sel]])
+        row_of, assign, _ = _spilled(
+            a1.cpu().numpy(), a2.cpu().numpy(), margin.cpu().numpy(), spill)
     else:
         assign = kmeans_assign(vectors, centroids, chunk=chunk).cpu().numpy()
         row_of = np.arange(n, dtype=np.int64)
-    n_ext = row_of.shape[0]
-    # block_len from the PRE-spill count, so the slab shape does not depend
-    # on the spill knob; spilled clones only add blocks
-    block_len = max(1, -(-n // n_blocks))
-    n_blocks = -(-n_ext // block_len)
-    order = np.argsort(assign, kind="stable").astype(np.int64)
-    pad = n_blocks * block_len - n_ext
-    slot_np = np.concatenate(
-        [row_of[order].astype(np.int32), np.full(pad, -1, np.int32)]
-    ).reshape(n_blocks, block_len)
-    slot_ids = torch.as_tensor(slot_np, device=dev)
-    mask = (slot_ids >= 0)[:, :, None]
-    list_vecs = vectors[slot_ids.clamp(min=0).long()] * mask  # [Nb, L, d] f32
-    # segments: maximal runs of one cluster within one block
-    sorted_assign = assign[order]
-    block_of = np.arange(n_ext) // block_len
-    boundary = np.ones(n_ext, dtype=bool)
-    boundary[1:] = (sorted_assign[1:] != sorted_assign[:-1]) | (
-        block_of[1:] != block_of[:-1]
-    )
-    seg_ids = np.cumsum(boundary) - 1  # [n_ext]
-    n_entries = int(seg_ids[-1]) + 1 if n_ext else 1
-    entry_block_np = block_of[boundary]
-    entries = _segment_means(list_vecs, seg_ids, entry_block_np, n_entries)
-    # entry-level RNG graph: an exact build at Ne ~ 1.5 N / L rows
-    adj = build_knn_graph(entries, min(degree, entries.shape[0] - 1), method="exact")
-    list_vecs, list_sqn, list_mu = _encode_slabs(list_vecs, mask, slab_dtype)
-    return (
-        entries,
-        torch.as_tensor(entry_block_np.astype(np.int32), device=dev),
-        slot_ids,
-        list_vecs,
-        list_sqn,
-        adj,
-        list_mu,
-    )
+    _, slot_np, seg_ids, entry_block_np = _chop(row_of, assign, n, n_blocks)
+    slot_ids = torch.as_tensor(slot_np, device=vectors.device)
+    list_vecs = vectors[slot_ids.clamp(min=0).long()] * (slot_ids >= 0)[:, :, None]
+    return _finish_layout(list_vecs, slot_np, seg_ids, entry_block_np, degree, slab_dtype)
 
 
 def _segment_means(
@@ -445,10 +469,98 @@ def _segment_means(
     return sums[where] / torch.clamp(counts, min=1.0)[:, None]
 
 
-def build_block_graph_stream(*args, **kwargs):
-    raise NotImplementedError(
-        f"the streaming block-graph build of out-of-core corpora is ported with {_STREAM_ITEM}"
+def build_block_graph_stream(
+    store,
+    n_blocks: int,
+    degree: int,
+    seed: int = 42,
+    train_iters: int = 12,
+    normalize: bool = False,
+    chunk_rows: int = 262_144,
+    spill: float = 0.0,
+    slab_dtype: str = "f32",
+    device: DeviceLike = None,
+):
+    """Out-of-core block-graph build: the layout of :func:`build_block_graph`
+    assembled from a host source (``np.memmap`` / ``BigStore``) in
+    sequential passes, with no random host reads:
+
+      pass 0: an evenly spaced sample of 4,096-row blocks trains k-means;
+      pass 1: each chunk is assigned (K3; top-2 when spilling);
+      pass 2: each chunk's rows are copied to their home slot in ONE
+        preallocated flat ``[Nb * L, d]`` buffer on ``device`` (the slot of
+        a row is its rank in the cluster-sorted order, known on the host
+        from the assignment; ``index_copy_`` over a permutation, so no two
+        rows meet), spilled clones a second time to theirs.
+
+    The router entries are then the segment means of the filled buffer,
+    summed by the resident build's batched one-hot product, so they are
+    free of atomics and the same from run to run. Host RSS stays O(chunk);
+    device memory is the layout plus one chunk (the resident build's
+    gather holds the corpus and the layout at once).
+    """
+    from vectordb_retrieval_tpu_torch.data.storage import _read_chunk, iter_device_chunks
+    from vectordb_retrieval_tpu_torch.ops.kmeans import (
+        kmeans_assign,
+        kmeans_assign2,
+        kmeans_fit,
     )
+
+    dev = resolve_device(device)
+    n, d = (int(s) for s in store.shape)
+    n_blocks = max(1, min(n_blocks, n))
+
+    def prep(rows: torch.Tensor) -> torch.Tensor:
+        return dops.normalize(rows) if normalize else rows
+
+    target = min(n, max(n_blocks * 32, 65_536))
+    blk = 4096
+    stride = max(1, n // max(1, -(-target // blk)))
+    sample = np.concatenate(
+        [_read_chunk(store, s, min(s + blk, n)) for s in range(0, n, stride)]
+    )[:target]
+    centroids, _ = kmeans_fit(prep(torch.as_tensor(sample, device=dev)), n_blocks, seed=seed,
+                              iters=train_iters)
+    del sample
+
+    use_spill = spill > 0.0 and n_blocks >= 2
+    a1 = np.empty(n, dtype=np.int64)
+    a2 = np.empty(n, dtype=np.int64) if use_spill else None
+    margin = np.empty(n, dtype=np.float32) if use_spill else None
+    for start, rows in iter_device_chunks(store, chunk_rows, dev):
+        stop = start + rows.shape[0]
+        if use_spill:
+            c1, c2, mg = kmeans_assign2(prep(rows), centroids)
+            a1[start:stop], a2[start:stop] = c1.cpu().numpy(), c2.cpu().numpy()
+            margin[start:stop] = mg.cpu().numpy()
+        else:
+            a1[start:stop] = kmeans_assign(prep(rows), centroids).cpu().numpy()
+    if use_spill:
+        row_of, assign_ext, clones = _spilled(a1, a2, margin, spill)
+    else:
+        row_of, assign_ext = np.arange(n, dtype=np.int64), a1
+        clones = np.empty(0, dtype=np.int64)
+    order, slot_np, seg_ids, entry_block_np = _chop(row_of, assign_ext, n, n_blocks)
+    rank = np.empty(order.shape[0], dtype=np.int64)  # ext entry -> sorted slot
+    rank[order] = np.arange(order.shape[0])
+    clone_slot = np.full(n, -1, dtype=np.int64)  # row -> its clone's slot
+    clone_slot[clones] = rank[n:]
+
+    buf = torch.zeros((slot_np.size, d), dtype=torch.float32, device=dev)
+    rank_dev = torch.as_tensor(rank[:n], device=dev)
+    for start, rows in iter_device_chunks(store, chunk_rows, dev):
+        stop = start + rows.shape[0]
+        rows = prep(rows)
+        buf.index_copy_(0, rank_dev[start:stop], rows)
+        if clones.size:
+            local = np.nonzero(clone_slot[start:stop] >= 0)[0]
+            if local.size:
+                buf.index_copy_(
+                    0, torch.as_tensor(clone_slot[start:stop][local], device=dev),
+                    rows[torch.as_tensor(local, device=dev)])
+        del rows
+    list_vecs = buf.reshape(slot_np.shape[0], slot_np.shape[1], d)  # pad rows 0
+    return _finish_layout(list_vecs, slot_np, seg_ids, entry_block_np, degree, slab_dtype)
 
 
 def pick_entry_points(vectors: torch.Tensor, n_entry: int, seed: int = 0) -> torch.Tensor:

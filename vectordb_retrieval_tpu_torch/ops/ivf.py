@@ -198,8 +198,14 @@ def exact_probe_mask(
 
 
 def _coarse_probes(queries, centroids, nprobe):
+    """The ``nprobe`` nearest rows of the coarse table, equal distances in
+    ascending row: the buckets of one list share its centroid row and tie
+    exactly, and a top-k's own tie order differs between the card and the
+    host, so a budget that cuts through a list could take other buckets on
+    each."""
     cd = dops.pairwise_distances(queries, centroids, "l2")
-    _, probes = dops.top_k_smallest(cd, min(nprobe, centroids.shape[0]))
+    rows = torch.arange(centroids.shape[0], device=cd.device)[None, :]
+    _, probes = dops.top_k_smallest_by_id(cd, rows, min(nprobe, centroids.shape[0]))
     return probes
 
 
@@ -304,25 +310,17 @@ def _rescore_blocks(
     return vals, torch.where(torch.isfinite(vals), ids, -1)
 
 
-def _ivf_blockmin(
+def _masked_minima(
     probes,  # [B, nprobe] bucket ranks
     slot_ids,  # [n_bkt, L] db row ids, -1 padding
     payload,  # tuple of [n_bkt, L, ...] tensors streamed chunk-wise
     chunk_score,  # (payload_chunk) -> dist [B, C*L] f32 (index scoring)
-    block_rescore,  # (payload_blocks [B, nb, w, ...]) -> exact f32 [B, nb, w]
-    k: int,
     w: int = _BLOCKMIN_W,
-    slack: int = _BLOCKMIN_SLACK,
     probe_valid=None,  # [B, nprobe] bool: masked probe slots stay unprobed
 ):
-    """IVF search as a masked payload stream + blockmin certificate.
-
-    Stage 1 scores the payload chunk by chunk against every query, masks
-    unprobed buckets and dead slots to +inf and keeps per-``w``-slot block
-    minima. Stage 2 keeps the top ``k + slack`` blocks, which provably hold
-    the top-k probed slots under the index scoring, and rescores them
-    exactly. ``L`` is a multiple of ``w``, so blocks never straddle buckets.
-    """
+    """Stage 1 of the masked stream: the payload scored chunk by chunk
+    against every query, unprobed buckets and dead slots masked to +inf,
+    per-``w``-slot block minima ``[B, n_bkt * L / w]``."""
     n_bkt, L = slot_ids.shape
     b = probes.shape[0]
     dev = slot_ids.device
@@ -349,9 +347,33 @@ def _ivf_blockmin(
         )
         dist = torch.where(valid, dist, _INF)
         bms.append(dist.reshape(b, c * L // w, w).amin(dim=-1))
-    bmins = torch.cat(bms, dim=1)  # [B, n_bkt*L/w]
+    return torch.cat(bms, dim=1)
+
+
+def _ivf_blockmin(
+    probes,  # [B, nprobe] bucket ranks
+    slot_ids,  # [n_bkt, L] db row ids, -1 padding
+    payload,  # tuple of [n_bkt, L, ...] tensors streamed chunk-wise
+    chunk_score,  # (payload_chunk) -> dist [B, C*L] f32 (index scoring)
+    block_rescore,  # (payload_blocks [B, nb, w, ...]) -> exact f32 [B, nb, w]
+    k: int,
+    w: int = _BLOCKMIN_W,
+    slack: int = _BLOCKMIN_SLACK,
+    probe_valid=None,  # [B, nprobe] bool: masked probe slots stay unprobed
+):
+    """IVF search as a masked payload stream + blockmin certificate.
+
+    Stage 1 (:func:`_masked_minima`) scores the payload chunk by chunk
+    against every query, masks unprobed buckets and dead slots to +inf and
+    keeps per-``w``-slot block minima. Stage 2 keeps the top ``k + slack``
+    blocks, which provably hold the top-k probed slots under the index
+    scoring, and rescores them exactly. ``L`` is a multiple of ``w``, so
+    blocks never straddle buckets.
+    """
+    bmins = _masked_minima(probes, slot_ids, payload, chunk_score, w, probe_valid)
+    b = probes.shape[0]
     nb = min(k + slack, bmins.shape[1])
-    blk_ids = torch.arange(bmins.shape[1], device=dev).expand(b, -1)
+    blk_ids = torch.arange(bmins.shape[1], device=slot_ids.device).expand(b, -1)
     blk_vals, blk = _smallest_blocks(bmins, blk_ids, nb)
     return _rescore_blocks(blk, blk_vals, slot_ids, payload, block_rescore, k, w)
 
@@ -470,6 +492,26 @@ def _sq_block_rescore(queries, vmin, step, metric):
     return rescore
 
 
+def _flat_chunk_score(q_cast, qn, metric):
+    """``chunk_score`` of the IVF-Flat masked stream: payload chunks
+    ``(vecs [c, L, d], sqn [c, L][, slot_pen [c, L]])`` -> ``[B, c * L]``
+    scores, an f32 product (TF32 off) with the per-slot penalty added."""
+
+    def chunk_score(pl):
+        vecs, sqn, *pen = pl
+        c, L = sqn.shape
+        dots = q_cast.float() @ vecs.reshape(c * L, -1).float().T
+        if metric == "l2":
+            dist = qn[:, None] + sqn.reshape(1, -1) - 2.0 * dots
+        else:
+            dist = -dots
+        if pen:
+            dist = dist + pen[0].reshape(1, -1)
+        return dist
+
+    return chunk_score
+
+
 def _final_rescore(queries, full_vectors, ids, k, metric):
     """Exact re-rank of compressed-list candidates against f32 rows."""
     cd = dops.rescore(queries, full_vectors, ids, metric)
@@ -524,23 +566,11 @@ def ivf_flat_search(
                 block_rescore, fetch_k, fw, probe_valid=pvalid,
             )
         else:
-            def chunk_score(pl):
-                vecs, sqn, *pen = pl
-                c = vecs.shape[0]
-                dots = q_cast.float() @ vecs.reshape(c * L, -1).float().T
-                if metric == "l2":
-                    dist = qn[:, None] + sqn.reshape(1, -1) - 2.0 * dots
-                else:
-                    dist = -dots
-                if pen:
-                    dist = dist + pen[0].reshape(1, -1)
-                return dist
-
             dists, ids = _ivf_blockmin(
                 probes, slot_ids,
                 (list_vecs, list_sqnorms) if slot_pen is None
                 else (list_vecs, list_sqnorms, slot_pen),
-                chunk_score,
+                _flat_chunk_score(q_cast, qn, metric),
                 lambda pl: block_rescore((pl[0],) + tuple(pl[2:])),
                 fetch_k, probe_valid=pvalid,
             )
