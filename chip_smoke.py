@@ -145,7 +145,31 @@ on failure:
                    SIFT surrogate written to a BigStore in chunks and its
                    hnsw block row stream-built: recall@100 within 0.05 of
                    the in-memory row
-     In 4, 5, 5b, 5c, 5d, 5e and 5f every kernel launch of the main path is also held
+  5g. sharded   - the row-sharded family with every shard on the card, on
+                   the SIFT1M surrogate (256 queries, top-100, l2), after
+                   the throughput phases: the BenchmarkRunner's
+                   ShardedIVFIndexer rows IVF256,Flat np8, IVF256,SQ8 np16,
+                   IVF256,PQ32 np16 and the ShardedGraphIndexer row (auto:
+                   block mode) over db4, and IVF128 over db8, each held to
+                   configs/sift1m.yaml's committed recall@100 less 0.03;
+                   exact search over db4, db8, q2 x db4, db1 and (dcn, db4)
+                   with the NCCL process group as a world of one, the db4
+                   IVF-Flat artifact at full probe, each equal to the
+                   single-device exact search modulo exact distance ties;
+                   the db4 IVF-Flat and graph artifacts against the host
+                   and through save -> load -> reshard; ShardedMutableFlat
+                   on (replica 2, db 2) through the serving sequence (10
+                   adds, a 30 % delete, filters, re-adds; each search
+                   equal to exact search over its allowed live rows);
+                   ShardedMutableIVF(nlist 1024, nprobe 32 a shard) over
+                   db4 built on a seeded half and grown by adds of the
+                   rest, 20 % deleted: recall@100 and all-probe
+                   self-queries (distance 0, never a deleted id). Each
+                   row: build seconds by part, index bytes, the route each
+                   shard took, one primed batch's device ms split into the
+                   shards' searches, the merge and the rest, QPS with ids
+                   on the host, beside the unsharded row's numbers
+     In 4, 5, 5b, 5c, 5d, 5e, 5f and 5g every kernel launch of the main path is also held
      against its plain version on the very inputs it was launched with (the
      last launch of each kernel mode, shape and stage: ground truth, each
      build's k-means sample and corpus with its centroids, each timed
@@ -1376,10 +1400,14 @@ def _row_kernel(algo):
     flat PQ scan or the LSH scans, which run no kernel of the repo; an LSH
     row's exact fallback launches dist_blockmin where rows fall short)."""
     kind = algo.artifact.kind
-    if kind in ("pq", "lsh", "binary_lsh"):
-        return None
+    if kind in ("pq", "lsh", "binary_lsh", "flat_sharded"):
+        return None  # flat_sharded: plain products per shard, as in the JAX package
     if kind == "flat":
         return "dist_blockmin"
+    if kind in _SHARDED_K1:  # f32 lists (IVF-Flat), u8 codes, bf16 reconstructions
+        return _SHARDED_K1[kind]
+    if kind == "graph_sharded":
+        return "slab_dots" if algo.artifact.metadata.get("mode") == "block" else None
     if kind != "graph":
         return _row_mode(algo)
     return "slab_dots" if algo.artifact.metadata.get("mode") == "block" else None
@@ -1387,7 +1415,7 @@ def _row_kernel(algo):
 
 def _row_builds_kmeans(algo) -> bool:
     """Whether a row's build runs k-means (and so launches assign)."""
-    return algo.artifact.kind not in ("flat", "lsh", "binary_lsh")
+    return algo.artifact.kind not in ("flat", "lsh", "binary_lsh", "flat_sharded")
 
 
 def _lsh_row_line(algo, queries, k, bsz) -> dict:
@@ -1477,7 +1505,8 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
         with capture_launch_inputs(launched, stage, counts=counts):
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
-            results = BenchmarkRunner(path).run()
+            devices = [DEV] * cfg["shards"] if "shards" in cfg else None  # a sharded mesh
+            results = BenchmarkRunner(path, device=devices).run()
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = dict(kernels.LAUNCHES)
@@ -1548,6 +1577,8 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
             line["slab_dots_launches"] = b.get("slab_dots", 0) + s.get("slab_dots", 0)
         elif algo.artifact.kind == "pq":
             line.update({"phase": "pq_main_path", "index_key": meta["index_key"]})
+        elif algo.artifact.kind.endswith("_sharded"):
+            line.update(_sharded_row_line(algo, cfg.get("batch", BATCH)))
         elif algo.artifact.kind in ("lsh", "binary_lsh"):
             line.update(_lsh_row_line(algo, queries, min(topk, cfg["n"]), cfg.get("batch", BATCH)))
         elif algo.artifact.kind == "flat":
@@ -1568,7 +1599,7 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
         line.update(pq_line)
         emit(line)
         rows[row] = {"algo": algo, "queries": queries, "gt": gt, "k": min(topk, cfg["n"]),
-                     "batch": cfg.get("batch", BATCH), "recall": recall}
+                     "batch": cfg.get("batch", BATCH), "recall": recall, "qps": res["qps"]}
     if cfg is SURROGATE_CONFIG:
         meta = rows["hnsw"]["algo"].artifact.metadata
         recall = ds["hnsw"][f"recall@{topk}"]
@@ -1592,7 +1623,7 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
               "card": card, "ok": ok})
         if not ok:
             raise AssertionError(f"manifold A/B: plain {plain}, auto {auto}, {rec}")
-    if cfg is IVF_CONFIGS[0] or cfg in LSH_CONFIGS:
+    if cfg is IVF_CONFIGS[0] or cfg in LSH_CONFIGS or cfg in SHARDED_CONFIGS:
         _recall_gate(card, cfg, ds, runner)
     emit({"phase": "main_path_run", "config": cfg["name"], "card": card,
           "runner_seconds": seconds, "launches": launches})
@@ -1603,10 +1634,16 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
 
 
 def _recall_gate(card: str, cfg, ds, runner) -> None:
-    """The SIFT surrogate's rows and the faiss_lsh rows against the JAX
-    package's committed recall less RECALL_MARGIN (exact: 1.0)."""
+    """The SIFT surrogate's rows (unsharded and row-sharded) and the
+    faiss_lsh rows against the JAX package's committed recall less
+    RECALL_MARGIN (exact: 1.0)."""
     topk = cfg["topk"]
-    committed = SIFT_COMMITTED if cfg is IVF_CONFIGS[0] else {"faiss_lsh": cfg["committed"]}
+    if cfg is IVF_CONFIGS[0]:
+        committed = SIFT_COMMITTED
+    elif cfg in SHARDED_CONFIGS:
+        committed = {row: SIFT_COMMITTED[row] for row in cfg["rows"]}
+    else:
+        committed = {"faiss_lsh": cfg["committed"]}
     got = {row: ds[row][f"recall@{topk}"] for row in committed}
     floors = {row: (1.0 if row == "exact" else c - RECALL_MARGIN) for row, c in committed.items()}
     ok = all(got[row] >= floors[row] for row in committed)
@@ -1753,13 +1790,23 @@ def _multiset_agreement(ci, hi, k):
 def _host_searcher(algo):
     """The row's searcher on the CPU, over a host copy of its artifact (the
     kernels' plain versions); the cover tree runs the block walk there, as
-    the card does."""
+    the card does; a row-sharded artifact is placed over as many CPU
+    devices as it has shards."""
+    import torch
+
     from vectordb_retrieval_tpu_torch.models.base import IndexArtifact
     from vectordb_retrieval_tpu_torch.models.covertree import CoverTree
     from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
     from vectordb_retrieval_tpu_torch.models.lsh import LSHSearcher
 
     art = algo.artifact
+    if art.kind.endswith("_sharded"):  # the stacked arrays, placed over as many CPU devices
+        host_art = IndexArtifact(art.kind, {k: torch.as_tensor(np.asarray(v))
+                                            for k, v in art.data.items()}, dict(art.metadata))
+        host = ANNSearcher(metric=algo.searcher.metric, device=["cpu"] * art.mesh.size("db"),
+                           **algo.searcher.params)
+        host.attach(host_art)
+        return host, algo.searcher.batch_search
     host_art = IndexArtifact(art.kind, {k: v.cpu() for k, v in art.data.items()}, dict(art.metadata))
     if art.kind == "covertree":
         host = CoverTree(algo.dimension, metric=algo.metric, err_c=algo.err_c,
@@ -1810,11 +1857,12 @@ def phase_card_vs_host(card: str, paths) -> None:
             else:
                 classes, agree, same = None, raw_agree, raw_same
             lsh = art.kind in ("lsh", "binary_lsh")
-            min_agree = (GRAPH_HOST_MIN_AGREE if art.kind == "graph"
+            graph = art.kind in ("graph", "graph_sharded")
+            min_agree = (GRAPH_HOST_MIN_AGREE if graph
                          else LSH_HOST_MIN_AGREE if lsh else HOST_MIN_AGREE)
             # distances on the queries whose id sets agree (all of them for
             # the exact, IVF and PQ rows, which must agree on >= 99.9 %)
-            rows_ok = np.asarray(same) if art.kind == "graph" or lsh else np.ones(len(q), bool)
+            rows_ok = np.asarray(same) if graph or lsh else np.ones(len(q), bool)
             scale = float(np.abs(hd[np.isfinite(hd)]).max())
             cs, hs = np.sort(cd, 1), np.sort(hd, 1)
             diff = np.where(np.isinf(cs) & (cs == hs), 0.0, np.abs(cs - hs))  # padding: inf in both
@@ -3094,7 +3142,7 @@ def phase_serving_flat(card: str, shape, sift, worst: dict) -> dict:
                              f"host {vs_host}")
     del idx, snap, host
     torch.cuda.empty_cache()
-    return launches
+    return out
 
 
 def _ivf_serving_stages(idx, qd, k):
@@ -3306,7 +3354,7 @@ def phase_serving_ivf(card: str, sift, worst: dict) -> dict:
                              f"launches {launches}")
     del idx, snap, snap32, host
     torch.cuda.empty_cache()
-    return launches
+    return out
 
 
 # ---- 5f. out of core --------------------------------------------------------
@@ -3508,6 +3556,355 @@ def phase_graph_stream(card: str, sift, worst: dict) -> dict:
     return launches
 
 
+# ---- 5g. row-sharded ------------------------------------------------------
+
+# configs/sift1m.yaml's rows row-sharded (configs/benchmark_sharded.yaml's
+# indexers) with every shard on the one card: nlist a shard is 1024 / shards,
+# so the shards together hold IVF1024's 1,024 lists; nprobe counts a shard's
+# own lists (np8 for Flat, np16 for SQ8 and PQ32); the graph in auto mode
+# (block mode at 250,000 and 125,000 rows a shard)
+SHARDED_SHARDS = (4, 8)
+# K1's mode in each sharded IVF search: f32 lists (as the JAX package builds
+# them), u8 codes, bf16 reconstructions
+_SHARDED_K1 = {"ivf_flat_sharded": "dist_blockmin", "ivf_sq8_sharded": "dist_blockmin_u8",
+               "ivf_pq_sharded": "dist_blockmin_bf16"}
+# exact search over these meshes of one card: db shards, query blocks, and
+# the process axis through NCCL as a world of one
+SHARDED_EXACT_MESHES = ("db4", "db8", "q2xdb4", "db1", "dcn1xdb4")
+SHARDED_SERVING_IVF = {"nlist": 1024, "nprobe": 32, "add_batches": 10, "delete": 0.20}
+SHARDED_TIMING = {"reps": 5, "warmup": 1}
+
+
+def _sharded_config(n_shards):
+    nlist = 1024 // n_shards
+    return {
+        "name": f"sift1m_surrogate_db{n_shards}",
+        "source": ("configs/sift1m.yaml ivf_flat, ivf_sq8, ivf_pq, hnsw on "
+                   "data/sift1m_synth, row-sharded with configs/benchmark_sharded.yaml's "
+                   f"indexers over {n_shards} shards of one card"),
+        "dataset": "sift1m", "metric": "l2", "n": SIFT_ROWS, "d": 128, "topk": 100,
+        "queries": 256, "batch": 256, "gt_k": 100, "shards": n_shards,
+        "rows": {  # exact search: phase_sharded, held modulo distance ties
+            "ivf_flat": ({"type": "ShardedIVFIndexer", "index_key": f"IVF{nlist},Flat",
+                          "nprobe": 8}, 8),
+            "ivf_sq8": ({"type": "ShardedIVFIndexer", "index_key": f"IVF{nlist},SQ8",
+                         "nprobe": 16}, 16),
+            "ivf_pq": ({"type": "ShardedIVFIndexer", "index_key": f"IVF{nlist},PQ32",
+                        "nprobe": 16}, 16),
+            "hnsw": ({"type": "ShardedGraphIndexer", "M": 16, "efConstruction": 200,
+                      "efSearch": 64}, 64),
+        },
+    }
+
+
+SHARDED_CONFIGS = tuple(_sharded_config(n) for n in SHARDED_SHARDS)
+
+
+def _sharded_row_line(algo, bsz) -> dict:
+    """A sharded row's own numbers: mesh, index bytes, build seconds by
+    part, and for IVF the route each shard takes at a batch of ``bsz``."""
+    from vectordb_retrieval_tpu_torch.parallel.sharded_ivf import ivf_route
+
+    art = algo.artifact
+    meta = art.metadata
+    line = {"phase": "sharded_main_path", "kind": art.kind, "mesh": dict(art.mesh.shape),
+            "index_bytes": art.device_nbytes(),
+            "build_seconds": getattr(algo.indexer, "build_seconds", None)}
+    if art.kind.startswith("ivf"):
+        nb, length = art.data["slot_ids"].shard_shape
+        budget = algo.searcher._nprobe()
+        line.update({"index_key": meta["index_key"], "n_buckets": nb, "bucket_len": length,
+                     "nprobe_lists": algo.searcher._sharded_probe_lists(),
+                     "probe_budget": budget,
+                     "routes": [ivf_route(bsz, budget, nb, length)] * art.mesh.size("db")})
+    elif art.kind == "graph_sharded":
+        line.update({key: meta.get(key) for key in
+                     ("mode", "rows_per_shard", "degree", "efSearch", "n_blocks", "block_len")})
+    return line
+
+
+@contextlib.contextmanager
+def _fan_out_capture(store: dict):
+    """While active, keep in ``store`` the arguments of the last sharded
+    search's fan-out (queries, mesh, axes, the per-shard search, k)."""
+    from vectordb_retrieval_tpu_torch.parallel import serving as pserving
+    from vectordb_retrieval_tpu_torch.parallel import sharded, sharded_graph, sharded_ivf
+
+    orig = sharded_ivf.fan_out
+    mods = (sharded, sharded_graph, sharded_ivf, pserving)
+
+    def capture(queries, mesh, axis, q_axis, local, out_k):
+        store.update(queries=queries, mesh=mesh, axis=axis, q_axis=q_axis, local=local,
+                     out_k=out_k)
+        return orig(queries, mesh, axis, q_axis, local, out_k)
+
+    for m in mods:
+        m.fan_out = capture
+    try:
+        yield store
+    finally:
+        for m in mods:
+            m.fan_out = orig
+
+
+def _shard_split(search) -> dict:
+    """Device ms of one primed batch of ``search()``, split into the
+    per-shard searches (summed over every shard of every ring), the merge
+    (copies to the ring's first device and the tie-free cut, with the
+    process axis's all_gather where the mesh has one) and the rest."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.parallel.sharded_ivf import gather_merge
+
+    store = {}
+    with _fan_out_capture(store):
+        search()
+    mesh, axis, q_axis, local = store["mesh"], store["axis"], store["q_axis"], store["local"]
+    rings = mesh.rings(axis, q_axis)
+    q = store["queries"]
+    blocks = torch.tensor_split(q, len(rings)) if q_axis is not None else (q,)
+    group = mesh.group if mesh.spans_processes(axis) else None
+    shard_ms, merge_ms, parts_all = [], 0.0, []
+    for qb, ring in zip(blocks, rings):
+        qs = [qb.to(mesh.devices[c]) for c in ring]
+        for qc, c in zip(qs, ring):
+            shard_ms.append(time_ms(lambda qc=qc, c=c: local(qc, c), prime=True,
+                                    **SHARDED_TIMING))
+        parts = [local(qc, c) for qc, c in zip(qs, ring)]
+        merge_ms += time_ms(lambda parts=parts: gather_merge(parts, store["out_k"], group),
+                            prime=True, **SHARDED_TIMING)
+        parts_all.append(parts)
+    batch_ms = time_ms(search, prime=True, **SHARDED_TIMING)
+    return {"batch_device_ms": batch_ms, "per_shard_ms": shard_ms,
+            "shards_sum_ms": sum(shard_ms), "merge_ms": merge_ms,
+            "rest_ms": batch_ms - sum(shard_ms) - merge_ms, "rings": len(rings),
+            "shards_a_ring": len(rings[0])}
+
+
+def _sharded_numbers(search, qd, k, n, name) -> dict:
+    """The split of one primed batch and the QPS with ids on the host."""
+    split = _shard_split(lambda: search(qd, k))
+    elapsed, batches, passes = _qps(search, qd, BATCH, k, n, name)
+    return dict(split, qps=batches * BATCH / elapsed, ms_per_batch=elapsed / batches * 1e3,
+                batches_on_clock=batches * passes)
+
+
+def _sharded_mesh(label):
+    """(mesh, db axis, q axis) of one exact-search mesh label."""
+    from vectordb_retrieval_tpu_torch import parallel as par
+
+    if label == "q2xdb4":
+        return par.make_mesh(8, ("q", "db"), (2, 4), devices=[DEV] * 8), "db", "q"
+    if label == "dcn1xdb4":
+        par.init_distributed(device=DEV)
+        return par.make_multihost_mesh(devices=[DEV] * 4), ("dcn", "db"), None
+    return par.make_mesh(devices=[DEV] * int(label[2:])), "db", None
+
+
+def _hold_ids(name, train, q, d, ids, ref_d, ref_ids, k, scale) -> dict:
+    """Ids equal to the reference's modulo exact distance ties (the
+    surrogate's rows are integers), sorted distances to f32 rounding."""
+    agree, _ = _multiset_agreement(*_distance_classes(train, q, ids, ref_ids), k)
+    raw, _ = _multiset_agreement(ids, ref_ids, k)
+    err = float(np.abs(np.sort(d, 1) - np.sort(ref_d, 1)).max())
+    out = {"id_agreement": agree, "raw_id_agreement": raw, "max_abs_dist_err": err,
+           "tol": GT_REL_TOL * scale}
+    if agree < 1.0 or err > GT_REL_TOL * scale:
+        raise AssertionError(f"sharded {name}: {out}")
+    return out
+
+
+def phase_sharded(card: str, sharded_paths, sift_path, unsharded: dict, worst: dict) -> dict:
+    """The row-sharded path beyond the runner's rows, on the SIFT surrogate
+    (256 queries, top-100, l2) with every shard on the card: exact search
+    over db4, db8, q2 x db4, db1 and (dcn, db4) with NCCL as a world of one,
+    each held to the single-device exact search; the db4 IVF-Flat artifact
+    at full probe held to it too; the db4 IVF-Flat and graph artifacts on
+    the host (card against host) and through save -> load -> reshard;
+    ShardedMutableFlat on (replica 2, db 2) through the serving sequence,
+    every search held to exact search over its allowed live rows;
+    ShardedMutableIVF(nlist 1024, nprobe 32 a shard) over db4, built on a
+    seeded half and grown by adds of the rest: partial-probe recall@100 and
+    all-probe self-queries. The launch counts are set to 0 before these
+    runs and read after them; then each search's device ms by part (the
+    shards, the merge, the rest) and QPS beside the unsharded row's."""
+    import torch
+    import torch.distributed as dist
+
+    from vectordb_retrieval_tpu_torch import parallel as par
+    from vectordb_retrieval_tpu_torch.models import persist
+    from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
+    from vectordb_retrieval_tpu_torch.ops import distances as dops
+    from vectordb_retrieval_tpu_torch.ops import kernels
+    from vectordb_retrieval_tpu_torch.parallel import serving as pserving
+
+    t_phase = time.perf_counter()
+    base = sift_path["train"]
+    q = sift_path["rows"]["exact"]["queries"]
+    n, k = base.shape[0], SERVING_KS[-1]
+    qd = torch.as_tensor(q, device=DEV)
+    base_dev = torch.as_tensor(base, device=DEV)
+    single = lambda qq, kk: dops.exact_search(qq, base_dev, kk, refine=True, device=DEV)  # noqa: E731
+    ref_d, ref_i = (t.cpu().numpy() for t in single(qd, k))
+    single_ms = time_ms(lambda: single(qd, k), prime=True, **SHARDED_TIMING)
+    del base_dev
+    torch.cuda.empty_cache()
+    scale = float(np.abs(ref_d).max())
+    db4 = next(p for p in sharded_paths if p["name"] == SHARDED_CONFIGS[0]["name"])
+    searches = {}
+    launched, stage = {}, ["exact"]
+    with capture_launch_inputs(launched, stage):
+        kernels.reset_launch_counts()
+        t_main = time.perf_counter()
+        # exact search over the meshes
+        for label in SHARDED_EXACT_MESHES:
+            stage[0] = f"exact_{label}"
+            mesh, axis, q_axis = _sharded_mesh(label)
+            xs, n_total = par.shard_database(base, mesh, axis)
+            search = (lambda qq, kk, xs=xs, n_total=n_total, mesh=mesh, axis=axis, q_axis=q_axis:
+                      par.sharded_exact_search(qq, xs, n_total, kk, mesh, db_axis=axis,
+                                               q_axis=q_axis))
+            d, i = (t.cpu().numpy() for t in search(qd, k))
+            line = {"mesh": dict(mesh.shape), "index_bytes": xs.device_nbytes(),
+                    "backend": dist.get_backend() if mesh.group is not None else None,
+                    **_hold_ids(label, base, q, d, i, ref_d, ref_i, k, scale)}
+            searches[label] = (search, line, n)
+        # the db4 IVF-Flat artifact at full probe: exact search
+        stage[0] = "ivf_flat_full_probe"
+        flat = db4["rows"]["ivf_flat"]["algo"]
+        full = ANNSearcher(metric="l2", nprobe=flat.artifact.metadata["nlist"],
+                           device=[DEV] * flat.artifact.mesh.size("db"))
+        full.attach(flat.artifact)
+        d, i = full.batch_search(q, k)
+        full_probe = _hold_ids("ivf_flat full probe", base, q, d, i, ref_d, ref_i, k, scale)
+        # sharded serving: the flat index on (replica 2, db 2)
+        stage[0] = "serving_flat"
+        rmesh = par.make_mesh(4, ("replica", "db"), (2, 2), devices=[DEV] * 4)
+        sflat = pserving.ShardedMutableFlat(base.shape[1], rmesh, q_axis="replica")
+        plan = _flat_plan(n, SEED + 31)
+        flat_searches, row_of, flat_secs = _flat_sequence(sflat, base, 10, plan, q, stage)
+        # sharded serving: the IVF index over db4
+        stage[0] = "serving_ivf_build"
+        g = np.random.default_rng(SEED + 41)
+        perm = g.permutation(n)
+        init, rest = perm[: n // 2], perm[n // 2 :]
+        ivf_row_of = np.concatenate([init, rest])
+        t = time.perf_counter()
+        sivf = pserving.ShardedMutableIVF(base[init], par.make_mesh(devices=[DEV] * 4),
+                                          nlist=SHARDED_SERVING_IVF["nlist"],
+                                          nprobe=SHARDED_SERVING_IVF["nprobe"])
+        torch.cuda.synchronize()
+        ivf_build_s = time.perf_counter() - t
+        cap0 = sivf._capB_local
+        stage[0] = "serving_ivf_add"
+        t = time.perf_counter()
+        for part in np.array_split(rest, SHARDED_SERVING_IVF["add_batches"]):
+            sivf.add(base[part])
+        torch.cuda.synchronize()
+        ivf_add_s = time.perf_counter() - t
+        dead = g.choice(n, int(SHARDED_SERVING_IVF["delete"] * n), replace=False)
+        t = time.perf_counter()
+        sivf.delete(dead)
+        ivf_delete_s = time.perf_counter() - t
+        alive = np.setdiff1d(np.arange(n), dead)
+        stage[0] = "serving_ivf_search"
+        _, ivf_ids = sivf.search(q, k)
+        probe = g.choice(alive, BATCH, replace=False)
+        self_d, self_i = sivf.search(base[ivf_row_of[probe]], 1, nprobe=sivf._capB_local)
+        main_s = time.perf_counter() - t_main
+        launches = dict(kernels.LAUNCHES)
+    check_launched(launched, "sharded", worst)
+
+    # the exact meshes' numbers (the process group stays up for dcn1xdb4)
+    for label, (search, line, n_rows) in searches.items():
+        line.update(_sharded_numbers(search, qd, k, n_rows, f"sharded/{label}"))
+        emit({"phase": "sharded_exact", "mesh_label": label, "config": "sift1m_surrogate",
+              "topk": k, "card": card, **line,
+              "unsharded": {"batch_device_ms": single_ms,
+                            "runner_qps": unsharded["exact"]["qps"]}})
+    searches.clear()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # the runner's sharded rows: split and QPS beside the unsharded rows
+    for path in sharded_paths:
+        for row, info in path["rows"].items():
+            algo = info["algo"]
+            search = lambda qq, kk, algo=algo: algo.device_kernel(qq, kk)  # noqa: E731
+            numbers = _sharded_numbers(search, qd, k, n, f"{path['name']}/{row}")
+            emit({**_sharded_row_line(algo, BATCH), "phase": "sharded_row",
+                  "config": path["name"], "row": row, "recall@100": info["recall"],
+                  "runner_qps": info["qps"], **numbers, "unsharded": unsharded.get(row),
+                  "card": card})
+    # card against host, and save -> load -> reshard, on db4's IVF-Flat and graph
+    host_rows = {row: db4["rows"][row] for row in ("ivf_flat", "hnsw")}
+    phase_card_vs_host(card, [{"name": db4["name"], "rows": host_rows, "train": base}])
+    round_trips = {}
+    for row, info in host_rows.items():
+        algo = info["algo"]
+        path = os.path.join(OUT_DIR, "sharded_artifacts", row)
+        t = time.perf_counter()
+        persist.save_artifact(algo.artifact, path)
+        loaded = persist.load_artifact(path, device=DEV)
+        s = ANNSearcher(metric="l2", device=[DEV] * algo.artifact.mesh.size("db"),
+                        **algo.searcher.params)
+        s.attach(loaded)  # reshards over the devices
+        rt_s = time.perf_counter() - t
+        same = bool(np.array_equal(s.batch_search(q, k)[1], algo.searcher.batch_search(q, k)[1]))
+        round_trips[row] = {"ids_identical": same, "seconds": rt_s,
+                            "mesh": dict(loaded.mesh.shape)}
+        shutil.rmtree(path)
+        if not same:
+            raise AssertionError(f"sharded {row}: save -> load -> reshard changed the ids")
+    emit({"phase": "sharded_persistence", "config": db4["name"], "round_trips": round_trips,
+          "card": card})
+    # serving: every flat search against exact search over its allowed live rows
+    vec_of = lambda ids: base[row_of[ids]]  # noqa: E731
+    flat_checks = _hold_to_exact("sharded_flat", vec_of, q, flat_searches, "l2", 1.0)
+    flat_line = {"phase": "sharded_serving_flat", "mesh": dict(rmesh.shape), "q_axis": "replica",
+                 "card": card, "capacity": sflat.capacity, "shard_fill": sflat.shard_fill().tolist(),
+                 "index_bytes": sum(b.device_nbytes() for b in
+                                    (sflat._vectors, sflat._sqnorms, sflat._pen)),
+                 "add_rows_per_s": n / flat_secs["add"],
+                 "delete_ids_per_s": len(plan["dead"]) / flat_secs["delete"],
+                 "readd_rows_per_s": SERVING_READD / flat_secs["readd"], "checks": flat_checks,
+                 **_sharded_numbers(lambda qq, kk: sflat.device_search(qq, kk), qd, k,
+                                    sflat.capacity, "sharded_flat"),
+                 "unsharded": unsharded["serving_flat"]}
+    emit(flat_line)
+    del sflat
+    torch.cuda.empty_cache()
+    ivf_vec_of = lambda ids: base[ivf_row_of[ids]]  # noqa: E731
+    exact_ids, _ = _exact_live(ivf_vec_of, alive, q, k, "l2")
+    recall = _recall(ivf_ids, exact_ids, k)
+    hit = self_i[:, 0]
+    self_ok = bool(np.isin(hit, alive).all() and (self_d[:, 0] == 0).all()
+                   and np.array_equal(base[ivf_row_of[np.maximum(hit, 0)]], base[ivf_row_of[probe]]))
+    ivf_line = {"phase": "sharded_serving_ivf", "mesh": dict(sivf.mesh.shape), "card": card,
+                "nlist": sivf.nlist, "nprobe": sivf.nprobe, "bucket_len": sivf._L,
+                "buckets_a_shard_after_build": cap0, "buckets_a_shard_after_adds": sivf._capB_local,
+                "route": sivf.route(BATCH), "full_probe_route": sivf.route(BATCH, sivf._capB_local),
+                "index_bytes": sum(b.device_nbytes() for b in
+                                   (sivf._slot_ids, sivf._list_vecs, sivf._list_sqn, sivf._coarse)),
+                "build_s": ivf_build_s, "add_rows_per_s": len(rest) / ivf_add_s,
+                "delete_ids_per_s": len(dead) / ivf_delete_s, f"recall@{k}": recall,
+                "min_recall": SERVING_IVF_MIN_RECALL, "self_queries": len(probe),
+                "self_queries_found_at_distance_0": self_ok,
+                **_sharded_numbers(lambda qq, kk: sivf.device_search(qq, kk), qd, k,
+                                   sivf._next_id, "sharded_ivf"),
+                "unsharded": unsharded["serving_ivf"]}
+    emit(ivf_line)
+    if recall < SERVING_IVF_MIN_RECALL or not self_ok or sivf._capB_local <= cap0:
+        raise AssertionError(f"sharded serving IVF: {ivf_line}")
+    del sivf
+    torch.cuda.empty_cache()
+    out = {"phase": "sharded_phase", "card": card, "launches": launches,
+           "main_path_seconds": main_s, "full_probe_ivf_flat": full_probe,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def main() -> int:
     launcher = _start_launcher()
     try:
@@ -3560,9 +3957,11 @@ def _main(launcher) -> int:
     phase_persistence_round_trip(card, SURROGATE_CONFIG, "ivf_pq")
     phase_persistence_round_trip(card, COVERTREE_CONFIGS[0], "covertree_v2_2")
     sift_path = paths[0]
-    for run in [phase_serving_flat(card, shape, sift_path, worst) for shape in SERVING_FLAT_SHAPES]:
-        add(run, False)
-    add(phase_serving_ivf(card, sift_path, worst), False)
+    serving_runs = [phase_serving_flat(card, shape, sift_path, worst)
+                    for shape in SERVING_FLAT_SHAPES]
+    serving_runs.append(phase_serving_ivf(card, sift_path, worst))
+    for run in serving_runs:
+        add(run["launches"], False)
     add(phase_out_of_core(card, worst, launcher), False)
     add(phase_graph_stream(card, sift_path, worst), False)
     flagship = phase_throughput(card, 100_000, 384, 96)
@@ -3600,6 +3999,21 @@ def _main(launcher) -> int:
                      for dsub in K3_DSUB}
     k3_dsub = phase_assign_dsub_throughput(card, dsub_launches)
     k4 = phase_blockmin_throughput(card)
+    # 5g: the row-sharded rows through the runner, then the phase's own runs,
+    # each beside the unsharded row's numbers from the phases above
+    sharded_paths = [phase_runner_path(card, cfg, worst) for cfg in SHARDED_CONFIGS]
+    for path in sharded_paths:
+        add(path["launches"], False)
+    sift_pq = next(t for t in pq_k1 if t["config"] == paths[0]["name"])
+    unsharded = {row: {"qps": t["qps"], "batch_device_ms": t["batch_device_ms"]}
+                 for row, t in (("ivf_flat", by_kernel["dist_blockmin_bf16"]),
+                                ("ivf_sq8", by_kernel["dist_blockmin_u8"]), ("ivf_pq", sift_pq),
+                                ("hnsw", graph[(paths[0]["name"], "hnsw")]))}
+    unsharded["exact"] = {"qps": sift["exact"]["qps"]}
+    for key, run in (("serving_flat", serving_runs[1]), ("serving_ivf", serving_runs[2])):
+        unsharded[key] = {"qps": run["qps"]["unfiltered"]["qps"],
+                          "batch_device_ms": run["batch_device_ms"]}
+    add(phase_sharded(card, sharded_paths, paths[0], unsharded, worst)["launches"], False)
 
     src = "vectordb_retrieval_tpu_torch/csrc/"
     tpu = "vectordb_retrieval_tpu/ops/pallas_kernels.py"

@@ -243,8 +243,14 @@ def test_unknown_algorithm_type_raises_like_jax():
     assert "'exact'" in str(t.value)
 
 
-# the out-of-core kinds of ROADMAP item 9b, once stubs that raised, run now
-_PORTED_OUT_OF_CORE = ("memmap", "dataset", "storage_memmap")
+def _sharded_search(artifact, searcher, x, k=3):
+    """A stacked row-sharded artifact attached (placed over 4 CPU
+    devices) and searched: each row of ``x`` finds itself first."""
+    searcher.attach(artifact)
+    assert artifact.mesh.shape == {"db": 4}
+    d, i = searcher.batch_search(x, k)
+    np.testing.assert_array_equal(i[:, 0], np.arange(x.shape[0]))
+    assert np.allclose(d[:, 0], 0.0, atol=1e-4)
 
 
 def _not_ported(kind, tmp_path):
@@ -266,19 +272,32 @@ def _not_ported(kind, tmp_path):
                                                      "test_size": 3, "ground_truth_k": 4},
                            device="cpu").load()
         assert isinstance(ds.train_vectors, np.memmap) and ds.ground_truth.shape == (3, 4)
-    elif kind == "sharded":
-        LinearSearcher(device="cpu").attach(
-            IndexArtifact("flat_sharded", {"vectors": torch.zeros(2, 2)})
+    else:
+        # the row-sharded kinds of ROADMAP item 10: a stub that raised, now
+        # stacked arrays as persisted, placed and searched on attach
+        from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
+        from vectordb_retrieval_tpu_torch.parallel import (
+            build_sharded_graph,
+            build_sharded_ivf_coded,
+            make_mesh,
         )
-    elif kind == "pq_index_key":
-        # PQ keys build now; the row-sharded IVF-PQ kind waits for item 10
-        from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
 
-        ANNSearcher(device="cpu").attach(IndexArtifact("ivf_pq_sharded", {}))
-    elif kind == "graph_artifact":
-        from vectordb_retrieval_tpu_torch.models.factory import ANNSearcher
-
-        ANNSearcher(device="cpu").attach(IndexArtifact("graph_sharded", {}))
+        x = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+        mesh = make_mesh(devices=["cpu"] * 4)
+        meta = {"metric": "l2", "dimension": 8, "n_vectors": 64}
+        if kind == "sharded":
+            art = IndexArtifact("flat_sharded", {"vectors": torch.as_tensor(x)},
+                                dict(meta, n_devices=4))
+            return _sharded_search(art, LinearSearcher(device=["cpu"] * 4), x)
+        if kind == "pq_index_key":
+            data, build = build_sharded_ivf_coded(x, mesh, nlist=2, coding="pq", m=8, seed=1)
+        else:
+            data, build = build_sharded_graph(x, mesh, M=4, seed=1)
+        build.pop("build_seconds")
+        art = IndexArtifact(kind="ivf_pq_sharded" if kind == "pq_index_key" else "graph_sharded",
+                            data={k: torch.as_tensor(np.asarray(v)) for k, v in data.items()},
+                            metadata=dict(meta, nprobe=8, efSearch=32, **build))
+        _sharded_search(art, ANNSearcher(device=["cpu"] * 4), x)
 
 
 @pytest.mark.parametrize(
@@ -287,13 +306,10 @@ def _not_ported(kind, tmp_path):
      "graph_artifact"],
 )
 def test_not_yet_ported_paths_raise(kind, tmp_path):
-    """The row-sharded kinds (ROADMAP queue 1 item 10) raise, naming their
-    item; the out-of-core kinds (item 9b) now run and check their result."""
-    if kind in _PORTED_OUT_OF_CORE:
-        _not_ported(kind, tmp_path)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        _not_ported(kind, tmp_path)
+    """Paths that were stubs raising ``NotImplementedError``: the
+    out-of-core kinds (ROADMAP item 9b) and the row-sharded kinds (item
+    10) now run and check their result."""
+    _not_ported(kind, tmp_path)
 
 
 def _persistence_row(tmp_path, persistence):

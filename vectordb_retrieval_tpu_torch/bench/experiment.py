@@ -36,6 +36,7 @@ from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm
 from vectordb_retrieval_tpu_torch.utils.device import (
     DeviceLike,
     resolve_device,
+    resolve_devices,
     synchronize,
 )
 from vectordb_retrieval_tpu_torch.utils.hashing import stable_hash
@@ -92,6 +93,7 @@ class ExperimentRunner:
         output_dir: str = "results",
         device: DeviceLike = None,
     ):
+        self.devices = resolve_devices(device)  # a mesh's, for sharded rows
         self.device = resolve_device(device)
         self.config = config
         self.output_dir = output_dir
@@ -203,7 +205,7 @@ class ExperimentRunner:
             for name, cfg in self.config.algorithms.items():
                 try:
                     self.register_algorithm(
-                        name, algorithm_from_config(name, cfg, dim, self.device)
+                        name, algorithm_from_config(name, cfg, dim, self.devices)
                     )
                 except Exception as exc:
                     logger.error("failed to construct %s: %s", name, exc)

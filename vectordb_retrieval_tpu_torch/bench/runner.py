@@ -30,7 +30,11 @@ import yaml
 
 from vectordb_retrieval_tpu_torch.bench.config import ExperimentConfig
 from vectordb_retrieval_tpu_torch.bench.experiment import ExperimentRunner
-from vectordb_retrieval_tpu_torch.utils.device import DeviceLike, resolve_device
+from vectordb_retrieval_tpu_torch.utils.device import (
+    DeviceLike,
+    resolve_device,
+    resolve_devices,
+)
 
 logger = logging.getLogger("vectordb_retrieval_tpu_torch.benchmark")
 
@@ -63,6 +67,9 @@ class BenchmarkRunner:
         output_dir: Optional[str] = None,
         device: DeviceLike = None,
     ):
+        # a list of devices is a mesh's, for the row-sharded indexers; the
+        # rest of the run takes the first
+        self.devices = resolve_devices(device)
         self.device = resolve_device(device)
         with open(config_file, "r") as f:
             self.config: Dict[str, Any] = yaml.safe_load(f) or {}
@@ -201,7 +208,7 @@ class BenchmarkRunner:
                 kwargs[key] = val
         config = ExperimentConfig(**kwargs)
         ds_out = os.path.join(self.output_dir, ds["name"])
-        runner = ExperimentRunner(config, output_dir=ds_out, device=self.device)
+        runner = ExperimentRunner(config, output_dir=ds_out, device=self.devices)
         runner.load_dataset()
         results = runner.run()
         # surface dataset provenance so reports can label surrogate rows

@@ -8,7 +8,8 @@ component registries), the graph family
 (``hnsw``/``HNSW``; ``GraphIndexer``/``HNSWIndexer``), the cover tree
 (``covertree``/``CoverTree``/``CoverTreeV2_2``) and the LSH family
 (``lsh``/``LSH``; ``LSHIndexer``/``LSHSearcher``, ``BinaryLSHIndexer``/
-``FaissLSHIndexer``). An unknown name raises the same ``ValueError`` as
+``FaissLSHIndexer``) and the row-sharded indexers (``ShardedFlatIndexer``,
+``ShardedIVFIndexer``, ``ShardedGraphIndexer``). An unknown name raises the same ``ValueError`` as
 there.
 """
 
@@ -31,6 +32,7 @@ from vectordb_retrieval_tpu_torch.models import flat  # noqa: F401,E402
 from vectordb_retrieval_tpu_torch.models import factory  # noqa: F401,E402
 from vectordb_retrieval_tpu_torch.models import lsh as _lsh  # noqa: E402
 from vectordb_retrieval_tpu_torch.models import graph as _graph  # noqa: E402
+from vectordb_retrieval_tpu_torch.models import sharded as _sharded  # noqa: F401,E402
 from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm  # noqa: E402
 from vectordb_retrieval_tpu_torch.models.covertree import CoverTree  # noqa: E402
 from vectordb_retrieval_tpu_torch.models.exact import ExactSearch  # noqa: E402

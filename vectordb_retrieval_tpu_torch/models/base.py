@@ -18,7 +18,11 @@ from typing import Any, Callable, Dict, Optional, Tuple, Type
 import numpy as np
 import torch
 
-from vectordb_retrieval_tpu_torch.utils.device import DeviceLike, resolve_device
+from vectordb_retrieval_tpu_torch.utils.device import (
+    DeviceLike,
+    resolve_device,
+    resolve_devices,
+)
 
 
 @dataclass
@@ -34,8 +38,12 @@ class IndexArtifact:
     metadata: Dict[str, Any] = field(default_factory=dict)
 
     def device_nbytes(self) -> int:
-        """Total bytes of the artifact's tensors."""
-        return sum(int(t.numel() * t.element_size()) for t in self.data.values())
+        """Total bytes of the artifact's tensors (a sharded array's: each
+        tensor once, ``parallel/mesh.ShardedTensor.device_nbytes``)."""
+        return sum(
+            t.device_nbytes() if hasattr(t, "device_nbytes") else int(t.numel() * t.element_size())
+            for t in self.data.values()
+        )
 
 
 BF16_SUFFIX = ".bf16"
@@ -149,11 +157,14 @@ class BaseAlgorithm(ABC):
 
 
 class BaseIndexer(ABC):
-    """Builds an :class:`IndexArtifact` from raw vectors on ``device``."""
+    """Builds an :class:`IndexArtifact` from raw vectors on ``device`` (a
+    list of devices: the first; the row-sharded indexers build their mesh
+    over ``devices``)."""
 
     def __init__(self, metric: str = "l2", device: DeviceLike = None, **params: Any):
         self.metric = metric
         self.device = resolve_device(device)
+        self.devices = resolve_devices(device)
         self.params = dict(params)
 
     @abstractmethod
@@ -165,11 +176,13 @@ class BaseIndexer(ABC):
 
 
 class BaseSearcher(ABC):
-    """Attaches to an artifact on ``device`` and serves batched queries."""
+    """Attaches to an artifact on ``device`` and serves batched queries (a
+    loaded row-sharded artifact is placed over a mesh of ``devices``)."""
 
     def __init__(self, metric: str = "l2", device: DeviceLike = None, **params: Any):
         self.metric = metric
         self.device = resolve_device(device)
+        self.devices = resolve_devices(device)
         self.params = dict(params)
         self.artifact: Optional[IndexArtifact] = None
 

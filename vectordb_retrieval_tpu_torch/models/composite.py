@@ -17,7 +17,11 @@ from vectordb_retrieval_tpu_torch.models.base import (
     INDEXER_REGISTRY,
     SEARCHER_REGISTRY,
 )
-from vectordb_retrieval_tpu_torch.utils.device import DeviceLike, resolve_device
+from vectordb_retrieval_tpu_torch.utils.device import (
+    DeviceLike,
+    resolve_device,
+    resolve_devices,
+)
 
 
 def _instantiate(
@@ -53,12 +57,13 @@ class CompositeAlgorithm(BaseAlgorithm):
                 "CompositeAlgorithm requires both 'indexer' and 'searcher' configs"
             )
         self.device = resolve_device(device)
+        devices = resolve_devices(device)  # a list builds a sharded index's mesh
         # Components inherit the algorithm metric unless they pin their own.
         indexer = {"metric": metric, **indexer}
         searcher = {"metric": metric, **searcher}
-        self.indexer = _instantiate(INDEXER_REGISTRY, indexer, "indexer", self.device)
+        self.indexer = _instantiate(INDEXER_REGISTRY, indexer, "indexer", devices)
         self.searcher = _instantiate(
-            SEARCHER_REGISTRY, searcher, "searcher", self.device
+            SEARCHER_REGISTRY, searcher, "searcher", devices
         )
         if name:
             self.name = name

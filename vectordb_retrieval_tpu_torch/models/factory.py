@@ -8,8 +8,9 @@ Counterpart of ``vectordb_retrieval_tpu/models/factory.py``:
 Out-of-core corpora (``np.memmap``, ``BigStore``) upload in chunks, and
 ``IVF{n},PQ{m}`` / ``IVF{n},SQ8`` without OPQ build fully streaming
 (:meth:`FactoryIndexer._build_ivf_stream`: neither host nor device ever
-holds the raw corpus). The row-sharded artifact kinds raise
-``NotImplementedError`` naming their ROADMAP item.
+holds the raw corpus). The row-sharded kinds (``ivf_flat_sharded``,
+``ivf_pq_sharded``, ``ivf_sq8_sharded``, ``graph_sharded``) come from
+``models/sharded.py`` and are searched through ``parallel/``.
 
 ``ANNSearcher`` dispatches on artifact kind with runtime params (``nprobe``
 from searcher params or artifact metadata; ``efSearch`` for ``graph``
@@ -60,14 +61,6 @@ from vectordb_retrieval_tpu_torch.utils.device import synchronize
 _FACTORY_RE = re.compile(
     r"^(?:OPQ(?P<opq>\d+),)?(?:IVF(?P<nlist>\d+),)?(?P<code>Flat|PQ(?P<m>\d+)|SQ8)$"
 )
-
-# artifact kinds of families not ported yet -> their ROADMAP item
-_NOT_PORTED_KINDS = {
-    "ivf_flat_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
-    "ivf_pq_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
-    "ivf_sq8_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
-    "graph_sharded": "ROADMAP queue 1 item 10 (row-sharded)",
-}
 
 
 def parse_index_key(index_key: str) -> Dict[str, Any]:
@@ -498,19 +491,22 @@ class ANNSearcher(BaseSearcher):
 
     SUPPORTED = (
         "flat", "pq", "sq8", "ivf_flat", "ivf_pq", "ivf_sq8", "binary_lsh", "graph",
-    ) + tuple(_NOT_PORTED_KINDS)
+        "ivf_flat_sharded", "ivf_pq_sharded", "ivf_sq8_sharded", "graph_sharded",
+    )
 
     def attach(self, artifact: IndexArtifact) -> None:
         if artifact.kind not in self.SUPPORTED:
             raise ValueError(
                 f"ANNSearcher cannot serve artifact kind {artifact.kind!r}"
             )
-        if artifact.kind in _NOT_PORTED_KINDS:
-            raise NotImplementedError(
-                f"artifact kind {artifact.kind!r} is ported with "
-                f"{_NOT_PORTED_KINDS[artifact.kind]}"
-            )
-        check_artifact_device(artifact, self.device)
+        if artifact.kind.endswith("_sharded"):
+            if not hasattr(artifact, "mesh"):
+                # loaded from disk: place the stacks over the searcher's devices
+                from vectordb_retrieval_tpu_torch.models.sharded import reshard_artifact
+
+                reshard_artifact(artifact, self.devices)
+        else:
+            check_artifact_device(artifact, self.device)
         self.artifact = artifact
 
     def _nprobe(self) -> int:
@@ -568,6 +564,20 @@ class ANNSearcher(BaseSearcher):
             out["list_centroids"] = lc
         return out
 
+    def _sharded_probe_lists(self) -> int:
+        """The reference's nprobe semantics for the sharded family: each
+        shard probes its own ``nprobe`` nearest LISTS (FAISS IndexShards'
+        per-shard ``index.nprobe``). 0 = the generous bucket budget
+        (``nprobe_semantics: buckets``, or no ``bucket_lists``)."""
+        meta = self.artifact.metadata
+        semantics = str(
+            self.params.get("nprobe_semantics", meta.get("nprobe_semantics", "lists"))
+        )
+        if semantics != "lists" or "bucket_lists" not in self.artifact.data:
+            return 0
+        raw = int(self.params.get("nprobe", meta.get("nprobe", 10)))
+        return max(1, min(raw, int(meta.get("nlist", 1))))
+
     def _score_metric(self) -> str:
         metric = self.artifact.metadata.get("metric", self.metric)
         return "ip" if metric in ("ip", "cosine") else "l2"
@@ -622,6 +632,8 @@ class ANNSearcher(BaseSearcher):
         elif kind == "graph":
             ef = int(self.params.get("efSearch", meta.get("efSearch", 100)))
             dists, ids = graph_models.graph_artifact_search(art, q, eff_k, metric, ef)
+        elif kind.endswith("_sharded"):
+            dists, ids = self._sharded_search(q, eff_k, metric)
         elif kind == "binary_lsh":
             dists, ids = lsh_models.binary_lsh_search(
                 art, q, eff_k, metric,
@@ -634,6 +646,29 @@ class ANNSearcher(BaseSearcher):
                 metric=metric, **self._probe_kwargs(),
             )
         return dists, ids
+
+    def _sharded_search(self, q: torch.Tensor, k: int, metric: str):
+        """A ``*_sharded`` artifact's search over its mesh."""
+        from vectordb_retrieval_tpu_torch import parallel as par
+
+        art = self.artifact
+        meta, d, mesh = art.metadata, art.data, art.mesh
+        if art.kind == "graph_sharded":
+            ef = int(self.params.get("efSearch", meta.get("efSearch", 100)))
+            if meta.get("mode") == "block":
+                efb, expand, iters = graph_models.block_geometry(
+                    int(meta["n_blocks"]), ef, k, block_len=int(meta.get("block_len", 128)))
+                return par.sharded_block_graph_search(
+                    q, d, k, mesh, efb=efb, expand=expand, iters=iters, metric=metric)
+            return par.sharded_graph_search(
+                q, d, meta["n_vectors"], k, mesh, ef=max(int(ef * 1.25), k + 8, 16),
+                metric=metric)
+        kw = {"nlist": int(meta.get("nlist", 0)), "nprobe_lists": self._sharded_probe_lists()}
+        if art.kind == "ivf_flat_sharded":
+            return par.sharded_ivf_flat_search(q, d, k, self._nprobe(), mesh, metric=metric, **kw)
+        return par.sharded_ivf_coded_search(
+            q, d, k, self._nprobe(), mesh,
+            coding="pq" if art.kind == "ivf_pq_sharded" else "sq8", metric=metric, **kw)
 
     def device_batch_search(self, queries: np.ndarray, k: int):
         """Dispatch without waiting: returns (dists_dev, ids_dev, n_rows)."""

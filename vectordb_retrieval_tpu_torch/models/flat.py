@@ -1,8 +1,9 @@
 """Flat (exact) index: raw vectors on the device + exact search.
 
-Counterpart of ``vectordb_retrieval_tpu/models/flat.py``, unsharded. The
-row-sharded ``ShardedFlatIndexer`` comes with the multi-device slice,
-ROADMAP queue 1 item 10.
+Counterpart of ``vectordb_retrieval_tpu/models/flat.py``: the unsharded
+``flat`` artifact, and the row-sharded ``flat_sharded`` one
+(``ShardedFlatIndexer``, searched by ``parallel/sharded.
+sharded_exact_search`` over a mesh of the indexer's devices).
 """
 
 from __future__ import annotations
@@ -52,20 +53,60 @@ class BruteForceIndexer(BaseIndexer):
         )
 
 
+@register_indexer("ShardedFlatIndexer")
+class ShardedFlatIndexer(BaseIndexer):
+    """Flat index sharded row-wise over a mesh of ``n_devices`` of the
+    indexer's devices (0 = all; a list may repeat a device).
+    ``LinearSearcher`` serves it with the cross-shard merge."""
+
+    def __init__(self, metric: str = "l2", n_devices: int = 0, **params):
+        super().__init__(metric=metric, **params)
+        self.n_devices = int(n_devices)
+
+    def build(self, vectors: np.ndarray, dimension: int) -> IndexArtifact:
+        from vectordb_retrieval_tpu_torch.models.sharded import host_rows
+        from vectordb_retrieval_tpu_torch.parallel import make_mesh, shard_database
+
+        x = host_rows(vectors, self.metric)  # cosine normalised on the host
+        n_dev = self.n_devices or len(self.devices)
+        mesh = make_mesh(n_dev, devices=self.devices)
+        sharded, n = shard_database(x, mesh)
+        art = IndexArtifact(
+            kind="flat_sharded",
+            data={"vectors": sharded},
+            metadata={
+                "metric": self.metric,
+                "dimension": int(dimension),
+                "n_vectors": int(n),
+                "normalize_queries": self.metric == "cosine",
+                "n_devices": int(n_dev),
+            },
+        )
+        art.mesh = mesh  # runtime-only (not persisted; rebuilt on load)
+        return art
+
+
 @register_searcher("LinearSearcher")
 class LinearSearcher(BaseSearcher):
-    """Exact search over a ``flat`` artifact on the searcher's device."""
+    """Exact search over a ``flat`` artifact on the searcher's device, or
+    over a ``flat_sharded`` one by the cross-shard merge."""
 
     def attach(self, artifact: IndexArtifact) -> None:
-        if artifact.kind == "flat_sharded":
-            raise NotImplementedError(
-                "row-sharded flat artifacts are ported with the multi-device "
-                "slice, ROADMAP queue 1 item 10"
-            )
-        if artifact.kind != "flat":
+        if artifact.kind not in ("flat", "flat_sharded"):
             raise ValueError(
                 f"LinearSearcher requires a 'flat' artifact, got {artifact.kind!r}"
             )
+        if artifact.kind == "flat_sharded":
+            if not hasattr(artifact, "mesh"):
+                # loaded from disk: re-shard over the searcher's devices
+                from vectordb_retrieval_tpu_torch.parallel import make_mesh, shard_database
+
+                mesh = make_mesh(artifact.metadata.get("n_devices") or None, devices=self.devices)
+                rows = np.asarray(artifact.data["vectors"].cpu())[: artifact.metadata["n_vectors"]]
+                artifact.data["vectors"], _ = shard_database(rows, mesh)
+                artifact.mesh = mesh
+            self.artifact = artifact
+            return
         on = artifact.data["vectors"].device
         if on != self.device:
             raise ValueError(f"artifact lives on {on}, searcher on {self.device}")
@@ -78,6 +119,13 @@ class LinearSearcher(BaseSearcher):
         if meta.get("normalize_queries"):
             qd = dops.normalize(qd)
         eff_k = min(k, meta["n_vectors"])
+        if self.artifact.kind == "flat_sharded":
+            from vectordb_retrieval_tpu_torch.parallel import sharded_exact_search
+
+            return sharded_exact_search(
+                qd, self.artifact.data["vectors"], meta["n_vectors"], eff_k, self.artifact.mesh,
+                metric=metric if metric != "cosine" else "ip",
+            )
         # refine=True: overfetch + accurate rescoring so near-ties at the k
         # boundary resolve exactly (dense path; blockmin is exact already)
         return dops.exact_search(

@@ -16,7 +16,11 @@ bf16 goes through ``int16`` views of the raw bits, so no bfloat16 numpy
 type (``ml_dtypes``) is needed. The JAX package's uint32 leaves (the
 ``binary_lsh`` artifact's packed ``words``) load as ``int32`` views of the
 same bits (torch's uint32 has no shifts on the CPU) and are written back as
-uint32.
+uint32. A row-sharded artifact's arrays (``parallel/mesh.ShardedTensor``)
+are written as the JAX package writes them: the stacked ``[P, ...]`` arrays
+(``flat_sharded``: the padded rows), with ``n_shards`` (``n_devices``) in
+the metadata; they load as plain tensors, and the searcher places them
+over its mesh on attach.
 """
 
 from __future__ import annotations
