@@ -168,7 +168,11 @@ on failure:
                    row: build seconds by part, index bytes, the route each
                    shard took, one primed batch's device ms split into the
                    shards' searches, the merge and the rest, QPS with ids
-                   on the host, beside the unsharded row's numbers
+                   on the host, beside the unsharded row's numbers; over
+                   db4, each kernel mode at each per-shard shape (K1 f32 /
+                   bf16 / u8 and K2 in the timed searches, K3 in the
+                   builds) timed on its last launch's inputs beside its
+                   plain version, one library call and the card's bound
      In 4, 5, 5b, 5c, 5d, 5e, 5f and 5g every kernel launch of the main path is also held
      against its plain version on the very inputs it was launched with (the
      last launch of each kernel mode, shape and stage: ground truth, each
@@ -176,7 +180,9 @@ on failure:
      search; in 5c the pair on both of the block walk's pens), after the launch
      counts are read
   6. throughput  - exact search QPS at the flagship shape (100k x 384, l2,
-                   top-20, batches of 256) and at 1M x 128 (w = 32); each IVF
+                   top-20, batches of 256; the workload and clock of
+                   vectordb_retrieval_tpu_torch/flagship.py) and at 1M x 128
+                   (w = 32); each IVF
                    row's QPS and its per-batch device time by stage (IVF-PQ:
                    the decode of every list; coarse probe, K1, probed
                    selection, rescore, rest); the assignment at 1M x 1024 x
@@ -200,7 +206,20 @@ on failure:
                    and the card's bound (K1 f32, blockmin and assign: the
                    bound of their 3xTF32 route, and the FP32 bound beside
                    it)
-  7. the kernels line, the nvidia-smi line, and last the result line.
+  7. entry points - the port's CLIs as subprocesses with no --device (the
+                   card is their default): the flagship (its JSON line beside
+                   phase 6's QPS for the same workload), then together
+                   scripts.run_full_benchmark on the smoke config (no row
+                   error, exact recall 1.0, the four roofline keys on every
+                   row, numbers in the summary's TFLOP/s and GB/s columns),
+                   main and scripts.run_experiment on configs/default.yaml,
+                   scripts.parameter_sweep on configs/sweep_example.yaml (6
+                   combinations), scripts.compare_algorithms on the smoke
+                   config (2 runs, every pair's tests) and
+                   --create-config; then phase 4's exact row (100k x 384,
+                   l2): its counted work at least K1 f32's formula, and one
+                   exact-search batch counted alike on the card and the host
+  8. the kernels line, the nvidia-smi line, and last the result line.
 
 Imports nothing of JAX. Writes its YAML and the runner's outputs under
 ``_smoke_out/`` of the checkout (git-ignored).
@@ -1106,7 +1125,7 @@ def _check_gt_float64(train, queries, gt_ids, metric, n_check=64, k=TOPK):
     return worst
 
 
-def phase_main_path(card: str, worst: dict) -> int:
+def phase_main_path(card: str, worst: dict) -> tuple:
     import torch
     import yaml
 
@@ -1139,7 +1158,7 @@ def phase_main_path(card: str, worst: dict) -> int:
         search_calls.append(kernels.LAUNCHES["dist_blockmin"] - before)
         return out
 
-    total = 0
+    total, exact_rows = 0, {}
     os.makedirs(OUT_DIR, exist_ok=True)
     datasets.compute_ground_truth = counted_gt
     experiment.ExperimentRunner._timed_search = counted_search
@@ -1193,10 +1212,11 @@ def phase_main_path(card: str, worst: dict) -> int:
                 "gt_float64_max_rel_err": rel, "gt_float64_tol": GT_REL_TOL,
             })
             total += launches
+            exact_rows[metric] = row
     finally:
         datasets.compute_ground_truth = orig_gt
         experiment.ExperimentRunner._timed_search = orig_search
-    return total
+    return total, exact_rows
 
 
 # ---- 5. IVF path and 5b. graph path ----------------------------------------
@@ -1514,6 +1534,8 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
         experiment.ExperimentRunner.run = orig_run
         CompositeAlgorithm.build_index = orig_build
         experiment.ExperimentRunner._timed_search = orig_search
+    if cfg.get("shards") == SHARDED_TIMED_SHARDS:
+        _time_captured_kernels(card, cfg["name"], launched, counts)
     check_launched(launched, cfg["name"], worst)
 
     ds_name = _ivf_dataset(cfg)["name"]
@@ -1631,6 +1653,88 @@ def phase_runner_path(card: str, cfg, worst: dict) -> dict:
     if cfg.get("dataset") == "sift1m":  # integer rows: exact ties (card vs host)
         out["train"] = runner.dataset.train_vectors
     return out
+
+
+def _k1_numbers(q, x, pen, w) -> dict:
+    """K1 on one launch's inputs: the kernel, its plain version, one
+    library product (the f32 mode in FP32 with TF32 off, the bf16 / u8
+    modes as a bf16 product of the widened payload) and the card's bound."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    ms = time_ms(lambda: kernels.dist_blockmin(q, x, pen, w=w), prime=True)
+    plain_ms = time_ms(lambda: kernels.dist_blockmin_reference(q, x, pen, w=w),
+                       reps=5, warmup=1)
+    if x.dtype == torch.float32:
+        library_ms = time_ms(lambda: torch.matmul(q, x.T), reps=10)
+    else:
+        qb, xb = q.to(torch.bfloat16), x.to(torch.bfloat16)  # outside the clock
+        library_ms = time_ms(lambda: torch.matmul(qb, xb.T), reps=10)
+        del xb
+    (b, d), s_rows = q.shape, x.shape[0]
+    flops, nbytes = kernels.dist_blockmin_work(b, s_rows, d, w, x.dtype)
+    if x.dtype == torch.float32:
+        bounds = _tf32x3_bounds(2.0 * b * s_rows * d, flops, nbytes)
+    else:
+        flop_ms = flops / BF16_PEAK_FLOPS * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bounds = {"bound_ms": max(flop_ms, byte_ms),
+                  "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bounds,
+            "flops": flops, "bytes": nbytes, "shape": [b, s_rows, d, w]}
+
+
+def _assign_numbers(p, c) -> dict:
+    """K3 on one launch's inputs: kernel, plain version, one FP32 library
+    product (TF32 off) and the bounds of its 3xTF32 route."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    ms = time_ms(lambda: kernels.assign(p, c), reps=10, prime=True)
+    plain_ms = time_ms(lambda: kernels.assign_reference(p, c), reps=3, warmup=1)
+    library_ms = time_ms(lambda: torch.matmul(p, c.T), reps=10)
+    (n, d), k = p.shape, c.shape[0]
+    flops, nbytes = kernels.assign_work(n, k, d)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            **_tf32x3_bounds(2.0 * n * k * d, flops, nbytes), "flops": flops,
+            "bytes": nbytes, "shape": [n, k, d]}
+
+
+# the row-sharded kernels are timed on the launches of this mesh's run
+SHARDED_TIMED_SHARDS = 4
+
+
+def _time_captured_kernels(card: str, name: str, store: dict, counts: dict) -> None:
+    """Each kernel mode at each per-shard shape of a row-sharded run, timed
+    on the inputs of its last launch there (K1 and K2 in the timed
+    searches, K3 in the builds, each distinct shape once), with its plain
+    version, one library call and the card's bound; ``launches`` are the
+    run's calls at that key."""
+    t0 = time.perf_counter()
+    entries, seen = [], set()
+    for key, args in store.items():
+        stage, kname = key[0], key[1]
+        if key[1:] in seen or kname == PAIR:
+            continue
+        if kname == "assign" and stage.endswith("/build"):
+            nums = _assign_numbers(*args)
+        elif kname == "slab_dots" and stage.endswith("/search"):
+            nums = _slab_dots_numbers(*args)
+            nums = {"ms": nums.pop("slab_dots_ms"), **nums}
+        elif kname in _MODE_NAME.values() and stage.endswith("/search"):
+            nums = _k1_numbers(*args)
+        else:
+            continue
+        seen.add(key[1:])
+        calls = sum(n for k, n in counts.items() if k[1:] == key[1:])
+        entries.append({"name": kname, "stage": stage, "launches": calls,
+                        "dtype": str(args[1].dtype).replace("torch.", ""),
+                        **{k: nums[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                                "bound_ms", "bound_by", "flops", "bytes")}})
+    emit({"phase": "sharded_kernels", "config": name, "card": card, "kernels": entries,
+          "seconds": time.perf_counter() - t0})
 
 
 def _recall_gate(card: str, cfg, ds, runner) -> None:
@@ -2246,33 +2350,24 @@ def _tf32x3_bounds(product_flops: float, flops: float, nbytes: float) -> dict:
 
 
 def phase_throughput(card: str, n: int, d: int, batches: int) -> dict:
+    """Exact search's QPS at [n, d] through the flagship's own definition
+    (``vectordb_retrieval_tpu_torch.flagship``: its draws, one untimed
+    batch, the clock stopping with the ids on the host), then one batch's
+    device time split into K1, ``_select_blocks`` and the rest."""
     import torch
 
+    from vectordb_retrieval_tpu_torch import flagship
     from vectordb_retrieval_tpu_torch.ops import distances as dops
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     dev = torch.device(DEV)
-    rng = np.random.default_rng(SEED)
-    db = torch.as_tensor(rng.standard_normal((n, d), dtype=np.float32), device=dev)
-    sqn = dops.sq_norms(db)
-    qs = torch.as_tensor(
-        rng.standard_normal((batches, BATCH, d), dtype=np.float32), device=dev
-    )
+    db, sqn, qs = flagship.make_workload(n, d, batches, BATCH, SEED, dev)
 
     def search(qb):
         return dops.exact_search(qb, db, TOPK, metric="l2", db_sqnorms=sqn, device=dev)
 
-    search(qs[0])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ids = [search(qs[i])[1] for i in range(batches)]
-    torch.cuda.synchronize()
-    ids_host = torch.stack(ids).cpu().numpy()
-    elapsed = time.perf_counter() - t0
-    if ids_host.shape != (batches, BATCH, TOPK):
-        raise AssertionError(f"throughput ids shape {ids_host.shape}")
-    if ids_host.min() < 0 or ids_host.max() >= n:
-        raise AssertionError("throughput ids out of range")
+    elapsed, ids_host = flagship.timed_stream(db, sqn, qs, TOPK)
+    flagship.check_ids(ids_host, batches, BATCH, TOPK, n)
 
     # stage 1 alone at the main path's inputs
     w = dops.blockmin_width(n)
@@ -2289,8 +2384,8 @@ def phase_throughput(card: str, n: int, d: int, batches: int) -> dict:
     nb = min(TOPK + dops._BLOCKMIN_SLACK, bmins.shape[1])
     select_ms = time_ms(lambda: dops._select_blocks(bmins, nb))
     batch_ms = time_ms(lambda: search(q))
-    flops = 2.0 * BATCH * s * d + 2.0 * BATCH * s  # products, pen add, min
-    nbytes = 4.0 * (BATCH * d + s * d + s + BATCH * (s // w))
+    # products, pen add, min; each input read once, the minima written once
+    flops, nbytes = kernels.dist_blockmin_work(BATCH, s, d, w, torch.float32)
     bounds = _tf32x3_bounds(2.0 * BATCH * s * d, flops, nbytes)
     out = {
         "phase": "throughput", "shape": [n, d], "metric": "l2", "topk": TOPK,
@@ -2303,7 +2398,7 @@ def phase_throughput(card: str, n: int, d: int, batches: int) -> dict:
         "rescore_and_rest_ms": batch_ms - kernel_ms - select_ms,
     }
     emit(out)
-    del db, qs, ids
+    del db, qs
     torch.cuda.empty_cache()
     return out
 
@@ -3905,6 +4000,237 @@ def phase_sharded(card: str, sharded_paths, sift_path, unsharded: dict, worst: d
     return out
 
 
+# ---- 7. entry points ---------------------------------------------------------
+
+ENTRY_DIR = os.path.join(OUT_DIR, "entry")
+ENTRY_TIMEOUT = 300
+ROOFLINE_KEYS = ("kernel_flops_per_batch", "achieved_tflops", "kernel_bytes_per_batch",
+                 "achieved_gbps")
+SMOKE_CONFIG = os.path.join(REPO, "configs", "benchmark_config_smoke.yaml")
+
+
+def _run_entries(cmds: dict) -> dict:
+    """Run the port's CLIs (``python -m vectordb_retrieval_tpu_torch.<module>
+    ...``, no ``--device``: the card is their default) all at once from
+    ENTRY_DIR, each one's output in ENTRY_DIR/<name>.out / .err; name ->
+    (exit code, stdout, seconds). Every process is stopped before this
+    returns."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = {}
+    try:
+        for name, (module, *args) in cmds.items():
+            out = open(os.path.join(ENTRY_DIR, f"{name}.out"), "w")
+            err = open(os.path.join(ENTRY_DIR, f"{name}.err"), "w")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", f"vectordb_retrieval_tpu_torch.{module}", *args],
+                cwd=ENTRY_DIR, env=env, stdout=out, stderr=err)
+            procs[name] = (proc, out, err, time.perf_counter())
+        done = {}
+        for name, (proc, out, err, t0) in procs.items():
+            rc = proc.wait(timeout=ENTRY_TIMEOUT)
+            done[name] = (rc, time.perf_counter() - t0)
+    finally:
+        for proc, out, err, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+    results = {}
+    for name, (rc, seconds) in done.items():
+        with open(os.path.join(ENTRY_DIR, f"{name}.out")) as f:
+            stdout = f.read()
+        if rc != 0:
+            with open(os.path.join(ENTRY_DIR, f"{name}.err")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"entry point {name} exited {rc}:\n{tail}")
+        results[name] = (rc, stdout, seconds)
+    return results
+
+
+def _one_dir(parent: str) -> str:
+    (sub,) = [d for d in os.listdir(parent) if os.path.isdir(os.path.join(parent, d))]
+    return os.path.join(parent, sub)
+
+
+def _check_full_benchmark(out_dir: str) -> dict:
+    """The smoke config through run_full_benchmark: no row error, the exact
+    row at recall 1.0, the four roofline keys on every row (every algorithm
+    of the port has a device kernel) and numbers in the summary's TFLOP/s
+    and GB/s columns."""
+    run_dir = _one_dir(out_dir)
+    with open(os.path.join(run_dir, "all_results.json")) as f:
+        rows = json.load(f)["random"]
+    if "error" in rows:
+        raise AssertionError(f"run_full_benchmark: dataset error {rows['error']}")
+    for name, row in rows.items():
+        if "error" in row:
+            raise AssertionError(f"run_full_benchmark/{name}: {row['error']}")
+        missing = [k for k in ROOFLINE_KEYS if not row.get(k, 0) > 0]
+        if missing:
+            raise AssertionError(f"run_full_benchmark/{name}: no {missing}")
+    if rows["exact"]["recall"] != 1.0:
+        raise AssertionError(f"run_full_benchmark/exact: recall {rows['exact']['recall']}")
+    with open(os.path.join(run_dir, "benchmark_summary.md")) as f:
+        table = [ln for ln in f.read().splitlines()
+                 if ln.startswith("| ") and ln.split("|")[1].strip() in rows]
+    for ln in table:
+        cells = [c.strip() for c in ln.split("|")[1:-1]]
+        if "-" in (cells[6], cells[7]):
+            raise AssertionError(f"run_full_benchmark summary: no rate in {ln}")
+    if len(table) != len(rows):
+        raise AssertionError(f"run_full_benchmark summary: {len(table)} rows of {len(rows)}")
+    return {name: {"recall": row["recall"], "qps": row["qps"],
+                   **{k: row[k] for k in ROOFLINE_KEYS}} for name, row in rows.items()}
+
+
+def _check_experiment(name: str, out_dir: str, stdout: str = None) -> dict:
+    """main / run_experiment on configs/default.yaml: every row without
+    error, exact at recall 1.0; main's per-row lines printed."""
+    import yaml
+
+    with open(os.path.join(REPO, "configs", "default.yaml")) as f:
+        algos = set(yaml.safe_load(f)["algorithms"])
+    (res,) = [f for f in os.listdir(out_dir) if f.endswith("_all_results.json")]
+    with open(os.path.join(out_dir, res)) as f:
+        rows = json.load(f)
+    if set(rows) != algos or any("error" in r for r in rows.values()):
+        raise AssertionError(f"{name}: rows {sorted(rows)}, errors "
+                             f"{ {k: r.get('error') for k, r in rows.items()} }")
+    if rows["exact"]["recall"] != 1.0:
+        raise AssertionError(f"{name}: exact recall {rows['exact']['recall']}")
+    if stdout is not None:
+        printed = {ln.split(":")[0] for ln in stdout.splitlines() if " recall=" in ln}
+        if printed != algos:
+            raise AssertionError(f"{name}: printed rows {sorted(printed)}")
+    return {k: {"recall": r["recall"], "qps": r["qps"]} for k, r in rows.items()}
+
+
+def _check_sweep(out_dir: str) -> dict:
+    for f in ("sweep_results.csv", "sweep_results.json", "sweep_summary.md"):
+        if not os.path.exists(os.path.join(out_dir, f)):
+            raise AssertionError(f"parameter_sweep: no {f}")
+    with open(os.path.join(out_dir, "sweep_results.json")) as f:
+        data = json.load(f)
+    analysis = data["analysis"]
+    if (len(data["rows"]) != 6 or analysis["n_combinations"] != 6
+            or set(analysis) != {"best_recall", "best_qps", "balanced", "n_combinations",
+                                 "timestamp"}
+            or any("error" in r or "recall" not in r for r in data["rows"])):
+        raise AssertionError(f"parameter_sweep: {data}")
+    return {"combinations": 6, "best_recall": analysis["best_recall"]}
+
+
+def _check_compare(out_dir: str) -> dict:
+    import yaml
+
+    with open(SMOKE_CONFIG) as f:
+        algos = sorted(yaml.safe_load(f)["algorithms"])
+    for f in ("comparison_stats.json", "comparison_summary.md"):
+        if not os.path.exists(os.path.join(out_dir, f)):
+            raise AssertionError(f"compare_algorithms: no {f}")
+    with open(os.path.join(out_dir, "comparison_stats.json")) as f:
+        report = json.load(f)
+    stats, sig = report["statistics"], report["significance"]
+    pairs = {f"{a}_vs_{b}" for i, a in enumerate(algos) for b in algos[i + 1:]}
+    if (report["n_runs"] != 2 or sorted(stats) != algos
+            or any(s["recall"]["n"] != 2 for s in stats.values())
+            or stats["exact"]["recall"]["mean"] != 1.0 or set(sig) != pairs
+            or any(set(t) != {"t_stat", "t_pvalue", "u_stat", "u_pvalue"}
+                   for t in sig.values())):
+        raise AssertionError(f"compare_algorithms: {report}")
+    return {"algorithms": len(algos), "pairs": len(pairs)}
+
+
+def phase_entry_points(card: str, flagship_phase: dict, exact_row: dict) -> dict:
+    """The port's CLIs on the card (no --device): the flagship beside
+    phase_throughput's QPS for the same workload, then run_full_benchmark
+    on the smoke config, main and run_experiment on configs/default.yaml,
+    parameter_sweep on configs/sweep_example.yaml, compare_algorithms on
+    the smoke config (2 runs) and run_full_benchmark --create-config, all
+    at once; then the counted work of the 100k x 384 exact row against K1's
+    formula, and of one exact-search batch on the card against the host."""
+    import torch
+    import yaml
+
+    from vectordb_retrieval_tpu_torch import flagship
+    from vectordb_retrieval_tpu_torch.ops import distances as dops
+    from vectordb_retrieval_tpu_torch.ops import kernels
+    from vectordb_retrieval_tpu_torch.utils.profiling import cost_estimate
+
+    t0 = time.perf_counter()
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    os.makedirs(ENTRY_DIR)
+    out = {name: os.path.join(ENTRY_DIR, name) for name in
+           ("full", "main", "experiment", "sweep", "compare")}
+    created = os.path.join(ENTRY_DIR, "created.yaml")
+
+    # the flagship alone on the card, then the rest together
+    _, stdout, flagship_s = _run_entries({"flagship": ("flagship",)})["flagship"]
+    line = json.loads(stdout.strip().splitlines()[-1])
+    limit = float(card.split(",")[-1].strip().split()[0])
+    if (set(line) != {"metric", "value", "unit", "vs_baseline", "device", "power_limit_w"}
+            or line["metric"] != "exact_search_qps_100k_384d_top20"
+            or line["device"] != torch.cuda.get_device_name(0)
+            or line["power_limit_w"] != limit or not line["value"] > 0):
+        raise AssertionError(f"flagship line {line}")
+    emit({"phase": "flagship", **line, "nvidia_smi": card, "seconds": flagship_s,
+          "phase_throughput_qps": flagship_phase["qps"]})
+
+    default = os.path.join(REPO, "configs", "default.yaml")
+    runs = _run_entries({
+        "full": ("scripts.run_full_benchmark", "--config", SMOKE_CONFIG,
+                 "--output-dir", out["full"]),
+        "main": ("main", "--config", default, "--output-dir", out["main"]),
+        "experiment": ("scripts.run_experiment", "--config", default,
+                       "--output-dir", out["experiment"]),
+        "sweep": ("scripts.parameter_sweep", "--config",
+                  os.path.join(REPO, "configs", "sweep_example.yaml"),
+                  "--output-dir", out["sweep"]),
+        "compare": ("scripts.compare_algorithms", "--config", SMOKE_CONFIG, "--runs", "2",
+                    "--output-dir", out["compare"]),
+        "create_config": ("scripts.run_full_benchmark", "--create-config", created),
+    })
+    with open(created) as f:
+        cfg = yaml.safe_load(f)
+    if not {"indexers", "searchers", "algorithms", "datasets"} <= set(cfg):
+        raise AssertionError(f"--create-config wrote {sorted(cfg)}")
+    checks = {
+        "run_full_benchmark": _check_full_benchmark(out["full"]),
+        "main": _check_experiment("main", out["main"], runs["main"][1]),
+        "run_experiment": _check_experiment("run_experiment", out["experiment"]),
+        "parameter_sweep": _check_sweep(out["sweep"]),
+        "compare_algorithms": _check_compare(out["compare"]),
+        "create_config": sorted(cfg),
+    }
+
+    # the exact row (100k x 384, l2, batches of 256) of phase 4: its counted
+    # work holds K1 f32's at least; one batch counts alike on card and host
+    k1_flops, k1_bytes = kernels.dist_blockmin_work(BATCH, 100_000, 384, 8, torch.float32)
+    if not (exact_row["kernel_flops_per_batch"] >= k1_flops
+            and exact_row["kernel_bytes_per_batch"] >= k1_bytes):
+        raise AssertionError(f"exact row counted work {exact_row} under K1's "
+                             f"{k1_flops}, {k1_bytes}")
+    dev = torch.device(DEV)
+    db, sqn, qs = flagship.make_workload(100_000, 384, 1, BATCH, SEED, dev)
+    card_cost = cost_estimate(dops.exact_search, qs[0], db, TOPK, "l2", sqn, device=dev)
+    host_cost = cost_estimate(dops.exact_search, qs[0].cpu(), db.cpu(), TOPK, "l2",
+                              sqn.cpu(), device="cpu")
+    if card_cost != host_cost:
+        raise AssertionError(f"counted work card {card_cost} != host {host_cost}")
+    del db, qs, sqn
+    torch.cuda.empty_cache()
+    result = {
+        "phase": "entry_points", "card": card, "checks": checks,
+        "seconds_each": {name: r[2] for name, r in runs.items()},
+        "exact_row": {k: exact_row[k] for k in ("qps", *ROOFLINE_KEYS)},
+        "k1_flops_per_batch": k1_flops, "k1_bytes_per_batch": k1_bytes,
+        "exact_batch_counted": card_cost, "seconds": time.perf_counter() - t0,
+    }
+    emit(result)
+    return result
+
+
 def main() -> int:
     launcher = _start_launcher()
     try:
@@ -3937,7 +4263,8 @@ def _main(launcher) -> int:
     launches = {name: 0 for name in worst}
     # no path of the system calls blockmin: its launches are phase 3's
     launches["blockmin"] = kernels.LAUNCHES["blockmin"]
-    launches["dist_blockmin"] += phase_main_path(card, worst)
+    main_launches, exact_rows = phase_main_path(card, worst)
+    launches["dist_blockmin"] += main_launches
     paths = [phase_runner_path(card, cfg, worst) for cfg in RUNNER_CONFIGS]
     ct_paths = [phase_covertree_path(card, cfg, worst) for cfg in COVERTREE_CONFIGS]
     def add(run, cover_tree):
@@ -4014,6 +4341,7 @@ def _main(launcher) -> int:
         unsharded[key] = {"qps": run["qps"]["unfiltered"]["qps"],
                           "batch_device_ms": run["batch_device_ms"]}
     add(phase_sharded(card, sharded_paths, paths[0], unsharded, worst)["launches"], False)
+    phase_entry_points(card, flagship, exact_rows["l2"])
 
     src = "vectordb_retrieval_tpu_torch/csrc/"
     tpu = "vectordb_retrieval_tpu/ops/pallas_kernels.py"

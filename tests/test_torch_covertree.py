@@ -526,9 +526,10 @@ def test_experiment_runner_row_matches_jax(tmp_path):
     assert "error" not in g, g
     assert g["recall@10"] == w["recall@10"] == 1.0
     assert got["random"]["exact"]["recall@10"] == 1.0
-    # the JAX runner's roofline keys come from its TPU cost model
+    # the JAX runner's roofline keys come from its cost model, the port's
+    # from counted work
     roofline = {"kernel_flops_per_batch", "achieved_tflops", "kernel_bytes_per_batch",
                 "achieved_gbps"}
-    assert set(g) == set(w) - roofline
+    assert set(g) == set(w) and roofline <= set(g)
     assert g["parameters"]["descent"] == "auto" and g["parameters"]["name"] == "covertree_v2_2"
     assert g["operations_per_query"] > 0

@@ -29,7 +29,7 @@ def _port_modules():
 
 def test_port_modules_do_not_load_jax_or_the_jax_package():
     mods = _port_modules()
-    assert len(mods) >= 37, mods
+    assert len(mods) >= 62, mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -65,6 +65,19 @@ def test_port_sources_name_no_forbidden_import():
     assert _IMPORT.search("from vectordb_retrieval_tpu.ops import x")
     assert not _IMPORT.search("from vectordb_retrieval_tpu_torch.ops import x")
     assert _IMPORT.search("    import ml_dtypes")
+
+
+def test_port_sources_leave_sys_path_alone():
+    """The port's entry points are modules run with ``python -m``; none
+    edits ``sys.path``."""
+    hits = []
+    for root, _, names in os.walk(PKG_DIR):
+        for n in names:
+            if n.endswith(".py"):
+                with open(os.path.join(root, n)) as f:
+                    if "sys.path" in f.read():
+                        hits.append(os.path.join(root, n))
+    assert not hits, hits
 
 
 def test_bf16_artifacts_persist_without_ml_dtypes(tmp_path):
@@ -207,6 +220,21 @@ def _entry_point(name, tmp_path):
         from vectordb_retrieval_tpu_torch.bench import validate_bigcorpus
 
         validate_bigcorpus.main(["--rows", "64", "--data-dir", str(tmp_path / "bc")])
+    elif name in ("main", "flagship", "scripts.run_experiment",
+                  "scripts.run_full_benchmark", "scripts.parameter_sweep",
+                  "scripts.compare_algorithms", "scripts.matched_conditions",
+                  "data.dataprep.embed_msmarco"):
+        import importlib
+
+        cfg = tmp_path / "c.yaml"
+        cfg.write_text("datasets: [random]\nalgorithms: {}\nsweep: {}\nalgorithm: {}\n")
+        args = {"main": ["--config", str(cfg)], "flagship": [],
+                "scripts.matched_conditions": ["--out", str(tmp_path / "m.json")],
+                "data.dataprep.embed_msmarco": ["--input-dir", str(tmp_path),
+                                                "--output-dir", str(tmp_path / "e"),
+                                                "--synthetic"]}.get(
+            name, ["--config", str(cfg), "--output-dir", str(tmp_path / "o")])
+        importlib.import_module(f"vectordb_retrieval_tpu_torch.{name}").main(args)
     elif name == "BenchmarkRunner":
         from vectordb_retrieval_tpu_torch.bench.runner import BenchmarkRunner
 
@@ -223,7 +251,10 @@ def _entry_point(name, tmp_path):
      "GraphIndexer", "HNSW", "CoverTree", "msmarco_surrogate", "manifold",
      "FactoryIndexer_pq", "LSHIndexer", "LSHSearcher", "BinaryLSHIndexer", "LSH",
      "glove50_surrogate", "MutableFlatIndex", "MutableIVFIndex", "corpus_to_device",
-     "streamed_exact_search", "validate_bigcorpus"],
+     "streamed_exact_search", "validate_bigcorpus", "main", "flagship",
+     "scripts.run_experiment", "scripts.run_full_benchmark", "scripts.parameter_sweep",
+     "scripts.compare_algorithms", "scripts.matched_conditions",
+     "data.dataprep.embed_msmarco"],
 )
 def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
     if torch.cuda.is_available():

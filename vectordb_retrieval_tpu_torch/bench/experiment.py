@@ -8,6 +8,10 @@ combined JSON and plots.
 Timing: queries are uploaded before the clock. The clock covers every
 batch of every ``repeat`` pass, then a ``torch.cuda.synchronize()`` and the
 copy of the ids to host, so it stops only once the results are on the host.
+Each row with a device kernel also carries the roofline keys
+(``kernel_flops_per_batch``, ``achieved_tflops``,
+``kernel_bytes_per_batch``, ``achieved_gbps``) from the counted work of one
+batch (:meth:`ExperimentRunner._roofline`).
 
 Persistence: the modes ``build_only`` / ``retrieve_only`` /
 ``build_and_retrieve`` with dataset fingerprint and config hash validation,
@@ -40,6 +44,7 @@ from vectordb_retrieval_tpu_torch.utils.device import (
     synchronize,
 )
 from vectordb_retrieval_tpu_torch.utils.hashing import stable_hash
+from vectordb_retrieval_tpu_torch.utils.profiling import cost_estimate
 
 logger = logging.getLogger(__name__)
 
@@ -331,7 +336,43 @@ class ExperimentRunner:
         )
         if ops.get("ndis"):
             base_metrics["operations_per_query"] = ops["ndis"] / max(len(queries), 1)
+        base_metrics.update(self._roofline(algorithm, queries, k, base_metrics["qps"]))
         return base_metrics, indices, query_times
+
+    def _roofline(
+        self,
+        algorithm: BaseAlgorithm,
+        queries: np.ndarray,
+        k: int,
+        qps: float,
+    ) -> Dict[str, float]:
+        """Achieved TFLOP/s and GB/s from the counted work of one batch.
+
+        ``utils/profiling.cost_estimate`` runs ``device_kernel`` once on one
+        untimed batch of ``min(query_batch_size or n, n)`` queries (after
+        the timed passes, outside their clock) and counts its operations
+        and bytes from shapes: the kernel wrappers' own formulas and the
+        aten ops around them. Throughput is that per-batch work times the
+        measured batches per second. A row with no counted work gets no
+        keys.
+        """
+        if not getattr(algorithm, "has_device_kernel", False) or qps <= 0:
+            return {}
+        n = queries.shape[0]
+        batch = min(self.config.query_batch_size or n, n)
+        qb = torch.as_tensor(
+            np.ascontiguousarray(queries[:batch], dtype=np.float32), device=self.device
+        )
+        cost = cost_estimate(algorithm.device_kernel, qb, k)
+        if not cost:
+            return {}
+        batches_per_s = qps / float(batch)
+        return {
+            "kernel_flops_per_batch": cost["flops"],
+            "achieved_tflops": cost["flops"] * batches_per_s / 1e12,
+            "kernel_bytes_per_batch": cost["bytes_accessed"],
+            "achieved_gbps": cost["bytes_accessed"] * batches_per_s / 1e9,
+        }
 
     def _timed_search(
         self,

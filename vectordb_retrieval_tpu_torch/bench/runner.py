@@ -26,6 +26,7 @@ import os
 from datetime import datetime
 from typing import Any, Dict, List, Optional
 
+import torch
 import yaml
 
 from vectordb_retrieval_tpu_torch.bench.config import ExperimentConfig
@@ -37,6 +38,10 @@ from vectordb_retrieval_tpu_torch.utils.device import (
 )
 
 logger = logging.getLogger("vectordb_retrieval_tpu_torch.benchmark")
+
+# HBM3 bandwidth of the H100 SXM (NVIDIA data sheet, 700 W): a GB/s cell
+# above it counts bytes that caches and reuse served, marked † in the summary
+HBM_PEAK_GBPS = 3350.0
 
 GLOBAL_KEYS = (
     "n_queries",
@@ -261,6 +266,10 @@ class BenchmarkRunner:
                 if not isinstance(m, dict) or alg.startswith("_"):
                     continue
                 status = m.get("status", "ok" if "error" not in m else "error")
+                gbps = m.get("achieved_gbps")
+                gbps_cell = self._fmt(gbps, ".1f")
+                if isinstance(gbps, (int, float)) and gbps > HBM_PEAK_GBPS:
+                    gbps_cell += " †"
                 lines.append(
                     f"| {alg} | {self._fmt(m.get('recall'))} "
                     f"| {self._fmt(m.get('qps'), '.2f')} "
@@ -268,17 +277,30 @@ class BenchmarkRunner:
                     f"| {self._fmt(m.get('build_time_s'), '.2f')} "
                     f"| {self._fmt(m.get('index_memory_mb'), '.2f')} "
                     f"| {self._fmt(m.get('achieved_tflops'), '.2f')} "
-                    f"| {self._fmt(m.get('achieved_gbps'), '.1f')} "
+                    f"| {gbps_cell} "
                     f"| {status} |"
                 )
             lines.append("")
             lines.append(
-                "TFLOP/s and GB/s print '-' until they are filled from "
-                "counted work."
+                "TFLOP/s and GB/s: the counted work of one batch of the row's "
+                "device kernel (utils/profiling.cost_estimate: the kernel "
+                "wrappers' operations and bytes from their shapes, each input "
+                "read once and each output written once, plus the aten matrix "
+                "products and the logical bytes of the aten ops around them) "
+                "times the measured batches per second; '-' = no device "
+                f"kernel. Run on {self._device_name()}. † marks rates above "
+                f"the H100 SXM's {HBM_PEAK_GBPS:,.0f} GB/s HBM3 peak (data "
+                "sheet): logical bytes that caches and reuse served, not "
+                "bandwidth."
             )
             lines.append("")
         with open(os.path.join(self.output_dir, "benchmark_summary.md"), "w") as f:
             f.write("\n".join(lines))
+
+    def _device_name(self) -> str:
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return "the host CPU (counts only: its rates are no card's)"
 
     def _svg_scatter(
         self, points: List[Dict[str, Any]], title: str
@@ -390,7 +412,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="torch device (default: the CUDA card; 'cpu' runs on the host)",
     )
     args = parser.parse_args(argv)
-    runner =BenchmarkRunner(args.config, output_dir=args.output_dir, device=args.device)
+    runner = BenchmarkRunner(args.config, output_dir=args.output_dir, device=args.device)
     runner.run()
     print(f"results written to {runner.output_dir}")
     return 0

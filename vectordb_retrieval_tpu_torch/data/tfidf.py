@@ -2,11 +2,11 @@
 
 Counterpart of ``vectordb_retrieval_tpu/data/tfidf.py`` (a copy: the same
 NumPy arithmetic, so the same texts give bit-identical vectors in both
-packages), plus :func:`read_tsv`, the JAX package's reader of ``id<TAB>text``
-files (``data/dataprep/embed_msmarco.py``). Tokens hash into a fixed-width
-feature space (signed hashing-trick buckets), tf-idf weighting is computed
-from streamed document frequencies, and a gaussian random projection brings
-vectors to the target dimensionality.
+packages), plus :func:`read_tsv`, the reader of ``id<TAB>text`` files that
+``data/dataprep/embed_msmarco.py`` uses in both packages. Tokens hash into
+a fixed-width feature space (signed hashing-trick buckets), tf-idf
+weighting is computed from streamed document frequencies, and a gaussian
+random projection brings vectors to the target dimensionality.
 """
 
 from __future__ import annotations

@@ -86,6 +86,10 @@ class CompositeAlgorithm(BaseAlgorithm):
         """Device queries in, device ``(dists, ids)`` out (no host copy)."""
         return self.searcher.device_kernel(q, k)
 
+    @property
+    def has_device_kernel(self) -> bool:
+        return hasattr(self.searcher, "device_kernel")
+
     def record_stream_ops(self, n_queries: int) -> None:
         """Analytic op accounting for ``n_queries`` searched queries."""
         n = self.artifact.metadata.get("n_vectors", 0) if self.artifact else 0

@@ -37,17 +37,30 @@ use, into ``_build/<hash of source, every header and flags>/``, and loaded
 with ``ctypes`` through a plain C interface. Every launch adds one to
 ``LAUNCHES[name]`` (one name per kernel mode); nothing else touches the
 counts.
+
+Counted work: while a :func:`count_work` scope is open, every wrapper call
+adds the operations and bytes of the function it computes to the scope,
+before it branches to the plain version or the kernel, so the CPU and the
+card count the same work for the same inputs. Operations are the
+products' multiply-adds (two each) plus one per add and per minimum of the
+epilogue for every candidate; bytes are each input read once and each
+output written once (the queries at the width the kernel reads them). What
+a wrapper does inside itself (the plain version, casts, norms, splits) is
+not counted again: :func:`inside_wrapper` is true while it runs.
+``utils/profiling.cost_estimate`` sums these counts with the aten ops that
+run outside the wrappers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -88,10 +101,91 @@ BUILD_LOG: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
+# the work counts open now (count_work), and the wrapper calls running now
+_WORK: List[Dict[str, float]] = []
+_DEPTH = [0]
+
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def count_work() -> Iterator[Dict[str, float]]:
+    """Open a count of the wrappers' work: ``{"flops", "bytes", "calls"}``,
+    summed over every wrapper call made until the scope closes (scopes
+    nest; each counts every call made while it is open). Nothing is counted
+    while no scope is open, so the timed paths pay nothing for it; under a
+    scope :func:`slab_dots` reads its distinct slabs, which waits for the
+    device."""
+    work = {"flops": 0.0, "bytes": 0.0, "calls": 0}
+    _WORK.append(work)
+    try:
+        yield work
+    finally:
+        _WORK.remove(work)
+
+
+def inside_wrapper() -> bool:
+    """True while a wrapper call runs (its own ops are its counted work)."""
+    return _DEPTH[0] > 0
+
+
+@contextlib.contextmanager
+def _counted(work_of: Callable[[], Tuple[float, float]]) -> Iterator[None]:
+    """A wrapper call: ``work_of()`` gives its ``(operations, bytes)``,
+    computed only while a count is open."""
+    _DEPTH[0] += 1
+    try:
+        if _WORK:
+            flops, nbytes = work_of()
+            for work in _WORK:
+                work["flops"] += flops
+                work["bytes"] += nbytes
+                work["calls"] += 1
+        yield
+    finally:
+        _DEPTH[0] -= 1
+
+
+def dist_blockmin_work(b: int, s: int, d: int, w: int, payload_dtype: torch.dtype,
+                       pens: int = 1) -> Tuple[float, float]:
+    """``(operations, bytes)`` of one :func:`dist_blockmin` call (``pens =
+    2``: :func:`dist_blockmin_pair`): ``2 B S d`` for the product plus a pen
+    add and a minimum for each pen and candidate; the queries (f32 in the
+    f32 mode, bf16 otherwise), the payload, each pen and each ``[B, S/w]``
+    output once."""
+    q_bytes = 4 if payload_dtype == torch.float32 else 2
+    flops = 2.0 * b * s * d + 2.0 * pens * b * s
+    nbytes = (q_bytes * b * d + payload_dtype.itemsize * s * d
+              + pens * (4.0 * s + 4.0 * b * (s // w)))
+    return flops, float(nbytes)
+
+
+def assign_work(n: int, k: int, d: int) -> Tuple[float, float]:
+    """``(operations, bytes)`` of one :func:`assign` call: ``2 N K d`` for
+    the product plus the two norm adds and the minimum of every pair; the
+    points and centroids read once, int64 ids and f32 minima written."""
+    return 2.0 * n * k * d + 3.0 * n * k, 4.0 * (n * d + k * d) + 12.0 * n
+
+
+def blockmin_work(b: int, n: int, d: int, w: int) -> Tuple[float, float]:
+    """``(operations, bytes)`` of one :func:`blockmin` call: ``2 B N d``
+    for the product plus the two norm adds and the minimum of every pair;
+    queries and database read once, the ``[B, N/w]`` minima written."""
+    return 2.0 * b * n * d + 3.0 * b * n, 4.0 * (b * d + n * d + b * (n // w))
+
+
+def slab_dots_work(b: int, w: int, length: int, d: int, slab_bytes: int,
+                   sel_bytes: int, distinct_slabs: int) -> Tuple[float, float]:
+    """``(operations, bytes)`` of one :func:`slab_dots` call: ``2 B W L d``
+    for the products; the slabs the ids select read once each (ids outside
+    ``[0, Nb)`` read none), the queries and ids read, the ``[B, W, L]`` f32
+    dots written."""
+    nbytes = (distinct_slabs * length * d * slab_bytes + 4.0 * b * d
+              + sel_bytes * b * w + 4.0 * b * w * length)
+    return 2.0 * b * w * length * d, float(nbytes)
 
 
 def _nvcc() -> str:
@@ -405,9 +499,11 @@ def dist_blockmin(
     with ``chunk_rows`` bounding its score block.
     """
     _check_dist_blockmin(queries, payload, pen, w)
-    if payload.device.type == "cpu":
-        return dist_blockmin_reference(queries, payload, pen, w, chunk_rows)
-    return _launch_dist_blockmin(queries, payload, (pen,), w)[0]
+    (b, d), s = queries.shape, payload.shape[0]
+    with _counted(lambda: dist_blockmin_work(b, s, d, w, payload.dtype)):
+        if payload.device.type == "cpu":
+            return dist_blockmin_reference(queries, payload, pen, w, chunk_rows)
+        return _launch_dist_blockmin(queries, payload, (pen,), w)[0]
 
 
 def dist_blockmin_pair(
@@ -432,10 +528,12 @@ def dist_blockmin_pair(
         raise TypeError(f"{fn}: payload must be bfloat16 or uint8, got {payload.dtype}")
     for pen in (pen_a, pen_b):
         _check_dist_blockmin(queries, payload, pen, w, fn)
-    if payload.device.type == "cpu":
-        return dist_blockmin_pair_reference(queries, payload, pen_a, pen_b, w, chunk_rows)
-    out_a, out_b = _launch_dist_blockmin(queries, payload, (pen_a, pen_b), w)
-    return out_a, out_b
+    (b, d), s = queries.shape, payload.shape[0]
+    with _counted(lambda: dist_blockmin_work(b, s, d, w, payload.dtype, pens=2)):
+        if payload.device.type == "cpu":
+            return dist_blockmin_pair_reference(queries, payload, pen_a, pen_b, w, chunk_rows)
+        out_a, out_b = _launch_dist_blockmin(queries, payload, (pen_a, pen_b), w)
+        return out_a, out_b
 
 
 # ---- K3: nearest-centroid assignment -------------------------------------
@@ -496,8 +594,14 @@ def assign(
     if centroids.shape[0] < 1:
         raise ValueError(f"{fn}: need at least one centroid")
     _check_device(fn, points)
-    if points.device.type == "cpu":
-        return assign_reference(points, centroids, chunk_rows)
+    (n, d), k = points.shape, centroids.shape[0]
+    with _counted(lambda: assign_work(n, k, d)):
+        if points.device.type == "cpu":
+            return assign_reference(points, centroids, chunk_rows)
+        return _launch_assign(points, centroids)
+
+
+def _launch_assign(points: torch.Tensor, centroids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     n, d = points.shape
     k = centroids.shape[0]
     ids = torch.empty((n,), dtype=torch.int64, device=points.device)
@@ -505,7 +609,7 @@ def assign(
     if n == 0:
         return ids, mins
     if n >= 2**31 or k >= 2**31:
-        raise ValueError(f"{fn}: N={n}, K={k} exceed the launch grid")
+        raise ValueError(f"assign: N={n}, K={k} exceed the launch grid")
     cn = torch.sum(centroids * centroids, dim=-1)
     lib = _lib("assign")
     with torch.cuda.device(points.device):
@@ -640,8 +744,21 @@ def slab_dots(
     :func:`slab_dots_reference`.
     """
     _check_slab_dots(queries, list_vecs, sel)
-    if list_vecs.device.type == "cpu":
-        return slab_dots_reference(queries, list_vecs, sel)
+    b, w = sel.shape
+    nb, length, d = list_vecs.shape
+
+    def work():  # reads the slabs this call's ids select: waits for the device
+        distinct = int(torch.unique(sel[(sel >= 0) & (sel < nb)]).numel())
+        return slab_dots_work(b, w, length, d, list_vecs.element_size(),
+                              sel.element_size(), distinct)
+
+    with _counted(work):
+        if list_vecs.device.type == "cpu":
+            return slab_dots_reference(queries, list_vecs, sel)
+        return _launch_slab_dots(queries, list_vecs, sel)
+
+
+def _launch_slab_dots(queries: torch.Tensor, list_vecs: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     b, w = sel.shape
     nb, length, d = list_vecs.shape
     out = torch.empty((b, w, length), dtype=torch.float32, device=list_vecs.device)
@@ -746,8 +863,14 @@ def blockmin(
     take :func:`blockmin_reference`, with ``chunk_rows`` bounding its block.
     """
     _check_blockmin(queries, database, w)
-    if database.device.type == "cpu":
-        return blockmin_reference(queries, database, w, chunk_rows)
+    (b, d), n = queries.shape, database.shape[0]
+    with _counted(lambda: blockmin_work(b, n, d, w)):
+        if database.device.type == "cpu":
+            return blockmin_reference(queries, database, w, chunk_rows)
+        return _launch_blockmin(queries, database, w)
+
+
+def _launch_blockmin(queries: torch.Tensor, database: torch.Tensor, w: int) -> torch.Tensor:
     b, d = queries.shape
     n = database.shape[0]
     out = torch.empty((b, n // w), dtype=torch.float32, device=database.device)

@@ -1,1 +1,2 @@
-"""Host-side helpers: device resolution, hashing."""
+"""Host-side helpers: device resolution, hashing, timing, counted work and
+tracing, vector helpers."""
