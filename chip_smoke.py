@@ -14,8 +14,8 @@ on failure:
                    runs on the tensor cores (libdist_blockmin_tc.so K1,
                    libassign.so K3, libslab_dots.so K2, libblockmin.so K4;
                    none in any of them fails the run). Beside nvcc, ``make
-                   -C native`` (the host IO library) and
-                   scripts/make_sift1m_surrogate.py at its defaults (1M x
+                   -C native`` (the host IO library) and the port's
+                   scripts.make_sift1m_surrogate at its defaults (1M x
                    128, 1,024 queries, seed 20) into _smoke_out/sift1m_synth;
                    then the surrogate as the sift1m loader reads it: the
                    reader (native), seconds to generate and read, the native
@@ -219,6 +219,32 @@ on failure:
                    --create-config; then phase 4's exact row (100k x 384,
                    l2): its counted work at least K1 f32's formula, and one
                    exact-search batch counted alike on the card and the host
+  7b. calibration - the port's calibration and data-making tools, each
+                   in its own subprocess with no --device, all at once, at
+                   the JAX scripts' full sizes, each line with the card's
+                   name, power limit and seconds: scripts.calibrate_glove_
+                   surrogate (five settings, 20k x 50; the defaults row
+                   within 0.03 of the JAX package's run_setting() on a
+                   host CPU, best reported), scripts.calibrate_msmarco_
+                   surrogate --quick (100k x 384; each row within 0.03 of
+                   the JAX script's --quick on a host CPU), scripts.
+                   calibrate_manifold (the nine-point grid at 100k x 384,
+                   reported; its intrinsic_dim 12 points again with the JAX
+                   package's k-means draws, each within 0.03 of the JAX
+                   script's), scripts.exp_manifold_rotations with the JAX
+                   package's draws (100k, both regimes: six recalls within
+                   0.03 and both gains within 0.05 of rotations_ab.json,
+                   rot_enabled and auto's decision equal to the record's),
+                   scripts.exp_binary_lsh_tune (random and
+                   glove50_surrogate at 512 bits over the record's
+                   multipliers, within 0.03 of recall_frontier.json, QPS
+                   printed) and scripts.prepare_msmarco (TSVs written here,
+                   synthetic embed: the .npy shapes). Each subprocess sets
+                   the launch counts to 0 before its tool and reads them
+                   after, then holds its launches against their plain
+                   versions; K1 f32 / bf16 / u8, K3 and K2 must each launch
+                   at least once. Every gate is read before a failure
+                   fails the run
   8. the kernels line, the nvidia-smi line, and last the result line.
 
 Imports nothing of JAX. Writes its YAML and the runner's outputs under
@@ -385,16 +411,19 @@ def phase_device():
 
 SIFT_SUBDIR = "sift1m_synth"
 SIFT_DIR = os.path.join(OUT_DIR, SIFT_SUBDIR)
-# scripts/make_sift1m_surrogate.py's defaults: base rows and query rows
+# the SIFT1M surrogate writer's defaults
+# (vectordb_retrieval_tpu_torch/scripts/make_sift1m_surrogate.py): base rows
+# and query rows
 SIFT_ROWS = 1_000_000
 SIFT_QUERY_ROWS = 1024
 
 
 def _start_host_work() -> dict:
     """Host work that runs beside nvcc: ``make -C native`` (the host IO
-    library the sift1m loader reads with) and
-    ``scripts/make_sift1m_surrogate.py`` at its defaults (1M base rows,
-    1,024 queries, seed 20; NumPy only) into ``_smoke_out/sift1m_synth/``."""
+    library the sift1m loader reads with) and the port's SIFT1M surrogate
+    writer (``python -m vectordb_retrieval_tpu_torch.scripts.
+    make_sift1m_surrogate``) at its defaults (1M base rows, 1,024 queries,
+    seed 20; NumPy only) into ``_smoke_out/sift1m_synth/``."""
     os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
     return {
@@ -402,10 +431,10 @@ def _start_host_work() -> dict:
         "make": subprocess.Popen(["make", "-C", os.path.join(REPO, "native")],
                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
         "surrogate": subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "scripts", "make_sift1m_surrogate.py"),
+            [sys.executable, "-m", "vectordb_retrieval_tpu_torch.scripts.make_sift1m_surrogate",
              "--n", str(SIFT_ROWS), "--queries", str(SIFT_QUERY_ROWS), "--seed", "20",
              "--out", SIFT_DIR],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
     }
 
 
@@ -4009,26 +4038,29 @@ ROOFLINE_KEYS = ("kernel_flops_per_batch", "achieved_tflops", "kernel_bytes_per_
 SMOKE_CONFIG = os.path.join(REPO, "configs", "benchmark_config_smoke.yaml")
 
 
-def _run_entries(cmds: dict) -> dict:
-    """Run the port's CLIs (``python -m vectordb_retrieval_tpu_torch.<module>
-    ...``, no ``--device``: the card is their default) all at once from
-    ENTRY_DIR, each one's output in ENTRY_DIR/<name>.out / .err; name ->
-    (exit code, stdout, seconds). Every process is stopped before this
+def _run_procs(argvs: dict, cwd: str, timeout: float) -> dict:
+    """Run every argv of ``argvs`` at once from ``cwd``, each one's output
+    in cwd/<name>.out / .err; name -> (exit code, stdout, seconds). A
+    nonzero exit fails the run; every process is stopped before this
     returns."""
     env = dict(os.environ, PYTHONPATH=REPO)
     procs = {}
     try:
-        for name, (module, *args) in cmds.items():
-            out = open(os.path.join(ENTRY_DIR, f"{name}.out"), "w")
-            err = open(os.path.join(ENTRY_DIR, f"{name}.err"), "w")
-            proc = subprocess.Popen(
-                [sys.executable, "-m", f"vectordb_retrieval_tpu_torch.{module}", *args],
-                cwd=ENTRY_DIR, env=env, stdout=out, stderr=err)
+        for name, argv in argvs.items():
+            out = open(os.path.join(cwd, f"{name}.out"), "w")
+            err = open(os.path.join(cwd, f"{name}.err"), "w")
+            proc = subprocess.Popen(argv, cwd=cwd, env=env, stdout=out, stderr=err)
             procs[name] = (proc, out, err, time.perf_counter())
         done = {}
-        for name, (proc, out, err, t0) in procs.items():
-            rc = proc.wait(timeout=ENTRY_TIMEOUT)
-            done[name] = (rc, time.perf_counter() - t0)
+        deadline = time.perf_counter() + timeout
+        while len(done) < len(procs):  # each one's own seconds, whatever the order
+            for name, (proc, out, err, t0) in procs.items():
+                if name not in done and proc.poll() is not None:
+                    done[name] = (proc.returncode, time.perf_counter() - t0)
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"still running after {timeout} s: "
+                                     f"{sorted(set(procs) - set(done))}")
+            time.sleep(0.2)
     finally:
         for proc, out, err, _ in procs.values():
             if proc.poll() is None:
@@ -4038,14 +4070,24 @@ def _run_entries(cmds: dict) -> dict:
             err.close()
     results = {}
     for name, (rc, seconds) in done.items():
-        with open(os.path.join(ENTRY_DIR, f"{name}.out")) as f:
+        with open(os.path.join(cwd, f"{name}.out")) as f:
             stdout = f.read()
         if rc != 0:
-            with open(os.path.join(ENTRY_DIR, f"{name}.err")) as f:
+            with open(os.path.join(cwd, f"{name}.err")) as f:
                 tail = f.read()[-3000:]
-            raise AssertionError(f"entry point {name} exited {rc}:\n{tail}")
+            raise AssertionError(f"{name} exited {rc}:\n{tail}")
         results[name] = (rc, stdout, seconds)
     return results
+
+
+def _run_entries(cmds: dict) -> dict:
+    """Run the port's CLIs (``python -m vectordb_retrieval_tpu_torch.<module>
+    ...``, no ``--device``: the card is their default) all at once from
+    ENTRY_DIR (see :func:`_run_procs`)."""
+    return _run_procs(
+        {name: [sys.executable, "-m", f"vectordb_retrieval_tpu_torch.{module}", *args]
+         for name, (module, *args) in cmds.items()},
+        ENTRY_DIR, ENTRY_TIMEOUT)
 
 
 def _one_dir(parent: str) -> str:
@@ -4231,6 +4273,332 @@ def phase_entry_points(card: str, flagship_phase: dict, exact_row: dict) -> dict
     return result
 
 
+# ---- 7b. calibration ---------------------------------------------------------
+
+CALIB_DIR = os.path.join(OUT_DIR, "calibration")
+CALIB_TIMEOUT = 600
+# Each tool's recalls must lie within this of the JAX package's own numbers
+# for the same run.
+CALIB_TOL = 0.03
+# scripts/calibrate_glove_surrogate.py's run_setting() at the loader's
+# defaults (20k x 50, l2, recall@20), JAX on a host CPU (PERF.md, Calibration)
+GLOVE_JAX_DEFAULTS = {"ivf_flat": 0.8708984375, "ivf_pq": 0.917578125,
+                      "ivf_sq8": 0.9115234375, "pq": 0.98515625, "hnsw": 0.98515625}
+# scripts/calibrate_msmarco_surrogate.py --quick --platform cpu (100k x 384,
+# cosine, recall@20), its printed line (PERF.md, Calibration)
+MSMARCO_JAX_QUICK = {"ivf_flat": 0.951, "ivf_pq": 0.749, "ivf_sq8": 0.956, "pq": 0.736,
+                     "hnsw": 0.985}
+# k-means and PQ training draw their rows from a torch.Generator in the port
+# and from jax.random in the JAX package: on the manifold corpus those draws
+# alone move IVF256,PQ64's recall@20 by up to 0.06. So the manifold points
+# and the rotations A/B are held to the JAX package's numbers in a run with
+# the JAX package's own draws (jax_permutation in the port's k-means); the
+# manifold's nine-point grid also runs as a user runs it, reported. (The
+# A/B's own-draws run, reported in PERF.md, would double the phase's
+# per-list rotation trainings, which lead its time.)
+# scripts/calibrate_manifold.py --platform cpu (100k x 384, l2, recall@20),
+# its intrinsic_dim 12 row: (intrinsic_dim, point_scale) -> pq, ivf_pq
+# (PERF.md, Calibration)
+MANIFOLD_JAX = {(12, 0.35): {"pq": 0.1854, "ivf_pq": 0.5437},
+                (12, 0.5): {"pq": 0.1717, "ivf_pq": 0.5619},
+                (12, 0.7): {"pq": 0.1852, "ivf_pq": 0.5832}}
+# benchmark_results/round5_rotations_ab/rotations_ab.json: regime -> variant
+# -> (recall@20, rot_enabled, pq_rot_auto gain); its msmarco_surrogate note
+# says "auto OFF", its rows say enabled, and the rows are the gate
+ROTATIONS_RECORD = {
+    "manifold": {"plain": (0.5604, False, None), "auto": (0.7854, True, 0.6877),
+                 "rot128": (0.7777, True, None)},
+    "msmarco_surrogate": {"plain": (0.7971, False, None), "auto": (0.8121, True, 0.2769),
+                          "rot128": (0.8158, True, None)},
+}
+ROT_GAIN_TOL = 0.05
+# benchmark_results/round5_binary_lsh_tune/recall_frontier.json, num_bits_512:
+# multiplier -> recall@20
+LSH_FRONTIER = {
+    "random": {"64": 0.9596, "128": 0.9910},
+    "glove50_surrogate": {"64": 0.9551, "128": 0.9803, "256": 0.9947, "384": 0.9979,
+                          "512": 0.9984},
+}
+# prepare_msmarco's TSVs (rows) and samples
+PREP_ROWS = {"corpus": 20_000, "queries": 1_000}
+PREP_SAMPLE = {"corpus": 10_000, "queries": 500}
+# the kernels this slice's tools launch (K4 and the pair are on no path of it)
+CALIB_KERNELS = ("dist_blockmin", "dist_blockmin_bf16", "dist_blockmin_u8", "assign",
+                 "slab_dots")
+
+
+def _threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash (20 rounds) of the counters (x1, x2) under the
+    key (k1, k2), in uint32 arithmetic: JAX's threefry2x32 primitive."""
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    ks = (np.uint32(k1), np.uint32(k2), np.uint32(k1) ^ np.uint32(k2) ^ np.uint32(0x1BD11BDA))
+    x = [x1.astype(np.uint32) + ks[0], x2.astype(np.uint32) + ks[1]]
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in rot[i % 2]:
+                x[0] = x[0] + x[1]
+                x[1] = (x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))
+                x[1] = x[0] ^ x[1]
+            x[0] = x[0] + ks[(i + 1) % 3]
+            x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x[0], x[1]
+
+
+def jax_permutation(n: int, seed: int) -> np.ndarray:
+    """``jax.random.permutation(jax.random.PRNGKey(seed), n)`` in NumPy (the
+    threefry key of a 32-bit seed, the partitionable split and random bits,
+    and JAX's rounds of stable sorts by fresh 32-bit keys); held bit for
+    bit against JAX by ``tests/test_torch_calibration.py``."""
+    key = (0, int(seed) & 0xFFFFFFFF)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = np.arange(n, dtype=np.int64)
+    count, zero = np.arange(n, dtype=np.uint32), np.zeros(n, dtype=np.uint32)
+    for _ in range(rounds):
+        b1, b2 = _threefry2x32(*key, np.zeros(2, np.uint32), np.arange(2, dtype=np.uint32))
+        key, sub = (b1[0], b2[0]), (b1[1], b2[1])
+        s1, s2 = _threefry2x32(*sub, zero, count)
+        x = x[np.argsort(s1 ^ s2, kind="stable")]
+    return x
+
+
+def calibration_child(draws: str, module: str, result_path: str, *args: str) -> int:
+    """The body of one calibration subprocess: the tool's ``main(args)``
+    (no ``--device``: the card) with the launch counts set to 0 just before
+    and read just after, under ``capture_launch_inputs``; then every
+    captured launch against its plain version. ``draws`` "jax" makes the
+    port's k-means draw the JAX package's rows (:func:`jax_permutation`),
+    "port" leaves its own. Writes the counts, the worst errors and the
+    checks to ``result_path``."""
+    import importlib
+
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels, kmeans
+
+    if draws == "jax":
+        kmeans._permutation = lambda n, seed: torch.from_numpy(jax_permutation(n, seed))
+    tool = importlib.import_module(f"vectordb_retrieval_tpu_torch.scripts.{module}")
+    store = {}
+    kernels.reset_launch_counts()
+    with capture_launch_inputs(store, [module]):
+        rc = tool.main(list(args))
+    launches = dict(kernels.LAUNCHES)
+    worst = collections.defaultdict(float)
+    n_checked = len(store)
+    check_launched(store, module, worst)
+    with open(result_path, "w") as f:
+        json.dump({"rc": rc, "launches": launches, "worst": worst, "checked": n_checked}, f)
+    return rc
+
+
+def _write_prep_inputs() -> str:
+    """Corpus and query TSVs for prepare_msmarco and its YAML (local TSVs,
+    synthetic embed, outputs under CALIB_DIR); returns the YAML's path."""
+    import yaml
+
+    raw = os.path.join(CALIB_DIR, "msmarco_raw")
+    os.makedirs(raw)
+    for name, prefix in (("corpus", "d"), ("queries", "q")):
+        with open(os.path.join(raw, f"{name}.tsv"), "w") as f:
+            f.writelines(f"{prefix}{i}\ttext number {i}\n" for i in range(PREP_ROWS[name]))
+    cfg = {
+        "subsample": {"output_dir": os.path.join(CALIB_DIR, "msmarco_subset"),
+                      "corpus_sample": PREP_SAMPLE["corpus"],
+                      "query_sample": PREP_SAMPLE["queries"], "seed": 42,
+                      "corpus_tsv": os.path.join(raw, "corpus.tsv"),
+                      "queries_tsv": os.path.join(raw, "queries.tsv")},
+        "embed": {"input_dir": os.path.join(CALIB_DIR, "msmarco_subset"),
+                  "output_dir": os.path.join(CALIB_DIR, "msmarco_embeddings"),
+                  "synthetic": True, "seed": 42},
+    }
+    path = os.path.join(CALIB_DIR, "prepare_msmarco.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def _near(got: dict, want: dict, label: str, failures: list, tol: float = None) -> dict:
+    """key -> |got[key] - want[key]| over ``want``'s keys; each over ``tol``
+    (default CALIB_TOL) or missing is added to ``failures``."""
+    tol = CALIB_TOL if tol is None else tol
+    diff = {}
+    for key, ref in want.items():
+        if key not in got:
+            failures.append(f"{label}/{key}: missing")
+            continue
+        diff[key] = abs(got[key] - ref)
+        if diff[key] > tol:
+            failures.append(f"{label}/{key}: {got[key]} against {ref}")
+    return diff
+
+
+def _glove_rows(stdout: str) -> dict:
+    """setting tag -> recall vector, and the best setting, of the tool's lines."""
+    from vectordb_retrieval_tpu_torch.scripts.calibrate_glove_surrogate import TARGETS
+
+    rows = {}
+    for ln in stdout.splitlines():
+        if "maxerr=" in ln:  # the tag, padded to 46 (longer tags run over), five recalls
+            head = ln.rsplit("maxerr=", 1)[0].rstrip()
+            tag, values = head[: -len(TARGETS) * 10].strip(), head[-len(TARGETS) * 10:]
+            rows[tag] = dict(zip(TARGETS, map(float, values.split())))
+    (best,) = [ln for ln in stdout.splitlines() if ln.startswith("best: ")]
+    return {"rows": rows, "best": best[len("best: "):]}
+
+
+def _msmarco_row(stdout: str) -> dict:
+    import re
+
+    (ln,) = [ln for ln in stdout.splitlines() if " -> " in ln]
+    return {k: float(v) for k, v in re.findall(r"(\w+)=(-?[0-9.]+)\(", ln)}
+
+
+def phase_calibration(card: str) -> dict:
+    """This slice's tools on the card, each in its own subprocess with no
+    --device, all at once, at the JAX scripts' full sizes: the GloVe-50
+    calibration (five settings, 20k), the MS MARCO one (--quick, 100k), the
+    manifold grid (100k) and its gated points with the JAX package's draws,
+    the rotations A/B with those draws (100k, both regimes), the
+    binary-LSH frontier (random and glove50_surrogate at 512 bits over the
+    record's multipliers) and the MS MARCO dataprep pipeline on TSVs written
+    here. Each is held to the JAX package's numbers (every gate is read and
+    emitted before a failure fails the run); each subprocess holds its
+    launches against their plain versions. Returns the launches and the
+    worst errors."""
+    t0 = time.perf_counter()
+    shutil.rmtree(CALIB_DIR, ignore_errors=True)
+    os.makedirs(CALIB_DIR)
+    prep_cfg = _write_prep_inputs()
+    data = {name: os.path.join(CALIB_DIR, f"data_{name}")
+            for name in ("manifold", "manifold_jax", "rotations_jax", "lsh_random", "lsh_glove")}
+    out = {name: os.path.join(CALIB_DIR, f"{name}.json")
+           for name in ("rotations_jax", "lsh_random", "lsh_glove")}
+    gated_grid = {"intrinsic_dim": sorted({k[0] for k in MANIFOLD_JAX}),
+                  "point_scale": sorted({k[1] for k in MANIFOLD_JAX})}
+    # name -> (draws, tool, arguments)
+    tools = {
+        "glove": ("port", "calibrate_glove_surrogate"),
+        "msmarco": ("port", "calibrate_msmarco_surrogate", "--quick"),
+        "manifold": ("port", "calibrate_manifold", "--data-dir", data["manifold"]),
+        "manifold_jax": ("jax", "calibrate_manifold", "--data-dir", data["manifold_jax"],
+                         "--grid", json.dumps(gated_grid)),
+        "rotations_jax": ("jax", "exp_manifold_rotations", "--out", out["rotations_jax"],
+                          "--data-dir", data["rotations_jax"]),
+        "lsh_random": ("port", "exp_binary_lsh_tune", "--dataset", "random", "--num-bits",
+                       "512", "--mults", ",".join(LSH_FRONTIER["random"]), "--out",
+                       out["lsh_random"], "--data-dir", data["lsh_random"]),
+        "lsh_glove": ("port", "exp_binary_lsh_tune", "--dataset", "glove50_surrogate",
+                      "--num-bits", "512", "--mults", ",".join(LSH_FRONTIER["glove50_surrogate"]),
+                      "--out", out["lsh_glove"], "--data-dir", data["lsh_glove"]),
+        "prepare_msmarco": ("port", "prepare_msmarco", "--config", prep_cfg),
+    }
+    child = "import sys, chip_smoke; sys.exit(chip_smoke.calibration_child(*sys.argv[1:]))"
+    runs = _run_procs(
+        {name: [sys.executable, "-c", child, draws, module,
+                os.path.join(CALIB_DIR, f"{name}.result.json"), *args]
+         for name, (draws, module, *args) in tools.items()},
+        CALIB_DIR, CALIB_TIMEOUT)
+    results = {}
+    for name in tools:
+        with open(os.path.join(CALIB_DIR, f"{name}.result.json")) as f:
+            results[name] = json.load(f)
+    lines = {}
+
+    def line(name, **kw):
+        res = results[name]
+        lines[name] = {"phase": "calibration", "tool": tools[name][1], "draws": tools[name][0],
+                       "card": card, "seconds": runs[name][2], "launches": res["launches"],
+                       "launches_checked": res["checked"], "worst": res["worst"], **kw}
+
+    failures = []
+    glove = _glove_rows(runs["glove"][1])
+    if len(glove["rows"]) != 5:
+        failures.append(f"glove: {len(glove['rows'])} settings of 5")
+    defaults = glove["rows"].get("(defaults)", {})
+    line("glove", defaults=defaults, jax_defaults=GLOVE_JAX_DEFAULTS,
+         diff=_near(defaults, GLOVE_JAX_DEFAULTS, "glove", failures),
+         settings=glove["rows"], best=glove["best"])
+
+    msm = _msmarco_row(runs["msmarco"][1])
+    line("msmarco", recalls=msm, jax_quick=MSMARCO_JAX_QUICK,
+         diff=_near(msm, MSMARCO_JAX_QUICK, "msmarco", failures))
+
+    def points(name):
+        return [json.loads(ln) for ln in runs[name][1].splitlines() if ln.startswith('{"opts"')]
+
+    def key(p):
+        return (p["opts"]["intrinsic_dim"], p["opts"]["point_scale"])
+
+    own = points("manifold")
+    if len(own) != 9:
+        failures.append(f"manifold: {len(own)} points of the default grid's 9")
+    line("manifold", points=own)
+    gated = {}
+    for p in points("manifold_jax"):
+        label = f"manifold_jax/{key(p)[0]}/{key(p)[1]}"
+        gated[label] = _near(p, MANIFOLD_JAX[key(p)], label, failures)
+    if len(gated) != len(MANIFOLD_JAX):
+        failures.append(f"manifold_jax: gated points {sorted(gated)}")
+    line("manifold_jax", points=points("manifold_jax"),
+         jax=[{"intrinsic_dim": k[0], "point_scale": k[1], **v} for k, v in MANIFOLD_JAX.items()],
+         diff=gated)
+
+    with open(out["rotations_jax"]) as f:
+        doc = json.load(f)
+    rot_diff = {}
+    for regime, variants in ROTATIONS_RECORD.items():
+        rows = doc["regimes"][regime]["rows"]
+        for variant, (recall, enabled, gain) in variants.items():
+            row, label = rows[variant], f"rotations_jax/{regime}/{variant}"
+            if row["rot_enabled"] != enabled:
+                failures.append(f"{label}: rot_enabled {row['rot_enabled']}")
+            rot_diff[label] = _near(row, {"recall": recall}, label, failures)["recall"]
+            if gain is not None:
+                if row["pq_rot_auto"]["enabled"] != enabled:
+                    failures.append(f"{label}: auto enabled {row['pq_rot_auto']['enabled']}")
+                rot_diff[f"{label}/gain"] = _near(row["pq_rot_auto"], {"gain": gain}, label,
+                                                  failures, ROT_GAIN_TOL)["gain"]
+    line("rotations_jax", regimes=doc["regimes"], record=ROTATIONS_RECORD, diff=rot_diff)
+
+    for name, dataset in (("lsh_random", "random"), ("lsh_glove", "glove50_surrogate")):
+        with open(out[name]) as f:
+            rows = json.load(f)["rows"]
+        got = {m: r["recall"] for m, r in rows.items()}
+        line(name, dataset=dataset, num_bits=512, rows=rows, record=LSH_FRONTIER[dataset],
+             diff=_near(got, LSH_FRONTIER[dataset], name, failures))
+
+    emb = os.path.join(CALIB_DIR, "msmarco_embeddings")
+    shapes = {f: list(np.load(os.path.join(emb, f"{f}.npy")).shape)
+              for f in ("passage_embeddings", "query_embeddings", "passage_ids", "query_ids")}
+    want_shapes = {"passage_embeddings": [PREP_SAMPLE["corpus"], 384],
+                   "query_embeddings": [PREP_SAMPLE["queries"], 384],
+                   "passage_ids": [PREP_SAMPLE["corpus"]], "query_ids": [PREP_SAMPLE["queries"]]}
+    if shapes != want_shapes:
+        failures.append(f"prepare_msmarco wrote {shapes}, not {want_shapes}")
+    line("prepare_msmarco", shapes=shapes)
+
+    launches = {name: sum(r["launches"][name] for r in results.values())
+                for name in results["glove"]["launches"]}
+    missing = [name for name in CALIB_KERNELS if launches[name] < 1]
+    if missing:
+        failures.append(f"never launched {missing}")
+    worst = collections.defaultdict(float)
+    for r in results.values():
+        for name, err in r["worst"].items():
+            worst[name] = max(worst[name], err)
+    for name in tools:
+        emit(lines[name])
+    seconds = time.perf_counter() - t0
+    emit({"phase": "calibration_run", "card": card, "seconds": seconds,
+          "within_180_s": seconds <= 180.0, "launches": launches, "worst": worst,
+          "tools": {name: runs[name][2] for name in tools}, "failures": failures})
+    for name in data.values():
+        shutil.rmtree(name, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"calibration: {failures}")
+    return {"launches": launches, "worst": worst}
+
+
 def main() -> int:
     launcher = _start_launcher()
     try:
@@ -4342,6 +4710,10 @@ def _main(launcher) -> int:
                           "batch_device_ms": run["batch_device_ms"]}
     add(phase_sharded(card, sharded_paths, paths[0], unsharded, worst)["launches"], False)
     phase_entry_points(card, flagship, exact_rows["l2"])
+    calib = phase_calibration(card)
+    add(calib["launches"], False)
+    for name, err in calib["worst"].items():
+        worst[name] = max(worst[name], err)
 
     src = "vectordb_retrieval_tpu_torch/csrc/"
     tpu = "vectordb_retrieval_tpu/ops/pallas_kernels.py"

@@ -146,13 +146,15 @@ def test_stream_chunks_roundtrip(native, request, tmp_path, rng):
 
 @pytest.fixture(scope="module")
 def sift_dir(tmp_path_factory):
-    """A small SIFT1M surrogate written by ``scripts/make_sift1m_surrogate.py``."""
+    """A small SIFT1M surrogate written by the port's
+    ``scripts.make_sift1m_surrogate`` (byte-identical to the JAX package's
+    generator: ``tests/test_torch_calibration.py``)."""
     root = tmp_path_factory.mktemp("sift")
     out = root / "sift1m_synth"
     subprocess.run(
-        [sys.executable, os.path.join(REPO, "scripts", "make_sift1m_surrogate.py"),
+        [sys.executable, "-m", "vectordb_retrieval_tpu_torch.scripts.make_sift1m_surrogate",
          "--n", "5000", "--queries", "32", "--out", str(out)],
-        check=True, capture_output=True, timeout=300,
+        check=True, capture_output=True, timeout=300, cwd=REPO,
     )
     return root
 
@@ -474,3 +476,31 @@ def test_every_catalog_name_is_ported():
     assert set(tdata.Dataset.CATALOG) == set(jdata.Dataset.CATALOG)
     for name in tdata.Dataset.CATALOG:
         assert callable(getattr(tdata.Dataset, f"_load_{name}"))
+
+
+def test_cache_writes_of_two_processes_do_not_collide(tmp_path, monkeypatch):
+    """Two processes that load one dataset into one data dir at once each
+    write the cache through temporary files of their own: a writer that
+    finishes while the other is between its write and its replace leaves
+    the other's file in place, and the cache reads back whole."""
+    opts = {"dimensions": 8, "train_size": 64, "test_size": 4, "ground_truth_k": 2, "seed": 3}
+    savez, getpid = np.savez, os.getpid
+    other = []
+
+    def savez_then_other_writer(f, **arrays):
+        savez(f, **arrays)
+        if not other:  # the other process saves the same cache now
+            other.append(getpid() + 1)
+            monkeypatch.setattr(os, "getpid", lambda: other[0])
+            tdata.Dataset("random", str(tmp_path), dict(opts), device="cpu").load()
+            monkeypatch.setattr(os, "getpid", getpid)
+
+    monkeypatch.setattr(np, "savez", savez_then_other_writer)
+    first = tdata.Dataset("random", str(tmp_path), dict(opts), device="cpu").load()
+    monkeypatch.setattr(np, "savez", savez)
+    assert other and sorted(os.listdir(tmp_path / "cache")) == [
+        f"random_{first._cache_key()}.npz", f"random_{first._cache_key()}.npz.json"]
+    again = tdata.Dataset("random", str(tmp_path), dict(opts), device="cpu")
+    assert again._load_cache()
+    np.testing.assert_array_equal(again.train_vectors, first.train_vectors)
+    np.testing.assert_array_equal(again.ground_truth, first.ground_truth)

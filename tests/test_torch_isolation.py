@@ -29,7 +29,7 @@ def _port_modules():
 
 def test_port_modules_do_not_load_jax_or_the_jax_package():
     mods = _port_modules()
-    assert len(mods) >= 62, mods
+    assert len(mods) >= 70, mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -100,6 +100,29 @@ def test_bf16_artifacts_persist_without_ml_dtypes(tmp_path):
         timeout=120,
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def _prep_config(tmp_path):
+    cfg = tmp_path / "prep.yaml"
+    cfg.write_text(
+        f"subsample: {{corpus_tsv: {tmp_path / 'c.tsv'}, queries_tsv: {tmp_path / 'q.tsv'}}}\n"
+        "embed: {synthetic: true}\n")
+    return ["--config", str(cfg)]
+
+
+# this slice's tools that take --device, each with arguments that would
+# build a small corpus
+CALIBRATION_TOOLS = {
+    "calibrate_glove_surrogate": lambda tmp_path: [],
+    "calibrate_msmarco_surrogate": lambda tmp_path: ["--n", "300", "--quick"],
+    "calibrate_manifold": lambda tmp_path: ["--n", "300", "--data-dir", str(tmp_path)],
+    "exp_manifold_rotations": lambda tmp_path: ["--n", "300", "--data-dir", str(tmp_path)],
+    "exp_binary_lsh_tune": lambda tmp_path: ["--data-dir", str(tmp_path)],
+    "prepare_msmarco": _prep_config,
+}
+# every module this slice added to scripts/ (the SIFT1M surrogate writer
+# makes host files only and takes no device)
+SLICE_SCRIPTS = (*CALIBRATION_TOOLS, "make_sift1m_surrogate", "calibration")
 
 
 def _entry_point(name, tmp_path):
@@ -220,6 +243,11 @@ def _entry_point(name, tmp_path):
         from vectordb_retrieval_tpu_torch.bench import validate_bigcorpus
 
         validate_bigcorpus.main(["--rows", "64", "--data-dir", str(tmp_path / "bc")])
+    elif name in CALIBRATION_TOOLS:
+        import importlib
+
+        importlib.import_module(f"vectordb_retrieval_tpu_torch.scripts.{name}").main(
+            CALIBRATION_TOOLS[name](tmp_path))
     elif name in ("main", "flagship", "scripts.run_experiment",
                   "scripts.run_full_benchmark", "scripts.parameter_sweep",
                   "scripts.compare_algorithms", "scripts.matched_conditions",
@@ -254,10 +282,39 @@ def _entry_point(name, tmp_path):
      "streamed_exact_search", "validate_bigcorpus", "main", "flagship",
      "scripts.run_experiment", "scripts.run_full_benchmark", "scripts.parameter_sweep",
      "scripts.compare_algorithms", "scripts.matched_conditions",
-     "data.dataprep.embed_msmarco"],
+     "data.dataprep.embed_msmarco", *CALIBRATION_TOOLS],
 )
 def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: device=None resolves to it")
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_point(name, tmp_path)
+
+
+def test_slice_scripts_parse_nothing_and_write_nothing_at_import(tmp_path):
+    """Each new ``scripts`` module imported in a fresh process, from an
+    empty directory, with an ``argv`` no parser accepts: no parser ran and
+    no file was written."""
+    mods = [f"vectordb_retrieval_tpu_torch.scripts.{m}" for m in SLICE_SCRIPTS]
+    code = (
+        "import argparse, importlib, sys\n"
+        "sys.argv = ['x', '--no-such-flag']\n"
+        "parsed = []\n"
+        "orig = argparse.ArgumentParser.parse_args\n"
+        "def spy(self, *a, **k):\n"
+        "    parsed.append(self.prog)\n"
+        "    return orig(self, *a, **k)\n"
+        "argparse.ArgumentParser.parse_args = spy\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(parsed)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=str(tmp_path), capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=REPO),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+    assert os.listdir(tmp_path) == []
+    assert {m.rsplit(".", 1)[1] for m in mods} <= {
+        m.rsplit(".", 1)[1] for m in _port_modules() if ".scripts." in m}

@@ -257,19 +257,25 @@ class Dataset:
             return False
 
     def _save_cache(self) -> None:
+        """Write the cache through temporary files of this process's own
+        (processes that load one dataset from one data dir at once each
+        replace the cache whole; a shared temporary name let one move the
+        other's file away)."""
         path = self._cache_path()
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp.npz"
+        tmp = f"{path}.{os.getpid()}.tmp"
         payload = {"test": self.test_vectors, "gt": self.ground_truth}
         if not isinstance(self.train_vectors, np.memmap):
             # a memmap corpus already lives on disk (the BigStore beside the
             # npz, or the loader's own file): copying it into the npz would
             # defeat the RSS bound
             payload["train"] = self.train_vectors
-        np.savez(tmp, **payload)
-        os.replace(tmp, path)
-        with open(path + ".json", "w") as f:
+        with open(tmp + ".npz", "wb") as f:
+            np.savez(f, **payload)
+        os.replace(tmp + ".npz", path)
+        with open(tmp + ".json", "w") as f:
             json.dump(self.metadata, f, indent=2)
+        os.replace(tmp + ".json", path + ".json")
 
     # -- loading --------------------------------------------------------
     def load(self) -> "Dataset":
