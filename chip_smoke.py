@@ -245,6 +245,23 @@ on failure:
                    versions; K1 f32 / bf16 / u8, K3 and K2 must each launch
                    at least once. Every gate is read before a failure
                    fails the run
+  7c. probes    - the port's research probes the same way, all at once at
+                   the JAX scripts' full sizes: scripts.exp_lsh_frontier
+                   (the SIFT1M surrogate, 1M x 128, 256 queries, top-100,
+                   13 settings) with its own projections (reported) and
+                   with the JAX package's draws (the median kth-NN angle
+                   within 0.5 deg of 38.4, r within 1 % of 337.9, each
+                   recall@100 within 0.03 of round3_lsh_frontier/
+                   frontier_sift1m_tpu.log), scripts.exp_covertree_hard (both walks,
+                   recall@20 1.0), scripts.exp_glove_ceiling (in-degree-0
+                   0 at rev M and 2M, rev M at saturation within 0.03 of
+                   0.995), scripts.exp_glove_geometry (18 points; at ef 125
+                   iters 4 rev 2M within 0.03 of 0.9840 and M of 0.9727),
+                   scripts.exp_block_geometry (18 points, reported; its K2
+                   f32 waves at L = 256, d = 384 must be among the checked
+                   launches) and scripts.exp_manifold_structure (four rows,
+                   reported). K1 f32 / bf16 / u8, the pair, K3 and K2 must
+                   each launch at least once
   8. the kernels line, the nvidia-smi line, and last the result line.
 
 Imports nothing of JAX. Writes its YAML and the runner's outputs under
@@ -562,14 +579,17 @@ K3_DSUB = (2, 4, 6)
 # surrogate row's wave (512 queries x 96 popped slabs of 128 x 384) and the
 # SIFT-shape row's (256 x 62 slabs of 256 x 128), both bf16; the surrogate's
 # wave with half its pops on slab 0 (~24,600 pairs: the pad slab the beam
-# clamps stale pops to); an f32 shape; ragged cases (W = 5, L = 100, d = 50;
-# W = 1, L = 12, d = 40) with ids 0 and Nb - 1 and repeated ids. Every
+# clamps stale pops to); two f32 shapes, the second exp_block_geometry's
+# default wave (512 x 8 popped slabs of 256 x 384: 384 KiB a slab); ragged
+# cases (W = 5, L = 100, d = 50; W = 1, L = 12, d = 40) with ids 0 and
+# Nb - 1 and repeated ids. Every
 # graph row's own launches are checked in phase 5b (check_launched).
 K2_SHAPES = (
     (512, 96, 128, 384, 782, "bf16", 0.0),
     (256, 62, 256, 128, 3907, "bf16", 0.0),
     (512, 96, 128, 384, 782, "bf16", 0.5),
     (256, 40, 128, 384, 782, "f32", 0.0),
+    (512, 8, 256, 384, 391, "f32", 0.0),
     (300, 7, 256, 128, 50, "f32", 0.3),
     (7, 5, 100, 50, 13, "bf16", 0.0),
     (7, 5, 100, 50, 13, "f32", 0.0),
@@ -4361,33 +4381,97 @@ def jax_permutation(n: int, seed: int) -> np.ndarray:
     return x
 
 
+def jax_uniform(seed: int, shape, minval: float = 0.0, maxval: float = 1.0) -> np.ndarray:
+    """``jax.random.uniform(jax.random.PRNGKey(seed), shape, float32,
+    minval, maxval)`` in NumPy: 32 partitionable threefry bits an element
+    (the flat index as the counter), 23 of them as a mantissa in [1, 2),
+    less 1, scaled and shifted, at least ``minval``."""
+    n = int(np.prod(shape))
+    b1, b2 = _threefry2x32(0, int(seed) & 0xFFFFFFFF, np.zeros(n, np.uint32),
+                           np.arange(n, dtype=np.uint32))
+    mant = ((b1 ^ b2) >> np.uint32(9)) | np.float32(1.0).view(np.uint32)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    u = mant.view(np.float32) - np.float32(1.0)
+    return np.maximum(lo, u * (hi - lo) + lo).reshape(shape)
+
+
+# XLA's float32 erf_inv (Giles' approximation): coefficients for w < 5 and
+# for w >= 5, w = -log1p(-x^2)
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def jax_normal(seed: int, shape) -> np.ndarray:
+    """``jax.random.normal(jax.random.PRNGKey(seed), shape, float32)`` in
+    NumPy: ``sqrt(2) erf_inv(u)`` of uniforms in (-1, 1), with XLA's f32
+    erf_inv; held against JAX within 1e-6 by ``tests/test_torch_probes.py``
+    (log1p may differ in the last bit)."""
+    x = jax_uniform(seed, shape, np.nextafter(np.float32(-1.0), np.float32(0.0)), 1.0)
+    w = -np.log1p(-x * x)
+    lt = w < np.float32(5.0)
+    w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3.0))
+    p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = np.where(lt, np.float32(c_lt), np.float32(c_ge)) + p * w
+    return (np.float32(np.sqrt(2)) * (p * x)).astype(np.float32)
+
+
+def use_jax_draws() -> None:
+    """Make the port draw what the JAX package draws: its k-means rows
+    (:func:`jax_permutation`) and its LSH projections and E2LSH offsets
+    (:func:`jax_normal`, :func:`jax_uniform`)."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kmeans
+    from vectordb_retrieval_tpu_torch.ops import lsh as lshops
+
+    kmeans._permutation = lambda n, seed: torch.from_numpy(jax_permutation(n, seed))
+    lshops.make_projections = lambda seed, t, h, d, device=None: torch.from_numpy(
+        jax_normal(seed, (t, d, h))).to(device)
+    lshops.make_offsets = lambda seed, t, h, width, device=None: torch.from_numpy(
+        jax_uniform(seed ^ 0xE2, (t, h), 0.0, width)).to(device)
+
+
 def calibration_child(draws: str, module: str, result_path: str, *args: str) -> int:
     """The body of one calibration subprocess: the tool's ``main(args)``
     (no ``--device``: the card) with the launch counts set to 0 just before
     and read just after, under ``capture_launch_inputs``; then every
     captured launch against its plain version. ``draws`` "jax" makes the
-    port's k-means draw the JAX package's rows (:func:`jax_permutation`),
-    "port" leaves its own. Writes the counts, the worst errors and the
-    checks to ``result_path``."""
+    port draw the JAX package's k-means rows and LSH projections
+    (:func:`use_jax_draws`), "port" leaves its own. Writes the counts (a
+    dist_blockmin_pair launch counts under dist_blockmin_bf16; ``pairs``
+    says how many there were), the worst errors and the checked shapes to
+    ``result_path``, and the inputs of the last K2 launch on f32 slabs (of
+    the layout with fewest slabs), if any, to ``result_path.k2_f32.pt``."""
     import importlib
 
     import torch
 
-    from vectordb_retrieval_tpu_torch.ops import kernels, kmeans
+    from vectordb_retrieval_tpu_torch.ops import kernels
 
     if draws == "jax":
-        kmeans._permutation = lambda n, seed: torch.from_numpy(jax_permutation(n, seed))
+        use_jax_draws()
     tool = importlib.import_module(f"vectordb_retrieval_tpu_torch.scripts.{module}")
-    store = {}
+    store, pairs = {}, [0]
     kernels.reset_launch_counts()
-    with capture_launch_inputs(store, [module]):
+    with capture_launch_inputs(store, [module], pairs):
         rc = tool.main(list(args))
     launches = dict(kernels.LAUNCHES)
     worst = collections.defaultdict(float)
-    n_checked = len(store)
+    shapes = [{"kernel": key[1], "shapes": [list(k) for k in key[2:] if isinstance(k, tuple)],
+               "dtypes": [str(a.dtype).split(".")[-1] for a in args if hasattr(a, "dtype")]}
+              for key, args in store.items()]
+    f32_waves = [args for key, args in store.items()
+                 if key[1] == "slab_dots" and args[1].dtype == torch.float32]
+    if f32_waves:  # the f32-slab wave of fewest slabs, for the parent to time
+        torch.save([a.cpu() for a in min(f32_waves, key=lambda a: a[1].shape[0])],
+                    result_path + ".k2_f32.pt")
     check_launched(store, module, worst)
     with open(result_path, "w") as f:
-        json.dump({"rc": rc, "launches": launches, "worst": worst, "checked": n_checked}, f)
+        json.dump({"rc": rc, "launches": launches, "pairs": pairs[0], "worst": worst,
+                   "checked": len(shapes), "checked_shapes": shapes}, f)
     return rc
 
 
@@ -4599,6 +4683,246 @@ def phase_calibration(card: str) -> dict:
     return {"launches": launches, "worst": worst}
 
 
+# ---- 7c. research probes --------------------------------------------------
+
+PROBE_DIR = os.path.join(OUT_DIR, "probes")
+PROBE_TIMEOUT = 600
+# benchmark_results/round3_lsh_frontier/frontier_sift1m_tpu.log (the JAX
+# package on a TPU, the SIFT1M surrogate, 256 queries; README.md's table
+# rounds it): the median kth-NN angle and l2 distance, and (metric, tables,
+# bits, multiplier) -> recall@100
+LSH_RECORD_THETA, LSH_THETA_TOL = 38.4, 0.5
+LSH_RECORD_R, LSH_R_REL = 337.9, 0.01
+LSH_RECORD = {
+    ("cosine", 2, 18, 4.0): 0.0218, ("cosine", 4, 16, 4.0): 0.0298,
+    ("cosine", 8, 16, 8.0): 0.0579, ("cosine", 8, 14, 8.0): 0.0646,
+    ("cosine", 12, 14, 16.0): 0.1154, ("cosine", 12, 12, 16.0): 0.1607,
+    ("cosine", 16, 12, 32.0): 0.2523, ("cosine", 24, 10, 32.0): 0.4452,
+    ("cosine", 32, 8, 64.0): 0.6702, ("l2", 4, 6, 8.0): 0.009, ("l2", 8, 6, 16.0): 0.0152,
+    ("l2", 8, 8, 16.0): 0.0442, ("l2", 12, 8, 32.0): 0.085,
+}
+# benchmark_results/round5_covertree_hard/ab.json: both walks exact
+COVERTREE_HARD_DESCENTS = ("blockwalk", "stream")
+# models/graph.py:76-84 (the JAX package's exp_glove_geometry.py sweep):
+# recall@20 at ef 125, iters 4, by reverse_edges (2M, M)
+GLOVE_GEOMETRY_RECORD = {32: 0.9840, 16: 0.9727}
+# exp_glove_geometry.py:3-5: rev = M at saturation (ef 512, iters 12), and
+# no row left unreachable
+GLOVE_SATURATION_RECORD = 0.995
+# the kernels the probes launch (K4 is on no path)
+PROBE_KERNELS = ("dist_blockmin", "dist_blockmin_bf16", "dist_blockmin_u8", PAIR, "assign",
+                 "slab_dots")
+
+
+def _lsh_frontier_rows(stdout: str) -> dict:
+    """The difficulty line's angle and distance, and the rows by setting."""
+    import re
+
+    (head,) = [ln for ln in stdout.splitlines() if ln.startswith("corpus ")]
+    theta, r = map(float, re.search(r"angle=([0-9.]+)deg l2 r=([0-9.]+)", head).groups())
+    rows = {}
+    for ln in stdout.splitlines():
+        row = json.loads(ln) if ln.startswith('{"metric"') else None
+        if row is not None:
+            rows[(row["metric"], row["num_tables"], row["hash_size"],
+                  row["candidate_multiplier"])] = row
+    return {"theta": theta, "r": r, "rows": rows}
+
+
+def _lsh_frontier_gate(name: str, got: dict, failures: list) -> dict:
+    """The difficulty and every row's recall@100 against the record."""
+    if abs(got["theta"] - LSH_RECORD_THETA) > LSH_THETA_TOL:
+        failures.append(f"{name}/theta: {got['theta']} against {LSH_RECORD_THETA}")
+    if abs(got["r"] - LSH_RECORD_R) > LSH_R_REL * LSH_RECORD_R:
+        failures.append(f"{name}/r: {got['r']} against {LSH_RECORD_R}")
+    recalls = {"/".join(map(str, key)): row["recall"] for key, row in got["rows"].items()}
+    record = {"/".join(map(str, key)): v for key, v in LSH_RECORD.items()}
+    return _near(recalls, record, name, failures)
+
+
+def _glove_ceiling_rows(stdout: str) -> dict:
+    """reverse_edges -> in-degree-0 count and the two recalls."""
+    import re
+
+    rows = {}
+    for ln in stdout.splitlines():
+        m = re.match(r"rev=(2?M) .*in-deg-0=\s*(\d+)  recall\(ef125,it3\)=([0-9.]+)"
+                     r"  recall\(ef512,it12\)=([0-9.]+)$", ln)
+        if m:
+            rev = 32 if m.group(1) == "2M" else 16
+            rows[rev] = {"in_deg_0": int(m.group(2)), "ef125_it3": float(m.group(3)),
+                         "ef512_it12": float(m.group(4))}
+    return rows
+
+
+def _glove_geometry_rows(stdout: str) -> dict:
+    """(reverse_edges, ef, iters) -> recall, rows a query and wall seconds."""
+    import re
+
+    rows = {}
+    for ln in stdout.splitlines():
+        m = re.match(r"rev=\s*(\d+) ef=\s*(\d+) it=(\d+)  recall=([0-9.]+)  rows/q~\s*(\d+)"
+                     r"  wall=\s*([0-9.]+)s$", ln)
+        if m:
+            rev, ef, it = map(int, m.groups()[:3])
+            rows[(rev, ef, it)] = {"recall": float(m.group(4)), "rows_q": int(m.group(5)),
+                                   "wall_s": float(m.group(6))}
+    return rows
+
+
+def _block_geometry_rows(stdout: str) -> list:
+    import re
+
+    rows = []
+    for ln in stdout.splitlines():
+        if ln.startswith("block="):
+            rows.append({k: (float(v) if "." in v else int(v)) if k != "slab" else v
+                         for k, v in re.findall(r"(\w+)=(\S+)", ln)})
+    return rows
+
+
+def phase_probes(card: str) -> dict:
+    """The research probes on the card, each in its own subprocess with no
+    --device, all at once, at the JAX scripts' full sizes: the LSH
+    guarantee frontier (the SIFT1M surrogate, 1M x 128, 256 queries,
+    top-100, 13 settings) with the port's own projections and again with
+    the JAX package's draws (gated), the cover-tree hard A/B (msmarco
+    surrogate 100k x 384, both walks), the GloVe-50 reachability probe and
+    its 18-point geometry sweep (20k x 50), the block-graph geometry sweep
+    (100k x 384, three spills, six geometries, f32 slabs) and the manifold
+    structure probe (100k x 384, four rows). Gates: the frontier's
+    difficulty and recalls against the JAX package's record, both walks
+    present and exact, the GloVe in-degree-0 counts and recalls against the
+    numbers the JAX package's defaults cite; the block sweep and the
+    manifold rows are recorded. Every gate is read and emitted before a
+    failure fails the run; each subprocess holds its launches against
+    their plain versions. Returns the launches and the worst errors."""
+    t0 = time.perf_counter()
+    shutil.rmtree(PROBE_DIR, ignore_errors=True)
+    os.makedirs(PROBE_DIR)
+    data = {name: os.path.join(PROBE_DIR, f"data_{name}")
+            for name in ("covertree", "glove_ceiling", "glove_geometry", "block")}
+    ab_json = os.path.join(PROBE_DIR, "covertree_hard.json")
+    # name -> (draws, probe, arguments); the frontier reads OUT_DIR/sift1m_synth
+    probes = {
+        "lsh_frontier": ("port", "exp_lsh_frontier", "--data-dir", OUT_DIR),
+        "lsh_frontier_jax": ("jax", "exp_lsh_frontier", "--data-dir", OUT_DIR),
+        "covertree_hard": ("port", "exp_covertree_hard", "--out", ab_json,
+                           "--data-dir", data["covertree"]),
+        "glove_ceiling": ("port", "exp_glove_ceiling", "--data-dir", data["glove_ceiling"]),
+        "glove_geometry": ("port", "exp_glove_geometry", "--data-dir", data["glove_geometry"]),
+        "block_geometry": ("port", "exp_block_geometry", "--data-dir", data["block"]),
+        "manifold_structure": ("port", "exp_manifold_structure"),
+    }
+    child = "import sys, chip_smoke; sys.exit(chip_smoke.calibration_child(*sys.argv[1:]))"
+    runs = _run_procs(
+        {name: [sys.executable, "-c", child, draws, module,
+                os.path.join(PROBE_DIR, f"{name}.result.json"), *args]
+         for name, (draws, module, *args) in probes.items()},
+        PROBE_DIR, PROBE_TIMEOUT)
+    results = {}
+    for name in probes:
+        with open(os.path.join(PROBE_DIR, f"{name}.result.json")) as f:
+            results[name] = json.load(f)
+    lines = {}
+
+    def line(name, **kw):
+        res = results[name]
+        lines[name] = {"phase": "probes", "probe": probes[name][1], "draws": probes[name][0],
+                       "card": card, "seconds": runs[name][2], "launches": res["launches"],
+                       "pairs": res["pairs"], "launches_checked": res["checked"],
+                       "worst": res["worst"], **kw}
+
+    failures = []
+    for name in ("lsh_frontier", "lsh_frontier_jax"):
+        got = _lsh_frontier_rows(runs[name][1])
+        sink = failures if name == "lsh_frontier_jax" else []
+        diff = _lsh_frontier_gate(name, got, sink)
+        line(name, gated=name == "lsh_frontier_jax", theta_deg=got["theta"], r=got["r"],
+             rows=list(got["rows"].values()), misses=sink, diff=diff)
+        if len(got["rows"]) != len(LSH_RECORD):
+            failures.append(f"{name}: {len(got['rows'])} rows of {len(LSH_RECORD)}")
+
+    stdout = runs["covertree_hard"][1]
+    with open(ab_json) as f:
+        ab = json.load(f)
+    for descent in COVERTREE_HARD_DESCENTS:
+        row = ab["rows"].get(descent)
+        if row is None or f"{descent}: FAILED" in stdout:
+            failures.append(f"covertree_hard/{descent}: no row")
+        elif row["recall"] != 1.0:
+            failures.append(f"covertree_hard/{descent}: recall {row['recall']}")
+    line("covertree_hard", build=stdout.splitlines()[0], **ab)
+
+    ceiling = _glove_ceiling_rows(runs["glove_ceiling"][1])
+    for rev in (16, 32):
+        if ceiling.get(rev, {}).get("in_deg_0") != 0:
+            failures.append(f"glove_ceiling/rev={rev}: {ceiling.get(rev)}")
+    sat = _near({"ef512_it12": ceiling.get(16, {}).get("ef512_it12", -1.0)},
+                {"ef512_it12": GLOVE_SATURATION_RECORD}, "glove_ceiling/rev=16", failures)
+    line("glove_ceiling", rows=ceiling, record_saturation=GLOVE_SATURATION_RECORD, diff=sat)
+
+    geometry = _glove_geometry_rows(runs["glove_geometry"][1])
+    if len(geometry) != 18:
+        failures.append(f"glove_geometry: {len(geometry)} points of 18")
+    at = {rev: geometry.get((rev, 125, 4), {}).get("recall", -1.0) for rev in (32, 16)}
+    line("glove_geometry", points=[{"rev": k[0], "ef": k[1], "iters": k[2], **v}
+                                   for k, v in geometry.items()],
+         record_ef125_it4=GLOVE_GEOMETRY_RECORD,
+         diff=_near(at, GLOVE_GEOMETRY_RECORD, "glove_geometry/ef125_it4", failures))
+
+    block = _block_geometry_rows(runs["block_geometry"][1])
+    if len(block) != 3 * 6:
+        failures.append(f"block_geometry: {len(block)} points of 18")
+    line("block_geometry", points=block,
+         builds=[ln for ln in runs["block_geometry"][1].splitlines() if ln.startswith("built ")])
+
+    (manifold,) = [json.loads(ln) for ln in runs["manifold_structure"][1].splitlines()
+                   if ln.startswith('{"args"')]
+    if list(manifold["rows"]) != ["pq64", "ivf_pq", "ivf_sq8", "ivf_flat"]:
+        failures.append(f"manifold_structure: rows {list(manifold['rows'])}")
+    line("manifold_structure", rows=manifold["rows"])
+
+    launches = collections.Counter()
+    for r in results.values():
+        launches.update(r["launches"])
+        launches[PAIR] += r["pairs"]
+        launches["dist_blockmin_bf16"] -= r["pairs"]
+    missing = [name for name in PROBE_KERNELS if launches[name] < 1]
+    if missing:
+        failures.append(f"never launched {missing}")
+    # the block sweep's K2 f32 waves at L = 256, d = 384, held to the plain version
+    k2_f32 = [c["shapes"] for c in results["block_geometry"]["checked_shapes"]
+              if c["kernel"] == "slab_dots" and c["dtypes"][1] == "float32"
+              and c["shapes"][1][1:] == [256, 384]]
+    if not k2_f32:
+        failures.append("block_geometry: no K2 f32 launch at L = 256, d = 384 checked")
+    k2 = None
+    wave = os.path.join(PROBE_DIR, "block_geometry.result.json.k2_f32.pt")
+    if os.path.exists(wave):  # one real f32 wave, timed here beside its yardsticks
+        import torch
+
+        k2 = _slab_dots_numbers(*(a.to(DEV) for a in torch.load(wave)))
+        k2.update({"config": "exp_block_geometry", "row": "spill 0, f32 slabs",
+                   "launches": results["block_geometry"]["launches"]["slab_dots"]})
+        emit({"phase": "probes_k2_f32", "card": card, **k2})
+    worst = collections.defaultdict(float)
+    for r in results.values():
+        for name, err in r["worst"].items():
+            worst[name] = max(worst[name], err)
+    for name in probes:
+        emit(lines[name])
+    seconds = time.perf_counter() - t0
+    emit({"phase": "probes_run", "card": card, "seconds": seconds, "launches": dict(launches),
+          "worst": worst, "probes": {name: runs[name][2] for name in probes},
+          "k2_f32_l256_d384_checked": k2_f32, "failures": failures})
+    for name in data.values():
+        shutil.rmtree(name, ignore_errors=True)
+    if failures:
+        raise AssertionError(f"probes: {failures}")
+    return {"launches": dict(launches), "worst": worst, "k2_f32": k2}
+
+
 def main() -> int:
     launcher = _start_launcher()
     try:
@@ -4712,7 +5036,11 @@ def _main(launcher) -> int:
     phase_entry_points(card, flagship, exact_rows["l2"])
     calib = phase_calibration(card)
     add(calib["launches"], False)
-    for name, err in calib["worst"].items():
+    probes = phase_probes(card)
+    for name, n in probes["launches"].items():
+        if name != "blockmin":
+            launches[name] += n
+    for name, err in list(calib["worst"].items()) + list(probes["worst"].items()):
         worst[name] = max(worst[name], err)
 
     src = "vectordb_retrieval_tpu_torch/csrc/"
@@ -4762,6 +5090,8 @@ def _main(launcher) -> int:
         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
         "library_ms": k2["library_ms"], "gather_ms": k2["gather_ms"],
         "per_pair_bytes_ms": k2["per_pair_bytes_ms"], "shape": k2["shape"],
+        # the block-geometry probe's f32 wave (all its K2 launches beside it)
+        "other_shapes": [other(probes["k2_f32"], "slab_dots_ms")],
     })
     entries.append({
         "name": "blockmin", "route": "cuda", "source": src + "blockmin.cu",

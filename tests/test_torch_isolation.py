@@ -120,9 +120,18 @@ CALIBRATION_TOOLS = {
     "exp_binary_lsh_tune": lambda tmp_path: ["--data-dir", str(tmp_path)],
     "prepare_msmarco": _prep_config,
 }
-# every module this slice added to scripts/ (the SIFT1M surrogate writer
-# makes host files only and takes no device)
-SLICE_SCRIPTS = (*CALIBRATION_TOOLS, "make_sift1m_surrogate", "calibration")
+# the research probes, each with arguments that would build a small corpus
+PROBES = {
+    "exp_lsh_frontier": lambda tmp_path: ["--limit", "300", "--data-dir", str(tmp_path)],
+    "exp_covertree_hard": lambda tmp_path: ["--n", "300", "--data-dir", str(tmp_path)],
+    "exp_glove_ceiling": lambda tmp_path: ["--data-dir", str(tmp_path)],
+    "exp_glove_geometry": lambda tmp_path: ["--data-dir", str(tmp_path)],
+    "exp_block_geometry": lambda tmp_path: ["--data-dir", str(tmp_path)],
+    "exp_manifold_structure": lambda tmp_path: ["--n", "300"],
+}
+# every module the calibration and probe slices added to scripts/ (the
+# SIFT1M surrogate writer makes host files only and takes no device)
+SLICE_SCRIPTS = (*CALIBRATION_TOOLS, "make_sift1m_surrogate", "calibration", *PROBES, "probes")
 
 
 def _entry_point(name, tmp_path):
@@ -243,11 +252,11 @@ def _entry_point(name, tmp_path):
         from vectordb_retrieval_tpu_torch.bench import validate_bigcorpus
 
         validate_bigcorpus.main(["--rows", "64", "--data-dir", str(tmp_path / "bc")])
-    elif name in CALIBRATION_TOOLS:
+    elif name in CALIBRATION_TOOLS or name in PROBES:
         import importlib
 
-        importlib.import_module(f"vectordb_retrieval_tpu_torch.scripts.{name}").main(
-            CALIBRATION_TOOLS[name](tmp_path))
+        args = {**CALIBRATION_TOOLS, **PROBES}[name](tmp_path)
+        importlib.import_module(f"vectordb_retrieval_tpu_torch.scripts.{name}").main(args)
     elif name in ("main", "flagship", "scripts.run_experiment",
                   "scripts.run_full_benchmark", "scripts.parameter_sweep",
                   "scripts.compare_algorithms", "scripts.matched_conditions",
@@ -282,7 +291,7 @@ def _entry_point(name, tmp_path):
      "streamed_exact_search", "validate_bigcorpus", "main", "flagship",
      "scripts.run_experiment", "scripts.run_full_benchmark", "scripts.parameter_sweep",
      "scripts.compare_algorithms", "scripts.matched_conditions",
-     "data.dataprep.embed_msmarco", *CALIBRATION_TOOLS],
+     "data.dataprep.embed_msmarco", *CALIBRATION_TOOLS, *PROBES],
 )
 def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
     if torch.cuda.is_available():

@@ -670,6 +670,25 @@ def test_slab_dots_matches_pallas(rng, b, w, nb, length, d, variant, slab, repea
         np.testing.assert_array_equal(got[:, 1], got[:, 0])
 
 
+def test_slab_dots_f32_block_geometry_waves_match_manual(rng):
+    """The block-geometry probe's K2 shape: f32 slabs of L = 256 rows at
+    d = 384 (one slab, 384 KiB, outgrows an SM's shared memory; the kernel
+    stages k), over three waves of a beam (popped ids repeat across waves,
+    queries share blocks), against slab_dots_manual in interpret mode."""
+    b, w, nb, length, d = 6, 4, 5, 256, 384
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    lv = rng.standard_normal((nb, length, d)).astype(np.float32)
+    jq, jlv = jnp.asarray(q), jnp.asarray(lv)
+    popped = rng.permutation(np.repeat(np.arange(nb), 3 * b * w // nb + 1))
+    for wave in range(3):
+        sel = popped[wave * b * w:(wave + 1) * b * w].reshape(b, w).astype(np.int32)
+        sel[1] = sel[0]
+        want = np.asarray(slab_dots_manual(jq, jlv, jnp.asarray(sel), interpret=True, depth=8))
+        got = kernels.slab_dots(torch.from_numpy(q), torch.from_numpy(lv), torch.from_numpy(sel))
+        assert got.dtype == torch.float32 and tuple(got.shape) == want.shape == (b, w, length)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
 def test_slab_dots_plain_version_chunks_alike(rng):
     """The plain version's W chunking gives the same dots (to f32 sums in
     another order), and an int64 sel gives what int32 gives."""
