@@ -262,6 +262,21 @@ on failure:
                    launches) and scripts.exp_manifold_structure (four rows,
                    reported). K1 f32 / bf16 / u8, the pair, K3 and K2 must
                    each launch at least once
+  7d. tuning    - the port's tuning probes, the same child each, ONE AT A
+                   TIME (their product is a time), at the JAX scripts'
+                   default sizes: the exact path's block width (w 8-128 at
+                   100k x 384 and 1M x 128), width x slack and width x
+                   repeats at the flagship shape, batch 256 against 512,
+                   the flagship's components, the 1M stage split, one- and
+                   two-level block selection; the IVF fused stream's stages
+                   (IVF1024,Flat on the SIFT surrogate), its tail and its
+                   rescore formulations; both cover-tree walks at 1M (the
+                   SIFT surrogate), the stream walk's profile (msmarco
+                   surrogate), stage costs (1.2M x 128) and per-iteration
+                   costs. Each probe's last line is its ``check``; the gates
+                   (TUNING_GATES) are read for all fourteen before a failure
+                   fails the run. K1 f32 / bf16, the pair and K3 must each
+                   launch at least once
   8. the kernels line, the nvidia-smi line, and last the result line.
 
 Imports nothing of JAX. Writes its YAML and the runner's outputs under
@@ -554,11 +569,11 @@ K1_MODE_SHAPES = (
 # padded to S % w == 0, so S is no multiple of the 128-row payload tile
 # (but for w = 128); d from the masked-load widths (17, 50) to the copied
 # ones, resident (<= 256) and streamed queries; w reduced in registers
-# (1, 8, 32) and across lanes (128); 10 % dead slots and three whole dead
+# (1, 8, 16, 32), across lanes (64, 128); 10 % dead slots and three whole dead
 # blocks
 K1_TC_B = (7, 64, 300)
 K1_TC_D = (17, 50, 64, 96, 128, 384)
-K1_TC_W = (1, 8, 32, 128)
+K1_TC_W = (1, 8, 16, 32, 64, 128)
 # (N points, K centroids, d): the IVF1024 k-means sample (1024 x 256
 # points) and corpus at the SIFT1M shape, a ragged shape, a tie case with
 # duplicated centroids, and PQ training's subspaces (the 65,536-row sample,
@@ -4923,6 +4938,150 @@ def phase_probes(card: str) -> dict:
     return {"launches": dict(launches), "worst": worst, "k2_f32": k2}
 
 
+# ---- 7d. tuning probes ---------------------------------------------------
+
+TUNING_DIR = os.path.join(OUT_DIR, "tuning")
+TUNING_TIMEOUT = 300  # seconds a probe
+# (probe, arguments), in the order they run; the SIFT surrogate's probes read
+# OUT_DIR/sift1m_synth (phase 2)
+TUNING_PROBES = (
+    ("exp_blockmin_width", ()),
+    ("exp_flagship_w", ()),
+    ("exp_flagship_sweep", ()),
+    ("exp_flagship_batch", ()),
+    ("exp_flagship_profile", ()),
+    ("exp_blockmin_stages", ()),
+    ("exp_topk_twolevel", ()),
+    ("exp_ivf_fused_profile", ("--data-dir", OUT_DIR)),
+    ("exp_ivf_tail", ()),
+    ("exp_block_rescore", ()),
+    ("exp_covertree_blockwalk", ("--data-dir", OUT_DIR)),
+    ("exp_covertree_profile", ("--data-dir", os.path.join(TUNING_DIR, "data"))),
+    ("exp_covertree_stream_profile", ()),
+    ("exp_covertree_iter_cost", ()),
+)
+# the f32 rounding of a 128-term difference sum against float64 (the port
+# and the JAX package on a host CPU: 7.0e-8)
+RESCORE_REL_TOL = 1e-6
+# the cover tree's difference from the exact scan, relative to the largest
+# exact distance: the walk rescores in difference form, the scan refines
+WALK_REL_TOL = 1e-3
+SELECT_REL_TOL = 1e-6
+SWEEP_MIN_AGREE = 0.999
+TUNING_KERNELS = ("dist_blockmin", "dist_blockmin_bf16", PAIR, "assign")
+
+
+def _gate_blockmin_width(c):
+    return [f"{shape}/w={w}: rel err {r['rel_err']}, ids {r['ids_agree']}"
+            for shape, rows in c["shapes"].items() for w, r in rows.items()
+            if r["rel_err"] > KERNEL_REL_TOL or r["ids_agree"] < 1.0]
+
+
+def _gate_values(values, ok, what):
+    return [f"{key}: {what} {v}" for key, v in values.items() if not ok(v)]
+
+
+# probe -> the failures of its check line (one gate a probe)
+TUNING_GATES = {
+    "exp_blockmin_width": _gate_blockmin_width,
+    "exp_flagship_w": lambda c: _gate_values(
+        {k: r["recall"] for k, r in c["rows"].items()}, lambda v: v == 1.0, "recall"),
+    "exp_flagship_sweep": lambda c: _gate_values(
+        {f"reps={r}/w={w}": v for r, ws in c["agree"].items() for w, v in ws.items()},
+        lambda v: v >= SWEEP_MIN_AGREE, "ids agree"),
+    "exp_flagship_batch": lambda c: _gate_values(
+        {f"{i}/batch={r['batch']}": r["share"] for i, r in enumerate(c["ids_agree"])},
+        lambda v: v == 1.0, "ids agree"),
+    "exp_flagship_profile": lambda c: _gate_values(
+        {"a": c["a_ids_agree"]}, lambda v: v == 1.0, "ids agree"),
+    "exp_blockmin_stages": lambda c: _gate_values(
+        {"stage3": c["stage3_ids_agree"]}, lambda v: v == 1.0, "ids agree"),
+    "exp_topk_twolevel": lambda c: _gate_values(
+        {g: c["two_level_equal"][g] for g in ("8", "16", "32")}, bool, "equal"),
+    "exp_ivf_fused_profile": lambda c: _gate_values(
+        {"stage 5": c["full_ids_equal"]}, bool, "ids equal"),
+    "exp_ivf_tail": lambda c: _gate_values(
+        {k: c[k] for k in ("b_equals_c", "e_equals_f")}, bool, "equal"),
+    "exp_block_rescore": lambda c: _gate_values(
+        {"a.diff-sum": c["max_rel_err"]["a.diff-sum"]}, lambda v: v <= RESCORE_REL_TOL,
+        "max rel err"),
+    "exp_covertree_blockwalk": lambda c: _gate_values(
+        {w: c["walks"].get(w, {}).get("recall", -1.0) for w in ("blockwalk", "stream")},
+        lambda v: v == 1.0, "recall"),
+    "exp_covertree_profile": lambda c: _gate_values(
+        {"stream walk": c["recall"]}, lambda v: v == 1.0, "recall") + _gate_values(
+        {"stream walk": c["max_rel_diff"]}, lambda v: v <= WALK_REL_TOL, "max rel diff"),
+    "exp_covertree_stream_profile": lambda c: _gate_values(
+        c["rel_diff_to_fullwidth"], lambda v: v <= SELECT_REL_TOL, "rel diff"),
+    "exp_covertree_iter_cost": lambda c: _gate_values(
+        {"checksums": c["finite_in_range"]}, bool, "finite, in range"),
+}
+
+
+def _tuning_check(stdout: str):
+    """``(the probe's printed lines, the check's numbers)``: the check line
+    and the child's own kernel-check lines apart."""
+    lines = stdout.splitlines()
+    checks = [json.loads(ln[len("check "):]) for ln in lines if ln.startswith("check ")]
+    rows = [ln for ln in lines if not ln.startswith(("check ", '{"phase": '))]
+    return rows, (checks or [None])[-1]
+
+
+def phase_tuning(card: str) -> dict:
+    """The tuning probes on the card, each in its own subprocess with no
+    --device (``calibration_child``: launch counts set to 0 before, every
+    captured launch held to its plain version after), one at a time, at the
+    JAX scripts' default sizes. Each probe's lines and its check go to one
+    line with the card; a probe that exits nonzero or misses its gate is a
+    failure, read and emitted for all fourteen before the run fails.
+    Returns the launches and the worst errors."""
+    t0 = time.perf_counter()
+    shutil.rmtree(TUNING_DIR, ignore_errors=True)
+    os.makedirs(TUNING_DIR)
+    child = "import sys, chip_smoke; sys.exit(chip_smoke.calibration_child(*sys.argv[1:]))"
+    launches = collections.Counter()
+    worst = collections.defaultdict(float)
+    failures, seconds = [], {}
+    for module, args in TUNING_PROBES:
+        result = os.path.join(TUNING_DIR, f"{module}.result.json")
+        argv = [sys.executable, "-c", child, "port", module, result, *args]
+        probe_failures, stdout, res = [], "", None
+        try:
+            _, stdout, seconds[module] = _run_procs({module: argv}, TUNING_DIR,
+                                                    TUNING_TIMEOUT)[module]
+            with open(result) as f:
+                res = json.load(f)
+        except AssertionError as e:
+            probe_failures.append(f"did not finish: {str(e)[-2000:]}")
+        rows, check = _tuning_check(stdout)
+        if res is not None:
+            if check is None:
+                probe_failures.append("no check line")
+            else:
+                probe_failures += TUNING_GATES[module](check)
+            launches.update(res["launches"])
+            launches[PAIR] += res["pairs"]
+            launches["dist_blockmin_bf16"] -= res["pairs"]
+            for name, err in res["worst"].items():
+                worst[name] = max(worst[name], err)
+        failures += [f"{module}: {f}" for f in probe_failures]
+        emit({"phase": "tuning_probes", "probe": module, "args": list(args), "card": card,
+              "seconds": seconds.get(module), "rows": rows, "check": check,
+              "launches": None if res is None else res["launches"],
+              "pairs": None if res is None else res["pairs"],
+              "launches_checked": None if res is None else res["checked"],
+              "worst": None if res is None else res["worst"], "failures": probe_failures})
+    missing = [name for name in TUNING_KERNELS if launches[name] < 1]
+    if missing:
+        failures.append(f"never launched {missing}")
+    emit({"phase": "tuning_probes_run", "card": card, "seconds": time.perf_counter() - t0,
+          "probes": seconds, "launches": dict(launches), "worst": worst, "failures": failures})
+    shutil.rmtree(os.path.join(TUNING_DIR, "data"), ignore_errors=True)
+    if failures:
+        raise AssertionError(f"tuning probes: {failures}")
+    return {"launches": dict(launches), "worst": worst}
+
+
 def main() -> int:
     launcher = _start_launcher()
     try:
@@ -5037,11 +5196,14 @@ def _main(launcher) -> int:
     calib = phase_calibration(card)
     add(calib["launches"], False)
     probes = phase_probes(card)
-    for name, n in probes["launches"].items():
-        if name != "blockmin":
-            launches[name] += n
-    for name, err in list(calib["worst"].items()) + list(probes["worst"].items()):
-        worst[name] = max(worst[name], err)
+    tuning = phase_tuning(card)
+    for run in (probes, tuning):
+        for name, n in run["launches"].items():
+            if name != "blockmin":
+                launches[name] += n
+    for run in (calib, probes, tuning):
+        for name, err in run["worst"].items():
+            worst[name] = max(worst[name], err)
 
     src = "vectordb_retrieval_tpu_torch/csrc/"
     tpu = "vectordb_retrieval_tpu/ops/pallas_kernels.py"

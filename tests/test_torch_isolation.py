@@ -129,9 +129,27 @@ PROBES = {
     "exp_block_geometry": lambda tmp_path: ["--data-dir", str(tmp_path)],
     "exp_manifold_structure": lambda tmp_path: ["--n", "300"],
 }
+# the tuning probes, each with arguments that would make a small input
+TUNING_PROBES = {
+    "exp_blockmin_width": lambda tmp_path: ["--shapes", "64x4x2x1"],
+    "exp_flagship_w": lambda tmp_path: [],
+    "exp_flagship_sweep": lambda tmp_path: [],
+    "exp_flagship_batch": lambda tmp_path: [],
+    "exp_flagship_profile": lambda tmp_path: [],
+    "exp_blockmin_stages": lambda tmp_path: ["--n", "64", "--d", "4", "--b", "2", "--k", "1"],
+    "exp_topk_twolevel": lambda tmp_path: ["--nb", "64", "--b", "2", "--s", "4"],
+    "exp_ivf_fused_profile": lambda tmp_path: ["--data-dir", str(tmp_path)],
+    "exp_ivf_tail": lambda tmp_path: [],
+    "exp_block_rescore": lambda tmp_path: [],
+    "exp_covertree_blockwalk": lambda tmp_path: ["--data-dir", str(tmp_path)],
+    "exp_covertree_profile": lambda tmp_path: ["--n", "300", "--data-dir", str(tmp_path)],
+    "exp_covertree_stream_profile": lambda tmp_path: ["--m", "640", "--d", "4", "--b", "2"],
+    "exp_covertree_iter_cost": lambda tmp_path: [],
+}
 # every module the calibration and probe slices added to scripts/ (the
 # SIFT1M surrogate writer makes host files only and takes no device)
-SLICE_SCRIPTS = (*CALIBRATION_TOOLS, "make_sift1m_surrogate", "calibration", *PROBES, "probes")
+SLICE_SCRIPTS = (*CALIBRATION_TOOLS, "make_sift1m_surrogate", "calibration", *PROBES, "probes",
+                 *TUNING_PROBES)
 
 
 def _entry_point(name, tmp_path):
@@ -252,10 +270,10 @@ def _entry_point(name, tmp_path):
         from vectordb_retrieval_tpu_torch.bench import validate_bigcorpus
 
         validate_bigcorpus.main(["--rows", "64", "--data-dir", str(tmp_path / "bc")])
-    elif name in CALIBRATION_TOOLS or name in PROBES:
+    elif name in CALIBRATION_TOOLS or name in PROBES or name in TUNING_PROBES:
         import importlib
 
-        args = {**CALIBRATION_TOOLS, **PROBES}[name](tmp_path)
+        args = {**CALIBRATION_TOOLS, **PROBES, **TUNING_PROBES}[name](tmp_path)
         importlib.import_module(f"vectordb_retrieval_tpu_torch.scripts.{name}").main(args)
     elif name in ("main", "flagship", "scripts.run_experiment",
                   "scripts.run_full_benchmark", "scripts.parameter_sweep",
@@ -291,7 +309,7 @@ def _entry_point(name, tmp_path):
      "streamed_exact_search", "validate_bigcorpus", "main", "flagship",
      "scripts.run_experiment", "scripts.run_full_benchmark", "scripts.parameter_sweep",
      "scripts.compare_algorithms", "scripts.matched_conditions",
-     "data.dataprep.embed_msmarco", *CALIBRATION_TOOLS, *PROBES],
+     "data.dataprep.embed_msmarco", *CALIBRATION_TOOLS, *PROBES, *TUNING_PROBES],
 )
 def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
     if torch.cuda.is_available():

@@ -1,12 +1,14 @@
-"""What the research probes share: the timing protocol of repeated device
-searches, and the GloVe-50 surrogate's node-beam setup
+"""What the research and tuning probes share: the timing protocol of
+repeated device searches, the exact references and agreement counts the
+tuning probes report, and the GloVe-50 surrogate's node-beam setup
 (``exp_glove_ceiling``, ``exp_glove_geometry``).
 """
 
 from __future__ import annotations
 
+import json
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -17,23 +19,58 @@ from vectordb_retrieval_tpu_torch.ops import distances as dops
 from vectordb_retrieval_tpu_torch.ops import graph as gops
 from vectordb_retrieval_tpu_torch.utils.device import synchronize
 
-Search = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+Search = Callable[[torch.Tensor], Union[torch.Tensor, Sequence[torch.Tensor]]]
 
 
 def timed_passes(search: Search, q: torch.Tensor, passes: int,
                  device: torch.device) -> Tuple[np.ndarray, float]:
-    """``(ids of the last pass on the host, seconds of the passes)``: one
+    """``(the last pass's result on the host, seconds of the passes)``: one
     untimed ``search(q)``, then ``passes`` calls queued on the device, one
-    synchronise and one copy of the last ids to the host inside the clock
-    (``bench/experiment._timed_search``'s protocol, with a single sync)."""
+    synchronise and one copy of the last result to the host inside the
+    clock (``bench/experiment._timed_search``'s protocol, with a single
+    sync). ``search`` returns a tensor or a tuple of tensors, whose last
+    (a search's ids) is the result copied (bf16 as f32)."""
     search(q)
     synchronize(device)
     t0 = time.perf_counter()
     for _ in range(passes):
-        _, ids = search(q)
+        out = search(q)
     synchronize(device)
-    out = ids.cpu().numpy()
-    return out, time.perf_counter() - t0
+    last = out[-1] if isinstance(out, (tuple, list)) else out
+    host = last.cpu()
+    host = (host.float() if host.dtype == torch.bfloat16 else host).numpy()
+    return host, time.perf_counter() - t0
+
+
+def dense_reference(q: torch.Tensor, x: torch.Tensor, k: int,
+                    chunk_rows: int = 65_536) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact l2 top-``k`` of ``q`` over ``x`` on the host, by the plain
+    route: f32 products in row chunks with a running top-k (TF32 off), then
+    the cancellation-free rescore of ``k + REFINE_OVERFETCH`` candidates
+    (``ops/distances._exact_search_streamed``). No kernel runs."""
+    fetch = min(k + dops.REFINE_OVERFETCH, x.shape[0])
+    d, i = dops._exact_search_streamed(q, x, None, fetch, "l2", chunk_rows, refine_to=k)
+    return d.cpu().numpy(), i.cpu().numpy()
+
+
+def agree_where_distinct(ids: np.ndarray, ref_ids: np.ndarray,
+                         ref_d: np.ndarray) -> float:
+    """Share of the positions whose reference distance differs from both
+    neighbours in its row (its rank is certain) where ``ids`` holds the
+    reference's id; 1.0 where no position is certain."""
+    ref_d = np.asarray(ref_d)
+    prev = np.concatenate([np.full((ref_d.shape[0], 1), -np.inf), ref_d[:, :-1]], axis=1)
+    nxt = np.concatenate([ref_d[:, 1:], np.full((ref_d.shape[0], 1), np.inf)], axis=1)
+    certain = (ref_d != prev) & (ref_d != nxt)
+    if not certain.any():
+        return 1.0
+    return float(np.mean(np.asarray(ids)[certain] == np.asarray(ref_ids)[certain]))
+
+
+def print_check(**numbers) -> None:
+    """The numbers a probe's correctness gate reads, as one last line
+    ``check {json}`` (the JAX scripts print none of it)."""
+    print("check " + json.dumps(numbers), flush=True)
 
 
 class GloveBeam:
