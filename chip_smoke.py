@@ -11,7 +11,7 @@ on failure:
                    nvcc per source, all started together); registers, spills
                    and shared memory per kernel; the HGMMA (wgmma)
                    instructions in the SASS of each library: every kernel
-                   runs on the tensor cores (libdist_blockmin_tc.so K1,
+                   runs on the tensor cores (libdist_blockmin_tc.so K1 and K5,
                    libassign.so K3, libslab_dots.so K2, libblockmin.so K4;
                    none in any of them fails the run). Beside nvcc, ``make
                    -C native`` (the host IO library) and the port's
@@ -41,7 +41,10 @@ on failure:
                    blockmin (the JAX oracle's shape, w = 32, a ragged B over
                    3 query tiles, three tiles at w = 128, and exact search's
                    flagship padded with rows of 1e6; no path of the system
-                   calls it, so these checks are its launches)
+                   calls it, so these checks are its launches) and
+                   matmul_floor (K5: phase 7d's two shapes, 256 x 100,032 x
+                   384 at w 8 and 256 x 1,000,192 x 128 at w 32, a ragged B
+                   and d, and w 8-128 with S off the 128-row tile)
   4. exact path  - the port's BenchmarkRunner (exact row: BruteForceIndexer +
                    LinearSearcher) on 100k x 384 random data, l2 and cosine;
                    ground truth, timed batched search, recall@20 == 1.0, the
@@ -205,7 +208,11 @@ on failure:
                    kernel's time beside its plain version, one library call
                    and the card's bound (K1 f32, blockmin and assign: the
                    bound of their 3xTF32 route, and the FP32 bound beside
-                   it)
+                   it); K5 at phase 7d's two shapes beside K1 f32 on
+                   the same inputs (K1 less K5: K1's epilogue), its bound
+                   that of the function (the S/w rows it reads), its
+                   library call the strided product x[::w] @ q.T, and the
+                   bound of K1's main loop (every row) as k1_loop_bound_ms
   7. entry points - the port's CLIs as subprocesses with no --device (the
                    card is their default): the flagship (its JSON line beside
                    phase 6's QPS for the same workload), then together
@@ -262,9 +269,14 @@ on failure:
                    launches) and scripts.exp_manifold_structure (four rows,
                    reported). K1 f32 / bf16 / u8, the pair, K3 and K2 must
                    each launch at least once
-  7d. tuning    - the port's tuning probes, the same child each, ONE AT A
-                   TIME (their product is a time), at the JAX scripts'
-                   default sizes: the exact path's block width (w 8-128 at
+  7d. tuning    - the port's tuning probes, the same child body each, ONE AT
+                   A TIME in one subprocess (their product is a time; one
+                   process start for all; the card synchronised, the
+                   allocator's cache emptied and its peak reset between
+                   runs, and a CUDA error that breaks the context named as
+                   the cause of every later run's failure), at the JAX
+                   scripts' default
+                   sizes: the exact path's block width (w 8-128 at
                    100k x 384 and 1M x 128), width x slack and width x
                    repeats at the flagship shape, batch 256 against 512,
                    the flagship's components, the 1M stage split, one- and
@@ -273,10 +285,19 @@ on failure:
                    rescore formulations; both cover-tree walks at 1M (the
                    SIFT surrogate), the stream walk's profile (msmarco
                    surrogate), stage costs (1.2M x 128) and per-iteration
-                   costs. Each probe's last line is its ``check``; the gates
-                   (TUNING_GATES) are read for all fourteen before a failure
-                   fails the run. K1 f32 / bf16, the pair and K3 must each
-                   launch at least once
+                   costs; then the last thirteen: K1 f32 against its matmul
+                   floor (K5) and by width, at 100k x 384 (w 8) and again at
+                   1M x 128 (w 32); the 1M exact path's selections; the IVF
+                   rescore's block gather against K2; K1 by width at the
+                   flagship; K2's two wave shapes; the flagship stream of 96
+                   and 192 batches; the node beam's parts, its ablation, its
+                   settings and its neighbour tables (with the JAX package's
+                   k-means draws, TUNING_JAX_DRAWS: their gates read recall);
+                   the selection primitives' costs. Each probe's last line is
+                   its ``check``; the gates (TUNING_GATES) are read for all
+                   twenty-eight runs before a failure fails the run. K1 f32 /
+                   bf16, the pair, K3, K2 and K5 must each launch at least
+                   once
   8. the kernels line, the nvidia-smi line, and last the result line.
 
 Imports nothing of JAX. Writes its YAML and the runner's outputs under
@@ -624,6 +645,17 @@ K4_SHAPES = (
     (64, 6144, 64, 128, 0),
     (256, 100_352, 384, 8, 352),
 )
+# K5 (matmul_floor), (B, S, d, w): the flagship (100,032 rows, exp_dbm_tune's
+# padding of 100k at w = 8) and the SIFT shape (1M at w = 32: 1,000,192 rows)
+# of phase 7d's two runs, a ragged B and d, and every width of the epilogue
+# over a ragged B (two query tiles) with S off the 128-row tile (but for
+# w = 128); phase 7d's own launches are checked there (check_launched)
+K5_SHAPES = (
+    (256, 100_032, 384, 8),
+    (256, 1_000_192, 128, 32),
+    (300, 5_000, 50, 8),
+    *((130, w * (3001 // w + 1), 96, w) for w in (8, 16, 32, 64, 128)),
+)
 # the per-product precision line: B x N rows of seeded normals at d = 4
 # with three columns zero, so each output holds one product
 PRODUCT_SHAPE = (300, 65_536)
@@ -728,6 +760,43 @@ def check_dist_blockmin_pair(q, x, pen_a, pen_b, w, where, quiet=False) -> float
               "ok": ok})
     if not ok:
         raise AssertionError(f"{PAIR} {where}: {diffs}")
+    return err
+
+
+def check_matmul_floor(q, x, w, where, quiet=False) -> float:
+    """One matmul_floor launch against its plain version on the same
+    inputs: the same [S/w, B] shape, no NaN, max error <= 1e-5 x max|plain|
+    (3xTF32 against FP32 sums, as K1 f32). Emits the check (``quiet``: only
+    a failing one) and returns the max abs error."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    got = kernels.matmul_floor(q, x, w=w)
+    want = kernels.matmul_floor_reference(q, x, w)
+    torch.cuda.synchronize()
+    nan = bool(torch.isnan(got).any())
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    ok = got.shape == want.shape and not nan and err <= KERNEL_REL_TOL * scale
+    if not ok or not quiet:
+        emit({"phase": "kernel_check", "kernel": "matmul_floor", "at": where,
+              "shape": [q.shape[0], x.shape[0], x.shape[1], w], "max_abs_err": err,
+              "max_abs_plain": scale, "tol": KERNEL_REL_TOL * scale, "nan": nan, "ok": ok})
+    if not ok:
+        raise AssertionError(f"matmul_floor {where}: err {err}, NaN {nan}")
+    return err
+
+
+def check_matmul_floor_shape(b, s, d, w, seed) -> float:
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((b, d), generator=g, device=DEV)
+    x = torch.randn((s, d), generator=g, device=DEV)
+    err = check_matmul_floor(q, x, w, "synthetic")
+    del q, x
+    torch.cuda.empty_cache()
     return err
 
 
@@ -867,6 +936,7 @@ def capture_launch_inputs(store: dict, stage: list, pairs: list = None,
 
     orig_dbm, orig_assign = kernels.dist_blockmin, kernels.assign
     orig_slab, orig_pair = kernels.slab_dots, kernels.dist_blockmin_pair
+    orig_floor = kernels.matmul_floor
     modes = _dtype_modes()
 
     def keep(key, args):
@@ -901,13 +971,21 @@ def capture_launch_inputs(store: dict, stage: list, pairs: list = None,
               tuple(sel.shape)), (queries, list_vecs, sel))
         return out
 
+    def matmul_floor(queries, payload, w=8):
+        out = orig_floor(queries, payload, w=w)
+        keep((stage[0], "matmul_floor", tuple(queries.shape), tuple(payload.shape), w),
+             (queries, payload, w))
+        return out
+
     kernels.dist_blockmin, kernels.assign = dist_blockmin, assign
     kernels.slab_dots, kernels.dist_blockmin_pair = slab_dots, dist_blockmin_pair
+    kernels.matmul_floor = matmul_floor
     try:
         yield store
     finally:
         kernels.dist_blockmin, kernels.assign = orig_dbm, orig_assign
         kernels.slab_dots, kernels.dist_blockmin_pair = orig_slab, orig_pair
+        kernels.matmul_floor = orig_floor
 
 
 def check_launched(store: dict, prefix: str, worst: dict) -> None:
@@ -923,6 +1001,8 @@ def check_launched(store: dict, prefix: str, worst: dict) -> None:
             err = check_slab_dots(*args, where)
         elif key[1] == PAIR:
             err = check_dist_blockmin_pair(*args, where)
+        elif key[1] == "matmul_floor":
+            err = check_matmul_floor(*args, where)
         else:
             q, x, pen, w = args
             err = check_dist_blockmin(q, x, pen, w, where)
@@ -1111,7 +1191,7 @@ def phase_depth_precision(card: str) -> None:
 def phase_kernels() -> dict:
     """Worst max abs error per kernel name."""
     worst = {name: 0.0 for name in (*_MODE_NAME.values(), PAIR, "assign", "slab_dots",
-                                    "blockmin")}
+                                    "blockmin", "matmul_floor")}
     for i, (b, n, d, w, dead) in enumerate(K1_SHAPES):
         for pen_kind in ("l2", "zero"):
             q, x, pen = _k1_inputs(b, n, d, w, dead, pen_kind, SEED + i)
@@ -1135,6 +1215,9 @@ def phase_kernels() -> dict:
         q, x = _k4_inputs(b, n, d, pad, SEED + i)
         err = check_blockmin(q, x, w, n - pad, "synthetic")
         worst["blockmin"] = max(worst["blockmin"], err)
+    for i, shape in enumerate(K5_SHAPES):
+        err = check_matmul_floor_shape(*shape, SEED + i)
+        worst["matmul_floor"] = max(worst["matmul_floor"], err)
     return worst
 
 
@@ -2961,6 +3044,43 @@ def phase_blockmin_throughput(card: str) -> dict:
     emit(out)
     del q, x
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_matmul_floor_throughput(card: str) -> list:
+    """K5 at phase 7d's two shapes (exp_dbm_tune at its defaults and at 1M
+    x 128, w = 32): kernel, plain version (FP32, TF32 off), one library
+    call computing the same function (the strided product ``x[::w] @
+    q.T``) and the function's bound (its ``S/w`` rows only), and K1 f32 on
+    the same inputs beside it: K1's time less K5's is K1's epilogue. The
+    kernel multiplies every row, as K1's main loop does, so the bound of
+    that loop stands apart as ``k1_loop_bound_ms`` (three TF32 products of
+    every row, or the queries and the whole payload read once)."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    out = []
+    for b, s, d, w in K5_SHAPES[:2]:
+        g = torch.Generator(device=DEV).manual_seed(SEED)
+        q = torch.randn((b, d), generator=g, device=DEV)
+        x = torch.randn((s, d), generator=g, device=DEV)
+        pen = torch.sum(x * x, dim=1).reshape(-1, w)
+        ms = time_ms(lambda: kernels.matmul_floor(q, x, w=w), prime=True)
+        k1_ms = time_ms(lambda: kernels.dist_blockmin(q, x, pen, w=w), prime=True)
+        plain_ms = time_ms(lambda: kernels.matmul_floor_reference(q, x, w), reps=10)
+        library_ms = time_ms(lambda: torch.matmul(x[::w], q.T), reps=10)
+        flops, nbytes = kernels.matmul_floor_work(b, s, d, w)
+        loop = _tf32x3_bounds(2.0 * b * s * d, 2.0 * b * s * d, 4.0 * (b * d + s * d))
+        line = {"phase": "matmul_floor_throughput", "shape": [b, s, d, w], "card": card,
+                "matmul_floor_ms": ms, "dist_blockmin_ms": k1_ms, "epilogue_ms": k1_ms - ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                **_tf32x3_bounds(flops, flops, nbytes), "flops": flops, "bytes": nbytes,
+                "k1_loop_bound_ms": loop["bound_ms"], "k1_loop_bound_by": loop["bound_by"]}
+        emit(line)
+        out.append(line)
+        del q, x, pen
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4941,7 +5061,7 @@ def phase_probes(card: str) -> dict:
 # ---- 7d. tuning probes ---------------------------------------------------
 
 TUNING_DIR = os.path.join(OUT_DIR, "tuning")
-TUNING_TIMEOUT = 300  # seconds a probe
+TUNING_TIMEOUT = 900  # seconds for the phase's one subprocess
 # (probe, arguments), in the order they run; the SIFT surrogate's probes read
 # OUT_DIR/sift1m_synth (phase 2)
 TUNING_PROBES = (
@@ -4959,7 +5079,27 @@ TUNING_PROBES = (
     ("exp_covertree_profile", ("--data-dir", os.path.join(TUNING_DIR, "data"))),
     ("exp_covertree_stream_profile", ()),
     ("exp_covertree_iter_cost", ()),
+    ("exp_dbm_tune", ()),
+    ("exp_dbm_tune", ("--n", "1000000", "--d", "128", "--w", "32")),
+    ("exp_dist_blockmin", ()),
+    ("exp_slab_rescore", ()),
+    ("exp_dbm_flagship", ()),
+    ("exp_slab_ring", ()),
+    ("exp_flagship_unroll", ()),
+    ("exp_beam_profile", ()),
+    ("exp_beam_ablate", ()),
+    ("exp_beam_tune", ()),
+    ("exp_beam_table_tune", ()),
+    ("exp_graph_neighbor_table", ()),
+    ("exp_topk_cost", ()),
+    ("exp_topk_cost2", ()),
 )
+# the graph probes read recall: they run with the JAX package's k-means draws
+TUNING_JAX_DRAWS = ("exp_beam_ablate", "exp_beam_tune", "exp_beam_table_tune",
+                    "exp_graph_neighbor_table")
+# the IVF rescore's two tails (block gather, K2) agree on each query's
+# nearest distance to f32 rounding of a 128-term sum
+TAIL_REL_TOL = 1e-5
 # the f32 rounding of a 128-term difference sum against float64 (the port
 # and the JAX package on a host CPU: 7.0e-8)
 RESCORE_REL_TOL = 1e-6
@@ -4968,7 +5108,8 @@ RESCORE_REL_TOL = 1e-6
 WALK_REL_TOL = 1e-3
 SELECT_REL_TOL = 1e-6
 SWEEP_MIN_AGREE = 0.999
-TUNING_KERNELS = ("dist_blockmin", "dist_blockmin_bf16", PAIR, "assign")
+TUNING_KERNELS = ("dist_blockmin", "dist_blockmin_bf16", PAIR, "assign", "slab_dots",
+                  "matmul_floor")
 
 
 def _gate_blockmin_width(c):
@@ -4979,6 +5120,14 @@ def _gate_blockmin_width(c):
 
 def _gate_values(values, ok, what):
     return [f"{key}: {what} {v}" for key, v in values.items() if not ok(v)]
+
+
+def _gate_beam_recall(c):
+    """The graph probes' best recall@20 against the JAX scripts' own pass
+    line (BASELINE.md's FAISS CPU hnsw row on random-20k)."""
+    from vectordb_retrieval_tpu_torch.scripts.probes import BEAM_PASS_RECALL
+
+    return _gate_values({"best": c["best_recall"]}, lambda v: v >= BEAM_PASS_RECALL, "recall")
 
 
 # probe -> the failures of its check line (one gate a probe)
@@ -5015,7 +5164,88 @@ TUNING_GATES = {
         c["rel_diff_to_fullwidth"], lambda v: v <= SELECT_REL_TOL, "rel diff"),
     "exp_covertree_iter_cost": lambda c: _gate_values(
         {"checksums": c["finite_in_range"]}, bool, "finite, in range"),
+    "exp_dbm_tune": lambda c: _gate_values(
+        {"floor": c["floor_rel_err"]}, lambda v: v <= KERNEL_REL_TOL, "rel err") + _gate_values(
+        {"floor": c["floor_finite"]}, bool, "finite"),
+    "exp_dist_blockmin": lambda c: _gate_values(
+        c["agreement"], lambda v: v == 1.0, "distance agreement"),
+    "exp_slab_rescore": lambda c: _gate_values(
+        {"slab dots": c["slab_max_abs_err"]}, lambda v: v <= c["slab_tol"],
+        "max abs err") + _gate_values(
+        {"first distances": c["first_rel_diff"]}, lambda v: v <= TAIL_REL_TOL, "rel diff"),
+    "exp_dbm_flagship": lambda c: _gate_values({"outputs": c["finite"]}, bool, "finite"),
+    "exp_slab_ring": lambda c: _gate_values(
+        {k: r["max_abs_err"] / max(r["max_abs_plain"], 1e-30) for k, r in c["shapes"].items()},
+        lambda v: v <= KERNEL_REL_TOL, "rel err"),
+    "exp_flagship_unroll": lambda c: _gate_values(
+        {k: r["ids_agree"] for k, r in c["rows"].items()}, lambda v: v == 1.0, "ids agree"),
+    "exp_beam_profile": lambda c: _gate_values(
+        {"checksums": c["finite"], "ids": c["ids_in_range"]}, bool, "finite, in range"),
+    "exp_beam_ablate": lambda c: _gate_values(
+        {"ids": c["ids_equal"], "distances": c["dists_equal"]}, bool,
+        "equal to graph_search's"),
+    "exp_beam_tune": _gate_beam_recall,
+    "exp_beam_table_tune": _gate_beam_recall,
+    "exp_graph_neighbor_table": _gate_beam_recall,
+    "exp_topk_cost": lambda c: _gate_values(
+        {**c["topk_equals_sort"], **c["rank_merge_equals_sort"]}, bool, "equal to a sort"),
+    "exp_topk_cost2": lambda c: _gate_values({"outputs": c["finite"]}, bool, "finite") + [
+        f"dedup {k}: {v['counted']} != numpy {v['numpy']}"
+        for k, v in c["dedup_counts"].items() if v["counted"] != v["numpy"]],
 }
+
+
+def tuning_child(plan_path: str) -> int:
+    """The body of phase 7d's one subprocess: the plan's runs ``(name,
+    draws, module, result_path, args)`` one after another, each through
+    :func:`calibration_child` with its output in ``<name>.out`` / ``.err``
+    and ``{"rc", "seconds"}`` in ``<name>.status.json``, so one process start
+    serves every probe. Each run starts from the port's own draws (a
+    "jax" run's patches are undone after it) and from a drained card: the
+    stream synchronised, the allocator's cache emptied and its peak reset.
+    A run that raises is recorded and the next one runs; an error that
+    leaves the CUDA context unusable (the synchronise after a run raises)
+    stops the plan there, and every later run is recorded as not run,
+    naming the run at fault, not as a fault of its own."""
+    import contextlib
+    import traceback
+
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kmeans
+    from vectordb_retrieval_tpu_torch.ops import lsh as lshops
+
+    own = (kmeans._permutation, lshops.make_projections, lshops.make_offsets)
+    with open(plan_path) as f:
+        plan = json.load(f)
+    fault = None
+    for name, draws, module, result, args in plan:
+        if fault is not None:
+            with open(f"{name}.err", "w") as f:
+                f.write(f"not run: the CUDA context failed in {fault}\n")
+            with open(f"{name}.status.json", "w") as f:
+                json.dump({"rc": 1, "seconds": 0.0, "after_fault_in": fault}, f)
+            continue
+        kmeans._permutation, lshops.make_projections, lshops.make_offsets = own
+        t0 = time.perf_counter()
+        with open(f"{name}.out", "w") as out, open(f"{name}.err", "w") as err, \
+                contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                rc = calibration_child(draws, module, result, *args)
+            except Exception:  # recorded; the next probe still runs
+                traceback.print_exc()
+                rc = 1
+            seconds = time.perf_counter() - t0
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            except RuntimeError:  # a sticky CUDA error: no later run can use the card
+                traceback.print_exc()
+                fault, rc = name, rc or 1
+        with open(f"{name}.status.json", "w") as f:
+            json.dump({"rc": rc, "seconds": seconds}, f)
+    return 0
 
 
 def _tuning_check(stdout: str):
@@ -5028,30 +5258,51 @@ def _tuning_check(stdout: str):
 
 
 def phase_tuning(card: str) -> dict:
-    """The tuning probes on the card, each in its own subprocess with no
-    --device (``calibration_child``: launch counts set to 0 before, every
-    captured launch held to its plain version after), one at a time, at the
-    JAX scripts' default sizes. Each probe's lines and its check go to one
-    line with the card; a probe that exits nonzero or misses its gate is a
-    failure, read and emitted for all fourteen before the run fails.
-    Returns the launches and the worst errors."""
+    """The tuning probes on the card, one at a time in one subprocess
+    (:func:`tuning_child`) with no --device (each through
+    ``calibration_child``: launch counts set to 0 before, every captured
+    launch held to its plain version after), at the JAX scripts' default
+    sizes (``exp_dbm_tune`` also at 1M x 128, w 32; the graph probes of
+    TUNING_JAX_DRAWS with the JAX package's k-means draws). Each probe's
+    lines and its check go to one line with the card; a probe that raises
+    or misses its gate is a failure, read and emitted for every run before
+    the run fails. Returns the launches and the worst errors."""
     t0 = time.perf_counter()
     shutil.rmtree(TUNING_DIR, ignore_errors=True)
     os.makedirs(TUNING_DIR)
-    child = "import sys, chip_smoke; sys.exit(chip_smoke.calibration_child(*sys.argv[1:]))"
     launches = collections.Counter()
     worst = collections.defaultdict(float)
-    failures, seconds = [], {}
+    failures, seconds, plan = [], {}, []
+    runs = collections.Counter()
     for module, args in TUNING_PROBES:
-        result = os.path.join(TUNING_DIR, f"{module}.result.json")
-        argv = [sys.executable, "-c", child, "port", module, result, *args]
+        runs[module] += 1  # a probe run twice: its second run's files apart
+        name = module if runs[module] == 1 else f"{module}_{runs[module]}"
+        draws = "jax" if module in TUNING_JAX_DRAWS else "port"
+        plan.append((name, draws, module, os.path.join(TUNING_DIR, f"{name}.result.json"),
+                     list(args)))
+    plan_path = os.path.join(TUNING_DIR, "plan.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    child = "import sys, chip_smoke; sys.exit(chip_smoke.tuning_child(sys.argv[1]))"
+    try:
+        _run_procs({"tuning": [sys.executable, "-c", child, plan_path]}, TUNING_DIR,
+                   TUNING_TIMEOUT)
+    except AssertionError as e:
+        failures.append(f"the phase's subprocess did not finish: {str(e)[-2000:]}")
+    for name, draws, module, result, args in plan:
         probe_failures, stdout, res = [], "", None
         try:
-            _, stdout, seconds[module] = _run_procs({module: argv}, TUNING_DIR,
-                                                    TUNING_TIMEOUT)[module]
+            with open(os.path.join(TUNING_DIR, f"{name}.status.json")) as f:
+                status = json.load(f)
+            seconds[name] = status["seconds"]
+            with open(os.path.join(TUNING_DIR, f"{name}.out")) as f:
+                stdout = f.read()
+            if status["rc"] != 0:
+                with open(os.path.join(TUNING_DIR, f"{name}.err")) as f:
+                    raise AssertionError(f"exited {status['rc']}:\n{f.read()[-2000:]}")
             with open(result) as f:
                 res = json.load(f)
-        except AssertionError as e:
+        except (AssertionError, OSError) as e:
             probe_failures.append(f"did not finish: {str(e)[-2000:]}")
         rows, check = _tuning_check(stdout)
         if res is not None:
@@ -5062,11 +5313,11 @@ def phase_tuning(card: str) -> dict:
             launches.update(res["launches"])
             launches[PAIR] += res["pairs"]
             launches["dist_blockmin_bf16"] -= res["pairs"]
-            for name, err in res["worst"].items():
-                worst[name] = max(worst[name], err)
-        failures += [f"{module}: {f}" for f in probe_failures]
+            for kernel, err in res["worst"].items():
+                worst[kernel] = max(worst[kernel], err)
+        failures += [f"{name}: {f}" for f in probe_failures]
         emit({"phase": "tuning_probes", "probe": module, "args": list(args), "card": card,
-              "seconds": seconds.get(module), "rows": rows, "check": check,
+              "draws": draws, "seconds": seconds.get(name), "rows": rows, "check": check,
               "launches": None if res is None else res["launches"],
               "pairs": None if res is None else res["pairs"],
               "launches_checked": None if res is None else res["checked"],
@@ -5177,6 +5428,7 @@ def _main(launcher) -> int:
                      for dsub in K3_DSUB}
     k3_dsub = phase_assign_dsub_throughput(card, dsub_launches)
     k4 = phase_blockmin_throughput(card)
+    k5 = phase_matmul_floor_throughput(card)
     # 5g: the row-sharded rows through the runner, then the phase's own runs,
     # each beside the unsharded row's numbers from the phases above
     sharded_paths = [phase_runner_path(card, cfg, worst) for cfg in SHARDED_CONFIGS]
@@ -5263,6 +5515,20 @@ def _main(launcher) -> int:
         "bound_by": k4["bound_by"], "fp32_bound_ms": k4["fp32_bound_ms"],
         "library_ms": k4["library_ms"],
         "shape": k4["shape"],
+    })
+    # K5: the launches are phase 7d's (exp_dbm_tune at both shapes)
+    entries.append({
+        "name": "matmul_floor", "route": "cuda", "source": src + "dist_blockmin_tc.cu",
+        "replaces": "scripts/exp_dbm_tune.py:70", "launches": launches["matmul_floor"],
+        "max_abs_err": worst["matmul_floor"], "ms": k5[0]["matmul_floor_ms"],
+        "plain_ms": k5[0]["plain_ms"], "bound_ms": k5[0]["bound_ms"],
+        "bound_by": k5[0]["bound_by"], "fp32_bound_ms": k5[0]["fp32_bound_ms"],
+        "library_ms": k5[0]["library_ms"], "shape": k5[0]["shape"],
+        "dist_blockmin_ms": k5[0]["dist_blockmin_ms"],
+        "k1_loop_bound_ms": k5[0]["k1_loop_bound_ms"],
+        "other_shapes": [{key: t[key] for key in (
+            "shape", "matmul_floor_ms", "dist_blockmin_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "fp32_bound_ms", "k1_loop_bound_ms")} for t in k5[1:]],
     })
     for e in entries:
         if e["launches"] < 1:

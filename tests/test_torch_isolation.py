@@ -146,10 +146,16 @@ TUNING_PROBES = {
     "exp_covertree_stream_profile": lambda tmp_path: ["--m", "640", "--d", "4", "--b", "2"],
     "exp_covertree_iter_cost": lambda tmp_path: [],
 }
+# the last tuning probes: each resolves its device before it makes an input
+LAST_PROBES = {name: lambda tmp_path: [] for name in (
+    "exp_dbm_tune", "exp_dist_blockmin", "exp_slab_rescore", "exp_dbm_flagship",
+    "exp_slab_ring", "exp_flagship_unroll", "exp_beam_profile", "exp_beam_ablate",
+    "exp_beam_tune", "exp_beam_table_tune", "exp_graph_neighbor_table", "exp_topk_cost",
+    "exp_topk_cost2")}
 # every module the calibration and probe slices added to scripts/ (the
 # SIFT1M surrogate writer makes host files only and takes no device)
 SLICE_SCRIPTS = (*CALIBRATION_TOOLS, "make_sift1m_surrogate", "calibration", *PROBES, "probes",
-                 *TUNING_PROBES)
+                 *TUNING_PROBES, *LAST_PROBES)
 
 
 def _entry_point(name, tmp_path):
@@ -270,10 +276,10 @@ def _entry_point(name, tmp_path):
         from vectordb_retrieval_tpu_torch.bench import validate_bigcorpus
 
         validate_bigcorpus.main(["--rows", "64", "--data-dir", str(tmp_path / "bc")])
-    elif name in CALIBRATION_TOOLS or name in PROBES or name in TUNING_PROBES:
+    elif name in CALIBRATION_TOOLS or name in PROBES or name in TUNING_PROBES or name in LAST_PROBES:
         import importlib
 
-        args = {**CALIBRATION_TOOLS, **PROBES, **TUNING_PROBES}[name](tmp_path)
+        args = {**CALIBRATION_TOOLS, **PROBES, **TUNING_PROBES, **LAST_PROBES}[name](tmp_path)
         importlib.import_module(f"vectordb_retrieval_tpu_torch.scripts.{name}").main(args)
     elif name in ("main", "flagship", "scripts.run_experiment",
                   "scripts.run_full_benchmark", "scripts.parameter_sweep",
@@ -309,7 +315,8 @@ def _entry_point(name, tmp_path):
      "streamed_exact_search", "validate_bigcorpus", "main", "flagship",
      "scripts.run_experiment", "scripts.run_full_benchmark", "scripts.parameter_sweep",
      "scripts.compare_algorithms", "scripts.matched_conditions",
-     "data.dataprep.embed_msmarco", *CALIBRATION_TOOLS, *PROBES, *TUNING_PROBES],
+     "data.dataprep.embed_msmarco", *CALIBRATION_TOOLS, *PROBES, *TUNING_PROBES,
+     *LAST_PROBES],
 )
 def test_entry_points_without_device_raise_without_a_card(name, tmp_path):
     if torch.cuda.is_available():

@@ -328,7 +328,7 @@ def test_assign_launch_count_untouched_on_cpu(rng):
     assert kernels.LAUNCHES == before
     assert set(kernels.LAUNCHES) == {
         "dist_blockmin", "dist_blockmin_bf16", "dist_blockmin_u8", "assign",
-        "slab_dots", "blockmin"}
+        "slab_dots", "blockmin", "matmul_floor"}
 
 
 @pytest.mark.parametrize("kind", ["f64", "int_points", "dim", "noncontig", "empty"])
@@ -971,3 +971,112 @@ def test_blockmin_wrapper_rejects(kind, exc):
         x = torch.zeros((0, 16))
     with pytest.raises(exc):
         kernels.blockmin(q, x, w=w)
+
+
+# ---- K5: K1 f32's matmul floor (the TPU kernel lives in a tuning probe) -----
+
+
+def _jax_matmul_floor():
+    """The floor of ``scripts/exp_dbm_tune.py``, loaded by path, with its
+    ``pallas_call`` in interpret mode."""
+    import importlib.util
+    import os
+    import types
+
+    from jax.experimental import pallas as pl
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "exp_dbm_tune.py")
+    spec = importlib.util.spec_from_file_location("jax_exp_dbm_tune", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.pl = types.SimpleNamespace(
+        BlockSpec=pl.BlockSpec,
+        pallas_call=lambda *a, **k: pl.pallas_call(*a, **{**k, "interpret": True}))
+    return mod.matmul_floor
+
+
+# (B, d, S), each S a whole number of the probe's 256-row tiles
+K5_SHAPES = [(8, 16, 512), (16, 64, 1024), (12, 40, 2048)]
+
+
+@pytest.mark.parametrize("w", [8, 16, 32])
+@pytest.mark.parametrize("b,d,s", K5_SHAPES)
+def test_matmul_floor_matches_pallas(rng, b, d, s, w):
+    """The plain version against the TPU floor in interpret mode (its 3-pass
+    bf16 split, ~5.7e-6 of the largest |dot| from float64 here) within 2e-5
+    of the largest |dot|; both against float64."""
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    x = rng.standard_normal((s, d)).astype(np.float32)
+    want = np.asarray(_jax_matmul_floor()(jnp.asarray(q), jnp.asarray(x), w, 256))
+    got = kernels.matmul_floor(torch.from_numpy(q), torch.from_numpy(x), w=w).numpy()
+    exact = x[::w].astype(np.float64) @ q.astype(np.float64).T
+    assert got.shape == want.shape == (s // w, b) and got.dtype == np.float32
+    scale = np.abs(exact).max()
+    assert np.abs(got - want).max() <= 2e-5 * scale
+    assert np.abs(got - exact).max() <= 1e-6 * scale
+    assert np.abs(want - exact).max() <= 2e-5 * scale
+
+
+def test_matmul_floor_is_a_mode_of_k1s_kernel():
+    """K5 is the FLOOR mode of the tensor-core kernel K1 f32 runs: its entry
+    point lives beside K1's, and the mode shares K1 f32's 3xTF32 main loop
+    and per-stage sums; only the epilogue is its own."""
+    import os
+    import re
+
+    with open(os.path.join(kernels.CSRC_DIR, "dist_blockmin_tc.cu")) as f:
+        src = f.read()
+    assert re.search(r'extern "C" int vrt_matmul_floor_f32\(', src)
+    assert "launch_one<Mode::FLOOR>" in src
+    with open(os.path.join(kernels.CSRC_DIR, "blockmin_tc.cuh")) as f:
+        hdr = f.read()
+    assert "floor_epilogue<" in hdr
+    for flag in ("TF32", "STAGE_SUM"):
+        line = next(ln for ln in hdr.split(";") if f"static constexpr bool {flag} =" in ln)
+        assert "Mode::FLOOR" in line and "Mode::F32" in line, flag
+
+
+def test_matmul_floor_launch_count_untouched_on_cpu():
+    before = dict(kernels.LAUNCHES)
+    out = kernels.matmul_floor(torch.ones((3, 8)), torch.ones((64, 8)), w=16)
+    assert kernels.LAUNCHES == before and tuple(out.shape) == (4, 3)
+    with kernels.count_work() as work:
+        kernels.matmul_floor(torch.ones((3, 8)), torch.ones((64, 8)), w=16)
+    assert work == {"flops": 2.0 * 3 * 4 * 8,
+                    "bytes": 4.0 * (3 * 8 + 4 * 8 + 4 * 3), "calls": 1}
+
+
+@pytest.mark.parametrize(
+    "kind,exc",
+    [
+        ("f64", TypeError),
+        ("bf16", TypeError),
+        ("dim", ValueError),
+        ("rank", ValueError),
+        ("noncontig", ValueError),
+        ("ragged_s", ValueError),
+        ("w", ValueError),
+        ("w_256", ValueError),
+    ],
+)
+def test_matmul_floor_wrapper_rejects(kind, exc):
+    q, x, w = torch.zeros((4, 16)), torch.zeros((256, 16)), 8
+    if kind == "f64":
+        q = q.double()
+    elif kind == "bf16":
+        x = x.to(torch.bfloat16)
+    elif kind == "dim":
+        q = torch.zeros((4, 12))
+    elif kind == "rank":
+        x = torch.zeros(256)
+    elif kind == "noncontig":
+        x = torch.zeros((16, 256)).T
+    elif kind == "ragged_s":
+        x = torch.zeros((260, 16))
+    elif kind == "w":
+        w = 12
+    elif kind == "w_256":  # the kernel's groups are at most one 128-row tile
+        w = 256
+    with pytest.raises(exc):
+        kernels.matmul_floor(q, x, w=w)

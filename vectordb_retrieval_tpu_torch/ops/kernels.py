@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, their plain versions and wrappers.
 
 Kernels (each replaces one TPU kernel of
-``vectordb_retrieval_tpu/ops/pallas_kernels.py``):
+``vectordb_retrieval_tpu/ops/pallas_kernels.py``, but the last, whose TPU
+kernel lives in a tuning probe):
   * :func:`dist_blockmin` — fused distance + per-block minimum over f32,
     bf16 or u8 payloads (exact-search stage 1; the IVF-Flat and IVF-SQ8
     fused probed stream; the cover tree's block walk). Replaces
@@ -25,6 +26,12 @@ Kernels (each replaces one TPU kernel of
     search path calls it, :func:`dist_blockmin` superseded it). Replaces
     ``blockmin_pallas``. CUDA C++ source: ``csrc/blockmin.cu``, on the
     tensor cores by 3xTF32 (the main loop of K1's f32 mode).
+  * :func:`matmul_floor` — K1 f32 without its epilogue: the product of each
+    ``w``-block's first row with every query, ``[S/w, B]``. Replaces the
+    tuning probe's ``matmul_floor`` (``scripts/exp_dbm_tune.py``), which
+    times K1's main loop alone. CUDA C++ source: ``csrc/dist_blockmin_tc.cu``
+    (the FLOOR mode of K1's persistent kernel: the same loads and 3xTF32
+    products of every row, an epilogue that stores and reduces nothing).
 
 Each wrapper routes by the device of its tensors: a CUDA tensor goes to the
 kernel (or the wrapper raises), a CPU tensor goes to the plain PyTorch
@@ -91,7 +98,8 @@ _SLAB_MODES = {
     torch.float32: "vrt_slab_dots_f32",
     torch.bfloat16: "vrt_slab_dots_bf16",
 }
-KERNELS = tuple(name for name, _, _ in _DBM_MODES.values()) + ("assign", "slab_dots", "blockmin")
+KERNELS = tuple(name for name, _, _ in _DBM_MODES.values()) + (
+    "assign", "slab_dots", "blockmin", "matmul_floor")
 
 # launches per kernel mode, counted by the wrappers where they launch
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -188,6 +196,17 @@ def slab_dots_work(b: int, w: int, length: int, d: int, slab_bytes: int,
     return 2.0 * b * w * length * d, float(nbytes)
 
 
+def matmul_floor_work(b: int, s: int, d: int, w: int) -> Tuple[float, float]:
+    """``(operations, bytes)`` of the function one :func:`matmul_floor`
+    call computes: ``2 B (S/w) d`` for the dot products of each
+    ``w``-block's first row with every query; the queries and those ``S/w``
+    rows read once, the ``[S/w, B]`` output written once. The kernel itself
+    multiplies every row, as K1 f32's main loop does: that is the loop it
+    times, not work the function needs."""
+    g = s // w
+    return 2.0 * b * g * d, 4.0 * (b * d + g * d + g * b)
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -219,6 +238,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             for _, source, fn in _DBM_MODES.values() if source == name}
     if name == "dist_blockmin_tc":
         sigs.update({fn: [vp] * 6 + [ci] * 4 + [vp] for fn in _PAIR_ENTRIES.values()})
+        sigs["vrt_matmul_floor_f32"] = [vp] * 3 + [ci] * 4 + [vp]
     elif name == "assign":
         sigs["vrt_assign_f32"] = [vp] * 5 + [ci] * 3 + [vp]
     elif name == "slab_dots":
@@ -888,4 +908,72 @@ def _launch_blockmin(queries: torch.Tensor, database: torch.Tensor, w: int) -> t
         )
     _check_launch("blockmin", "blockmin", rc)
     LAUNCHES["blockmin"] += 1
+    return out
+
+
+# ---- K5: K1 f32's matmul floor ---------------------------------------------
+
+
+def matmul_floor_reference(queries: torch.Tensor, payload: torch.Tensor, w: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`matmul_floor` (same contract):
+    ``payload[::w] @ queries.T``, one f32 product (full f32 where TF32 is
+    off, PyTorch's default for matrix products)."""
+    return payload[::w] @ queries.T
+
+
+def _check_matmul_floor(queries: torch.Tensor, payload: torch.Tensor, w: int) -> None:
+    fn = "matmul_floor"
+    for t, what in ((queries, "queries"), (payload, "payload")):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {what} must be float32, got {t.dtype}")
+        _check_2d(fn, what, t, payload)
+    if queries.shape[1] != payload.shape[1]:
+        raise ValueError(
+            f"{fn}: queries have d={queries.shape[1]}, payload d={payload.shape[1]}"
+        )
+    if w < 1 or w > 128 or w & (w - 1):
+        raise ValueError(f"{fn}: w={w} must be a power of two <= 128")
+    if payload.shape[0] % w:
+        raise ValueError(f"{fn}: S={payload.shape[0]} must be a multiple of w={w}")
+    _check_device(fn, payload)
+
+
+def matmul_floor(
+    queries: torch.Tensor,  # [B, d] f32
+    payload: torch.Tensor,  # [S, d] f32, S % w == 0
+    w: int = 8,
+) -> torch.Tensor:
+    """``out[g, q] = <payload[g*w], queries[q]>``, ``[S/w, B]`` f32: K1
+    f32 with its pen, block minimum and transpose taken out, as the TPU
+    probe's floor returns it. It measures the cost of K1's main loop, and
+    no search path calls it.
+
+    CUDA tensors launch the FLOOR mode of ``csrc/dist_blockmin_tc.cu`` on
+    the current stream (K1 f32's loads and 3xTF32 products of every row,
+    see :func:`split_tf32`) and count under ``LAUNCHES['matmul_floor']``.
+    CPU tensors take :func:`matmul_floor_reference`.
+    """
+    _check_matmul_floor(queries, payload, w)
+    (b, d), s = queries.shape, payload.shape[0]
+    with _counted(lambda: matmul_floor_work(b, s, d, w)):
+        if payload.device.type == "cpu":
+            return matmul_floor_reference(queries, payload, w)
+        return _launch_matmul_floor(queries, payload, w)
+
+
+def _launch_matmul_floor(queries: torch.Tensor, payload: torch.Tensor, w: int) -> torch.Tensor:
+    (b, d), s = queries.shape, payload.shape[0]
+    out = torch.empty((s // w, b), dtype=torch.float32, device=payload.device)
+    if b == 0 or s == 0:
+        return out
+    if b >= 2**31 or s >= 2**31:
+        raise ValueError(f"matmul_floor: B={b}, S={s} exceed the launch grid")
+    lib = _lib("dist_blockmin_tc")
+    with torch.cuda.device(payload.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vrt_matmul_floor_f32(
+            queries.data_ptr(), payload.data_ptr(), out.data_ptr(), b, s, d, w, stream,
+        )
+    _check_launch("dist_blockmin_tc", "matmul_floor", rc)
+    LAUNCHES["matmul_floor"] += 1
     return out

@@ -1,7 +1,8 @@
 """What the research and tuning probes share: the timing protocol of
-repeated device searches, the exact references and agreement counts the
-tuning probes report, and the GloVe-50 surrogate's node-beam setup
-(``exp_glove_ceiling``, ``exp_glove_geometry``).
+repeated device searches (and of a stream of batches), the exact
+references, agreement counts and recalls the tuning probes report, and the
+GloVe-50 surrogate's node-beam setup (``exp_glove_ceiling``,
+``exp_glove_geometry``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,23 @@ from vectordb_retrieval_tpu_torch.utils.device import synchronize
 Search = Callable[[torch.Tensor], Union[torch.Tensor, Sequence[torch.Tensor]]]
 
 
+# the node-beam probes' pass line (the JAX scripts' own): BASELINE.md's
+# FAISS CPU hnsw row on random-20k, 23,886 QPS at recall@20 0.9156
+BEAM_PASS_QPS, BEAM_PASS_RECALL = 23886, 0.9156
+
+
+def pad_rows(n: int, w: int) -> int:
+    """The JAX package's padding of a K1 payload: a multiple of ``8 w`` rows
+    (the K1 probes pad so, so that their block ids match the JAX
+    scripts')."""
+    return -(-n // (8 * w)) * (8 * w)
+
+
+def set_first(v: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """``v`` with its first columns replaced by ``head`` (``.at[:, :k].set``)."""
+    return torch.cat([head, v[:, head.shape[1]:]], dim=1)
+
+
 def timed_passes(search: Search, q: torch.Tensor, passes: int,
                  device: torch.device) -> Tuple[np.ndarray, float]:
     """``(the last pass's result on the host, seconds of the passes)``: one
@@ -40,6 +58,63 @@ def timed_passes(search: Search, q: torch.Tensor, passes: int,
     host = last.cpu()
     host = (host.float() if host.dtype == torch.bfloat16 else host).numpy()
     return host, time.perf_counter() - t0
+
+
+def timed_batches(search: Search, queries: torch.Tensor,
+                  device: torch.device) -> Tuple[np.ndarray, float]:
+    """``(the first batch's result on the host, seconds of the stream)``:
+    ``search`` over every batch of ``queries [reps, B, d]`` in turn, timed
+    as one pass of :func:`timed_passes` (the beam probes' protocol: the JAX
+    scripts scan the batches in one ``jit`` and score the first batch)."""
+    return timed_passes(lambda qs: [search(qb) for qb in qs][0], queries, 1, device)
+
+
+def beam_inputs(n: int, d: int, b: int, repeats: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The corpus ``[n, d]`` and query batches ``[repeats, b, d]`` that the
+    node-beam probes draw first (NumPy seed 42, in that order)."""
+    rng = np.random.default_rng(42)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x, rng.standard_normal((repeats, b, d)).astype(np.float32)
+
+
+def set_recall(ids: np.ndarray, gt: np.ndarray) -> float:
+    """Recall of ``ids [B, k]`` against ``gt [B, k]`` as the beam probes
+    count it: the shared ids of each row, over ``B k``."""
+    hits = sum(len(set(ids[i].tolist()) & set(gt[i].tolist())) for i in range(gt.shape[0]))
+    return hits / float(gt.shape[0] * gt.shape[1])
+
+
+def selection_inputs(c: int, b: int, repeats: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The selection-cost probes' inputs: the values ``[b, c]`` every
+    batch's chain starts from (NumPy seed 1) and the batches ``[repeats, b,
+    8]`` that pace the stream (seed 0)."""
+    vals0 = np.random.default_rng(1).standard_normal((b, c)).astype(np.float32)
+    qs = np.random.default_rng(0).standard_normal((repeats, b, 8)).astype(np.float32)
+    return vals0, qs
+
+
+def time_selection(body: Callable[[torch.Tensor], torch.Tensor], label: str,
+                   vals0: torch.Tensor, qs: torch.Tensor, iters: int,
+                   device: torch.device) -> np.ndarray:
+    """Time ``body`` chained ``iters`` times from ``vals0`` (each batch of
+    ``qs`` starts a chain from ``vals0`` plus a carry of the previous
+    chains' sums), as the selection-cost probes do; print the label's line
+    (ms a batch) and return the last batch's first 8 columns. One untimed
+    stream, then one timed (:func:`timed_passes`); the host issues every
+    operation of the chains."""
+
+    def run(batches):
+        carry = torch.zeros((), device=vals0.device)
+        for qb in batches:
+            v = vals0 + carry
+            for _ in range(iters):
+                v = body(v)
+            carry = carry + v.sum() * 1e-30 + qb.sum() * 1e-30
+        return v[:, :8]
+
+    out, elapsed = timed_passes(run, qs, 1, device)
+    print(f"{label:56s} {elapsed / qs.shape[0] * 1000:9.2f} ms/batch")
+    return out
 
 
 def dense_reference(q: torch.Tensor, x: torch.Tensor, k: int,
