@@ -11,8 +11,9 @@ on failure:
                    nvcc per source, all started together); registers, spills
                    and shared memory per kernel; the HGMMA (wgmma)
                    instructions in the SASS of each library: every kernel
-                   runs on the tensor cores (libdist_blockmin_tc.so K1 and K5,
-                   libassign.so K3, libslab_dots.so K2, libblockmin.so K4;
+                   runs on the tensor cores (libdist_blockmin_tc.so K1,
+                   libassign.so K3, libslab_dots.so K2, libblockmin.so K4,
+                   libmatmul_floor.so K5;
                    none in any of them fails the run). Beside nvcc, ``make
                    -C native`` (the host IO library) and the port's
                    scripts.make_sift1m_surrogate at its defaults (1M x
@@ -44,7 +45,10 @@ on failure:
                    calls it, so these checks are its launches) and
                    matmul_floor (K5: phase 7d's two shapes, 256 x 100,032 x
                    384 at w 8 and 256 x 1,000,192 x 128 at w 32, a ragged B
-                   and d, and w 8-128 with S off the 128-row tile)
+                   and d, w 8-128 with S off the 128-row tile, d % 4 != 0
+                   at w 32 and a payload view one element into its buffer
+                   (both on the kernel's masked loads); each also against
+                   float64)
   4. exact path  - the port's BenchmarkRunner (exact row: BruteForceIndexer +
                    LinearSearcher) on 100k x 384 random data, l2 and cosine;
                    ground truth, timed batched search, recall@20 == 1.0, the
@@ -209,10 +213,12 @@ on failure:
                    and the card's bound (K1 f32, blockmin and assign: the
                    bound of their 3xTF32 route, and the FP32 bound beside
                    it); K5 at phase 7d's two shapes beside K1 f32 on
-                   the same inputs (K1 less K5: K1's epilogue), its bound
-                   that of the function (the S/w rows it reads), its
-                   library call the strided product x[::w] @ q.T, and the
-                   bound of K1's main loop (every row) as k1_loop_bound_ms
+                   the same inputs (K1 less K5: what K1 loses to the card's
+                   product loop, epilogue included), its bound that of the
+                   function (the S/w rows it reads), its library call the
+                   strided product x[::w] @ q.T, the bound of K1's main
+                   loop (every row) as k1_loop_bound_ms, the shares of both
+                   bounds, and PR 17's K5 times as earlier_ms
   7. entry points - the port's CLIs as subprocesses with no --device (the
                    card is their default): the flagship (its JSON line beside
                    phase 6's QPS for the same workload), then together
@@ -511,15 +517,18 @@ def _stop_host_work(work: dict) -> None:
 
 
 def phase_build(work: dict) -> dict:
-    """Build every source; each library (K1, K2, K3, K4: every kernel runs
-    on the tensor cores) must hold HGMMA (wgmma) instructions in its SASS.
-    The host work of ``work`` runs beside it; returns its outcome."""
+    """Build every source; each library (K1, K2, K3, K4, K5: every kernel
+    runs on the tensor cores) must hold HGMMA (wgmma) instructions in its
+    SASS. Its ptxas lines: registers, spills and any wgmma that ptxas
+    serialized. The host work of ``work`` runs beside it; returns its
+    outcome."""
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     secs = kernels.build()
     ptxas = {
         name: [ln.strip() for ln in log.splitlines()
-               if "registers" in ln or "spill" in ln or "entry function" in ln]
+               if "registers" in ln or "spill" in ln or "entry function" in ln
+               or "Performance Loss" in ln]
         for name, log in kernels.BUILD_LOG.items()
     }
     cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
@@ -645,17 +654,27 @@ K4_SHAPES = (
     (64, 6144, 64, 128, 0),
     (256, 100_352, 384, 8, 352),
 )
-# K5 (matmul_floor), (B, S, d, w): the flagship (100,032 rows, exp_dbm_tune's
-# padding of 100k at w = 8) and the SIFT shape (1M at w = 32: 1,000,192 rows)
-# of phase 7d's two runs, a ragged B and d, and every width of the epilogue
-# over a ragged B (two query tiles) with S off the 128-row tile (but for
-# w = 128); phase 7d's own launches are checked there (check_launched)
+# K5 (matmul_floor), (B, S, d, w, offset): the flagship (100,032 rows,
+# exp_dbm_tune's padding of 100k at w = 8) and the SIFT shape (1M at w = 32:
+# 1,000,192 rows) of phase 7d's two runs, a ragged B and d, every width of the
+# epilogue over a ragged B (two query tiles) with S off the 128-row tile (but
+# for w = 128), and the two rows of tests/test_torch_kernels.py's
+# K5_EDGE_SHAPES: d % 4 != 0 at w = 32, and the payload a view `offset`
+# elements into its buffer (a base 4 bytes past a 16-byte boundary); both
+# take the kernel's masked loads. Phase 7d's own launches are checked there
+# (check_launched)
 K5_SHAPES = (
-    (256, 100_032, 384, 8),
-    (256, 1_000_192, 128, 32),
-    (300, 5_000, 50, 8),
-    *((130, w * (3001 // w + 1), 96, w) for w in (8, 16, 32, 64, 128)),
+    (256, 100_032, 384, 8, 0),
+    (256, 1_000_192, 128, 32, 0),
+    (300, 5_000, 50, 8, 0),
+    *((130, w * (3001 // w + 1), 96, w, 0) for w in (8, 16, 32, 64, 128)),
+    (130, 4096, 98, 32, 0),
+    (256, 4096, 384, 8, 1),
 )
+# PR 17's K5 (the FLOOR mode of K1 f32's kernel) at phase 7d's two shapes,
+# ms on an H100 80GB HBM3 at 700 W (PERF.md, call 5 of PR 17): the time
+# the redesign is set beside
+K5_EARLIER_MS = {(256, 100_032, 384, 8): 0.311, (256, 1_000_192, 128, 32): 0.755}
 # the per-product precision line: B x N rows of seeded normals at d = 4
 # with three columns zero, so each output holds one product
 PRODUCT_SHAPE = (300, 65_536)
@@ -766,35 +785,45 @@ def check_dist_blockmin_pair(q, x, pen_a, pen_b, w, where, quiet=False) -> float
 def check_matmul_floor(q, x, w, where, quiet=False) -> float:
     """One matmul_floor launch against its plain version on the same
     inputs: the same [S/w, B] shape, no NaN, max error <= 1e-5 x max|plain|
-    (3xTF32 against FP32 sums, as K1 f32). Emits the check (``quiet``: only
-    a failing one) and returns the max abs error."""
+    (3xTF32 against FP32 sums, as K1 f32); both against float64 beside it
+    (reported: at d = 384 the plain version's own error is most of the
+    gap). Emits the check (``quiet``: only a failing one) and returns the
+    max abs error."""
     import torch
 
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     got = kernels.matmul_floor(q, x, w=w)
     want = kernels.matmul_floor_reference(q, x, w)
+    exact = x[::w].double() @ q.double().T
     torch.cuda.synchronize()
     nan = bool(torch.isnan(got).any())
     err = float((got - want).abs().max()) if want.numel() else 0.0
     scale = float(want.abs().max()) if want.numel() else 0.0
     ok = got.shape == want.shape and not nan and err <= KERNEL_REL_TOL * scale
     if not ok or not quiet:
+        err64 = float((got.double() - exact).abs().max()) if want.numel() else 0.0
+        plain64 = float((want.double() - exact).abs().max()) if want.numel() else 0.0
         emit({"phase": "kernel_check", "kernel": "matmul_floor", "at": where,
-              "shape": [q.shape[0], x.shape[0], x.shape[1], w], "max_abs_err": err,
-              "max_abs_plain": scale, "tol": KERNEL_REL_TOL * scale, "nan": nan, "ok": ok})
+              "shape": [q.shape[0], x.shape[0], x.shape[1], w],
+              "payload_aligned": x.data_ptr() % 16 == 0, "max_abs_err": err,
+              "max_abs_plain": scale, "rel_err": err / scale if scale else 0.0,
+              "max_abs_err_f64": err64, "plain_max_abs_err_f64": plain64,
+              "tol": KERNEL_REL_TOL * scale, "nan": nan, "ok": ok})
     if not ok:
         raise AssertionError(f"matmul_floor {where}: err {err}, NaN {nan}")
     return err
 
 
-def check_matmul_floor_shape(b, s, d, w, seed) -> float:
+def check_matmul_floor_shape(b, s, d, w, offset, seed) -> float:
+    """K5 on seeded normals, the payload a view ``offset`` elements into
+    its buffer."""
     import torch
 
     g = torch.Generator(device=DEV).manual_seed(seed)
     q = torch.randn((b, d), generator=g, device=DEV)
-    x = torch.randn((s, d), generator=g, device=DEV)
-    err = check_matmul_floor(q, x, w, "synthetic")
+    x = torch.randn((s * d + offset,), generator=g, device=DEV)[offset:].view(s, d)
+    err = check_matmul_floor(q, x, w, "synthetic" if offset == 0 else f"view+{offset}")
     del q, x
     torch.cuda.empty_cache()
     return err
@@ -3052,16 +3081,19 @@ def phase_matmul_floor_throughput(card: str) -> list:
     x 128, w = 32): kernel, plain version (FP32, TF32 off), one library
     call computing the same function (the strided product ``x[::w] @
     q.T``) and the function's bound (its ``S/w`` rows only), and K1 f32 on
-    the same inputs beside it: K1's time less K5's is K1's epilogue. The
-    kernel multiplies every row, as K1's main loop does, so the bound of
-    that loop stands apart as ``k1_loop_bound_ms`` (three TF32 products of
-    every row, or the queries and the whole payload read once)."""
+    the same inputs beside it: K1's time less K5's is what K1 loses to the
+    card's product loop, epilogue included. The kernel multiplies every
+    row, as K1's main loop does, so the bound of that loop stands apart as
+    ``k1_loop_bound_ms`` (three TF32 products of every row, or the queries
+    and the whole payload read once); ``k1_loop_bound_share`` and
+    ``bound_share`` are each bound over the kernel's time, ``earlier_ms``
+    PR 17's K5 at the shape (not measured here)."""
     import torch
 
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     out = []
-    for b, s, d, w in K5_SHAPES[:2]:
+    for b, s, d, w, _ in K5_SHAPES[:2]:
         g = torch.Generator(device=DEV).manual_seed(SEED)
         q = torch.randn((b, d), generator=g, device=DEV)
         x = torch.randn((s, d), generator=g, device=DEV)
@@ -3072,11 +3104,14 @@ def phase_matmul_floor_throughput(card: str) -> list:
         library_ms = time_ms(lambda: torch.matmul(x[::w], q.T), reps=10)
         flops, nbytes = kernels.matmul_floor_work(b, s, d, w)
         loop = _tf32x3_bounds(2.0 * b * s * d, 2.0 * b * s * d, 4.0 * (b * d + s * d))
+        bounds = _tf32x3_bounds(flops, flops, nbytes)
         line = {"phase": "matmul_floor_throughput", "shape": [b, s, d, w], "card": card,
-                "matmul_floor_ms": ms, "dist_blockmin_ms": k1_ms, "epilogue_ms": k1_ms - ms,
+                "matmul_floor_ms": ms, "dist_blockmin_ms": k1_ms, "k1_less_k5_ms": k1_ms - ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
-                **_tf32x3_bounds(flops, flops, nbytes), "flops": flops, "bytes": nbytes,
-                "k1_loop_bound_ms": loop["bound_ms"], "k1_loop_bound_by": loop["bound_by"]}
+                **bounds, "flops": flops, "bytes": nbytes, "bound_share": bounds["bound_ms"] / ms,
+                "k1_loop_bound_ms": loop["bound_ms"], "k1_loop_bound_by": loop["bound_by"],
+                "k1_loop_bound_share": loop["bound_ms"] / ms,
+                "earlier_ms": K5_EARLIER_MS[(b, s, d, w)]}
         emit(line)
         out.append(line)
         del q, x, pen
@@ -5518,7 +5553,7 @@ def _main(launcher) -> int:
     })
     # K5: the launches are phase 7d's (exp_dbm_tune at both shapes)
     entries.append({
-        "name": "matmul_floor", "route": "cuda", "source": src + "dist_blockmin_tc.cu",
+        "name": "matmul_floor", "route": "cuda", "source": src + "matmul_floor.cu",
         "replaces": "scripts/exp_dbm_tune.py:70", "launches": launches["matmul_floor"],
         "max_abs_err": worst["matmul_floor"], "ms": k5[0]["matmul_floor_ms"],
         "plain_ms": k5[0]["plain_ms"], "bound_ms": k5[0]["bound_ms"],
@@ -5526,9 +5561,11 @@ def _main(launcher) -> int:
         "library_ms": k5[0]["library_ms"], "shape": k5[0]["shape"],
         "dist_blockmin_ms": k5[0]["dist_blockmin_ms"],
         "k1_loop_bound_ms": k5[0]["k1_loop_bound_ms"],
+        "k1_loop_bound_share": k5[0]["k1_loop_bound_share"],
         "other_shapes": [{key: t[key] for key in (
             "shape", "matmul_floor_ms", "dist_blockmin_ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "fp32_bound_ms", "k1_loop_bound_ms")} for t in k5[1:]],
+            "bound_ms", "bound_by", "fp32_bound_ms", "k1_loop_bound_ms",
+            "k1_loop_bound_share")} for t in k5[1:]],
     })
     for e in entries:
         if e["launches"] < 1:

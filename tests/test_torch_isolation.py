@@ -146,12 +146,13 @@ TUNING_PROBES = {
     "exp_covertree_stream_profile": lambda tmp_path: ["--m", "640", "--d", "4", "--b", "2"],
     "exp_covertree_iter_cost": lambda tmp_path: [],
 }
-# the last tuning probes: each resolves its device before it makes an input
+# the last tuning probes and K5's variants: each resolves its device before
+# it makes an input
 LAST_PROBES = {name: lambda tmp_path: [] for name in (
     "exp_dbm_tune", "exp_dist_blockmin", "exp_slab_rescore", "exp_dbm_flagship",
     "exp_slab_ring", "exp_flagship_unroll", "exp_beam_profile", "exp_beam_ablate",
     "exp_beam_tune", "exp_beam_table_tune", "exp_graph_neighbor_table", "exp_topk_cost",
-    "exp_topk_cost2")}
+    "exp_topk_cost2", "exp_matmul_floor_variants")}
 # every module the calibration and probe slices added to scripts/ (the
 # SIFT1M surrogate writer makes host files only and takes no device)
 SLICE_SCRIPTS = (*CALIBRATION_TOOLS, "make_sift1m_surrogate", "calibration", *PROBES, "probes",

@@ -397,17 +397,19 @@ def test_dist_blockmin_wrapper_rejects(kind, exc):
 
 
 def test_kernel_source_and_build_key():
-    """Every kernel's source ships in csrc/ and includes the tensor-core
-    kernel's header (K1, K3 and K4 run its main loop, K2 its loaders), itself
-    on the wgmma helpers; the FFMA tile is gone; each build directory is
-    keyed by the source, the headers and the compiler flags."""
+    """Every kernel's source ships in csrc/ and includes its header: the
+    tensor-core kernel's (K1, K3 and K4 run its main loop, K2 its loaders)
+    or, for K5, the TMA and mbarrier helpers; both headers stand on the
+    wgmma helpers; the FFMA tile is gone; each build directory is keyed by
+    the source, the headers and the compiler flags."""
     import os
 
     headers = {"dist_blockmin_tc": "blockmin_tc.cuh", "blockmin": "blockmin_tc.cuh",
-               "assign": "blockmin_tc.cuh", "slab_dots": "blockmin_tc.cuh"}
+               "assign": "blockmin_tc.cuh", "slab_dots": "blockmin_tc.cuh",
+               "matmul_floor": "tma.cuh"}
     assert set(headers) == set(kernels.KERNEL_SOURCES)
     assert sorted(f for f in os.listdir(kernels.CSRC_DIR) if f.endswith(".cuh")) == [
-        "blockmin_tc.cuh", "wgmma.cuh"]
+        "blockmin_tc.cuh", "tma.cuh", "wgmma.cuh"]
     for name in kernels.KERNEL_SOURCES:
         src = os.path.join(kernels.CSRC_DIR, f"{name}.cu")
         assert os.path.exists(src)
@@ -418,8 +420,9 @@ def test_kernel_source_and_build_key():
         assert path.endswith(f"lib{name}.so")
     for header in set(headers.values()):
         assert os.path.exists(os.path.join(kernels.CSRC_DIR, header))
-    with open(os.path.join(kernels.CSRC_DIR, "blockmin_tc.cuh")) as f:
-        assert '#include "wgmma.cuh"' in f.read()
+    for header in ("blockmin_tc.cuh", "tma.cuh"):
+        with open(os.path.join(kernels.CSRC_DIR, header)) as f:
+            assert '#include "wgmma.cuh"' in f.read(), header
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
 
 
@@ -427,8 +430,8 @@ def test_k1_entry_points_live_in_one_source_each():
     """Each K1 entry point the wrappers call is defined in the source the
     wrapper loads and in no other: every mode (f32, bf16 and u8, one pen
     and the pair) in the tensor-core source; K4's in blockmin.cu, K3's in
-    assign.cu, K2's in slab_dots.cu; no source holds an FFMA kernel or
-    names the FFMA tile."""
+    assign.cu, K2's in slab_dots.cu, K5's in matmul_floor.cu; no source
+    holds an FFMA kernel or names the FFMA tile."""
     import os
     import re
 
@@ -444,6 +447,7 @@ def test_k1_entry_points_live_in_one_source_each():
     assert {m[1] for m in kernels._DBM_MODES.values()} == {"dist_blockmin_tc"}
     assert defined["vrt_blockmin_f32"] == ["blockmin"]
     assert defined["vrt_assign_f32"] == ["assign"]
+    assert defined["vrt_matmul_floor_f32"] == ["matmul_floor"]
     for fn in kernels._SLAB_MODES.values():
         assert defined[fn] == ["slab_dots"], fn
     assert not [fn for fn, srcs in defined.items()
@@ -1018,23 +1022,97 @@ def test_matmul_floor_matches_pallas(rng, b, d, s, w):
     assert np.abs(want - exact).max() <= 2e-5 * scale
 
 
-def test_matmul_floor_is_a_mode_of_k1s_kernel():
-    """K5 is the FLOOR mode of the tensor-core kernel K1 f32 runs: its entry
-    point lives beside K1's, and the mode shares K1 f32's 3xTF32 main loop
-    and per-stage sums; only the epilogue is its own."""
+# chip_smoke.py's K5_SHAPES rows at the kernel's edges, (B, S, d, w, offset):
+# d % 4 != 0 at w = 32 (masked loads), and a payload view one element into
+# its buffer (its base 4 bytes past a 16-byte boundary: masked loads too)
+K5_EDGE_SHAPES = [(130, 4096, 98, 32, 0), (256, 4096, 384, 8, 1)]
+
+
+@pytest.mark.parametrize("b,s,d,w,offset", K5_EDGE_SHAPES)
+def test_matmul_floor_matches_pallas_at_the_edges(rng, b, s, d, w, offset):
+    """The plain version on the inputs of chip_smoke.py's two edge rows of
+    K5 (the payload as the view the card is given) against the TPU floor in
+    interpret mode, held as test_matmul_floor_matches_pallas holds them."""
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    buf = rng.standard_normal(s * d + offset).astype(np.float32)
+    x = buf[offset:].reshape(s, d)
+    payload = torch.from_numpy(buf)[offset:].view(s, d)
+    assert payload.is_contiguous() and payload.storage_offset() == offset
+    want = np.asarray(_jax_matmul_floor()(jnp.asarray(q), jnp.asarray(x), w, 256))
+    got = kernels.matmul_floor(torch.from_numpy(q), payload, w=w).numpy()
+    exact = x[::w].astype(np.float64) @ q.astype(np.float64).T
+    assert got.shape == want.shape == (s // w, b) and got.dtype == np.float32
+    scale = np.abs(exact).max()
+    assert np.abs(got - want).max() <= 2e-5 * scale
+    assert np.abs(got - exact).max() <= 1e-6 * scale
+    assert np.abs(want - exact).max() <= 2e-5 * scale
+
+
+def test_matmul_floor_is_its_own_tma_kernel():
+    """K5 is a kernel of its own: its entry point lives in matmul_floor.cu
+    and in no other source; that source runs on the TMA and mbarrier
+    helpers (a producer's bulk tensor copies into an mbarrier ring); the
+    tensor-core block-minimum kernel has no floor mode left; and the
+    binding gives the entry point to the new library alone."""
+    import ctypes
     import os
     import re
 
-    with open(os.path.join(kernels.CSRC_DIR, "dist_blockmin_tc.cu")) as f:
-        src = f.read()
-    assert re.search(r'extern "C" int vrt_matmul_floor_f32\(', src)
-    assert "launch_one<Mode::FLOOR>" in src
-    with open(os.path.join(kernels.CSRC_DIR, "blockmin_tc.cuh")) as f:
-        hdr = f.read()
-    assert "floor_epilogue<" in hdr
-    for flag in ("TF32", "STAGE_SUM"):
-        line = next(ln for ln in hdr.split(";") if f"static constexpr bool {flag} =" in ln)
-        assert "Mode::FLOOR" in line and "Mode::F32" in line, flag
+    sources = {}
+    for name in os.listdir(kernels.CSRC_DIR):
+        with open(os.path.join(kernels.CSRC_DIR, name)) as f:
+            sources[name] = f.read()
+    entry = re.compile(r'extern "C" int vrt_matmul_floor_f32\(')
+    assert [n for n, src in sources.items() if entry.search(src)] == ["matmul_floor.cu"]
+    src = sources["matmul_floor.cu"]
+    assert '#include "tma.cuh"' in src
+    for word in ("tma_load_2d", "mbar_wait", "mbar_arrive", "setmaxnreg"):
+        assert word in src, word
+    assert "cp.async.bulk.tensor" in sources["tma.cuh"] and "mbarrier" in sources["tma.cuh"]
+    hdr = sources["blockmin_tc.cuh"]
+    assert "FLOOR" not in hdr and "floor_epilogue" not in hdr
+    assert "matmul_floor" not in sources["dist_blockmin_tc.cu"]
+
+    class Lib:  # records what _bind sets on each entry point
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, fn):
+            return self.fns.setdefault(fn, type("Fn", (), {})())
+
+    bound = {}
+    for name in kernels.KERNEL_SOURCES:
+        lib = Lib()
+        kernels._bind(name, lib)
+        bound[name] = set(lib.fns)
+    assert [n for n, fns in bound.items() if "vrt_matmul_floor_f32" in fns] == ["matmul_floor"]
+    lib = Lib()
+    kernels._bind("matmul_floor", lib)
+    fn = lib.fns["vrt_matmul_floor_f32"]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    assert fn.argtypes == [vp] * 4 + [ci] * 4 + [vp] and fn.restype == ci
+    scratch = lib.fns["vrt_matmul_floor_scratch_floats"]
+    assert scratch.argtypes == [ci, ci] and scratch.restype == ctypes.c_longlong
+
+
+@pytest.mark.parametrize("name", ["shipped", "cluster1", "cluster4", "regs56", "early_split",
+                                  "no_overlap", "cluster_release", "consumers_only"])
+def test_matmul_floor_variants_apply_to_the_sources(name):
+    """Each of K5's timed variants (scripts.exp_matmul_floor_variants) is
+    the shipped source with its substitutions, each matching its file once;
+    only "shipped" leaves the sources as they are."""
+    import os
+
+    from vectordb_retrieval_tpu_torch.scripts import exp_matmul_floor_variants as variants
+
+    assert name in variants.VARIANTS
+    shipped = {f: open(os.path.join(kernels.CSRC_DIR, f)).read()
+               for f in os.listdir(kernels.CSRC_DIR) if f.endswith((".cu", ".cuh"))}
+    texts = variants.variant_sources(name)
+    assert set(texts) == set(shipped)
+    changed = {f for f in texts if texts[f] != shipped[f]}
+    expected = {f for f, _, _ in variants.VARIANTS[name][1]}
+    assert changed == expected and (name == "shipped") == (not changed)
 
 
 def test_matmul_floor_launch_count_untouched_on_cpu():

@@ -1,7 +1,6 @@
 // The persistent tensor-core block-minimum kernel that K1 (dist_blockmin_tc.cu:
 // bf16, u8 and f32 payloads), K4 (blockmin.cu: full-L2 minima over
-// interleaved blocks), K3 (assign.cu: nearest centroid) and K5
-// (dist_blockmin_tc.cu: K1 f32's matmul floor) share. One main loop; the
+// interleaved blocks) and K3 (assign.cu: nearest centroid) share. One main loop; the
 // modes differ in the payload element, in how a stage becomes wgmma
 // operands, and in the epilogue. slab_dots.cu (K2) uses its loaders.
 //
@@ -30,7 +29,7 @@
 //     codes 0-255 are exact in bf16, so every product is exact and the sums
 //     are f32: wgmma k16 on bf16 operands. u8 codes are copied raw and
 //     converted to bf16 into the swizzled tile in shared memory.
-//   F32 (K1), FLOOR (K5), L2 (K4), ASSIGN (K3): 3xTF32. Each staged f32 value v
+//   F32 (K1), L2 (K4), ASSIGN (K3): 3xTF32. Each staged f32 value v
 //     (queries and payload) is split in shared memory, in place, into big =
 //     tf32_rna(v) and small = tf32_rna(v - big) (cvt.rna.tf32.f32: the low
 //     13 bits zero, ties away
@@ -45,8 +44,7 @@
 //     wgmma's f32 adds into the accumulator (3 a k slice, 144 at d = 384)
 //     err by several times cuBLAS's f32 sum on unit vectors. So K1 f32 and
 //     K3 let each stage's 12 products start a fresh accumulator and add it
-//     into a running sum (one rounded f32 add a stage, 64 more registers;
-//     K5 as K1 f32);
+//     into a running sum (one rounded f32 add a stage, 64 more registers);
 //     K4 has no registers left for it and keeps one accumulator (its scale,
 //     qn + xn, is larger than the dot).
 //
@@ -69,10 +67,6 @@
 //     running minimum of 64 registers a thread is kept elementwise across
 //     the unit's n-tiles; at its end the members that share a column meet
 //     in registers (CW < 32) and across the quad (CW < 128).
-//   K5: out[g, q] = <x[g*w], q>, [S/w, B]: K1 f32's loads and products of
-//     every row, with no pen, no minimum and no shuffle; the thread that
-//     holds a group's first row stores it. What K1 f32 takes beyond K5 is
-//     its epilogue.
 //   K3: ids[p], mins[p] = (argmin, min)_c (pn[p] + cn[c]) - 2 <p, c>, the
 //     lowest c among equals. pn is summed in f32 from the staged raw point
 //     values while the unit's first n-tile splits them (pn_buffers); cn
@@ -100,7 +94,7 @@
 namespace vrt {
 namespace btc {
 
-enum class Mode { BF16, U8, F32, L2, ASSIGN, FLOOR };
+enum class Mode { BF16, U8, F32, L2, ASSIGN };
 
 constexpr int BM = 128;  // queries per block: two warpgroups of 64
 constexpr int BN = 128;  // payload rows per n-tile (wgmma N)
@@ -115,8 +109,7 @@ static_assert(BN % (2 * RP) == 0 && RP % 8 == 0, "loader passes cover whole tile
 
 template <Mode M>
 struct Cfg {
-  static constexpr bool TF32 =
-      M == Mode::F32 || M == Mode::L2 || M == Mode::ASSIGN || M == Mode::FLOOR;
+  static constexpr bool TF32 = M == Mode::F32 || M == Mode::L2 || M == Mode::ASSIGN;
   static constexpr int BK = TF32 ? 32 : 64;  // k per stage: 128 bytes
   // tf32 modes keep a big and a small tile of each operand
   static constexpr int A_BYTES = (TF32 ? 2 : 1) * TILE_BYTES;
@@ -125,7 +118,7 @@ struct Cfg {
   // two blocks an SM fit the bf16/u8 stages; the tf32 stages take one
   static constexpr int MIN_BLOCKS = TF32 ? 1 : 2;
   // each stage's products in a fresh accumulator, added into a running sum
-  static constexpr bool STAGE_SUM = M == Mode::F32 || M == Mode::ASSIGN || M == Mode::FLOOR;
+  static constexpr bool STAGE_SUM = M == Mode::F32 || M == Mode::ASSIGN;
 };
 
 // The query tile stays in shared memory across a unit's n-tiles (K3: it is
@@ -192,12 +185,6 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return r;
 }
 
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
 // byte i of v (a u8 code) as an exact f32: the bits 0x4B0000bb are
 // 2^23 + b, and 2^23 comes off exactly
 template <int I>
@@ -208,11 +195,6 @@ __device__ __forceinline__ float u8_at(uint32_t v) {
 // 4 u8 codes (one byte each of v) -> 2 x bf16x2, exactly
 __device__ __forceinline__ uint2 u8x4_to_bf16(uint32_t v) {
   return make_uint2(bf16x2(u8_at<0>(v), u8_at<1>(v)), bf16x2(u8_at<2>(v), u8_at<3>(v)));
-}
-
-__device__ __forceinline__ void st_shared_16(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
-               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
 }
 
 __device__ __forceinline__ void st_shared_f32(uint32_t addr, float v) {
@@ -229,13 +211,6 @@ __device__ __forceinline__ uint2 ld_shared_8(uint32_t addr) {
   uint2 v;
   asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
                : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
   return v;
 }
 
@@ -445,29 +420,6 @@ __device__ __forceinline__ void epilogue(const float (&acc)[64], uint32_t pen_s,
   }
 }
 
-// K5: the product of each group's first row, out[g, q] = acc, [S/w, B]
-// (the TPU probe's layout). Of the rows nb .. nb+31 this thread holds (see
-// epilogue), the groups' first rows are nb + g W for W <= 32; for W = 64 and
-// 128 only the lanes with (c & (W/32 - 1)) == 0 hold one, row nb.
-template <int W>
-__device__ __forceinline__ void floor_epilogue(const float (&acc)[64], float* __restrict__ out,
-                                               int q0, int n0, int lane, int B, int S) {
-  constexpr int GT = W < 32 ? 32 / W : 1;  // groups a thread writes
-  const int c = lane & 3, nb = n0 + 32 * c;
-  if (nb >= S || (W > 32 && (c & (W / 32 - 1)) != 0)) return;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int q = q0 + 8 * h;
-    if (q >= B) continue;
-#pragma unroll
-    for (int g = 0; g < GT; ++g) {
-      const int t = g * (W < 32 ? W : 0);  // the row's place among the 32
-      if (nb + t < S)
-        out[static_cast<size_t>((nb + t) / W) * B + q] = acc[4 * (t / 2) + 2 * h + t % 2];
-    }
-  }
-}
-
 // K4, each n-tile: run = min(run, qn + ||x||^2 - 2 acc), elementwise (xn_s
 // holds the n-tile's 128 row norms by logical row, +inf for empty slots).
 __device__ __forceinline__ void l2_update(float (&run)[64], const float (&acc)[64],
@@ -631,13 +583,13 @@ blockmin_tc_kernel(const Params p) {
     const NTile nt = n_tile(ci);
     if (loads_a(ci)) load_a<M>(p, a_tile(ci.s, ci.k), q_tile(ci), ci.k * C::BK);
     load_b<M>(p, b, b + TILE_BYTES, nt, ci.k * C::BK);
-    if constexpr (!L2 && M != Mode::FLOOR)
+    if constexpr (!L2)
       if (ci.k == 0) load_pens<NPEN>(p, pens + (ci.j % NS) * (NPEN * BN * 4), nt.n0);
     advance(ci);
   };
 
   float acc[64];
-  // K1 f32, K5, K3: each stage's products land in a fresh acc, added into sum
+  // K1 f32, K3: each stage's products land in a fresh acc, added into sum
   // with one rounded f32 add a stage (see the note on accumulation)
   constexpr bool STAGE_SUM = C::STAGE_SUM;
   float sum[64];
@@ -779,18 +731,6 @@ blockmin_tc_kernel(const Params p) {
             default: l2_write<16>(run, p, nt, q0, lane); break;
           }
         }
-      } else if constexpr (M == Mode::FLOOR) {
-        const int n0 = n_tile(cs).n0;
-        switch (p.w) {
-          case 1: floor_epilogue<1>(sum, p.out[0], q0, n0, lane, p.B, p.S); break;
-          case 2: floor_epilogue<2>(sum, p.out[0], q0, n0, lane, p.B, p.S); break;
-          case 4: floor_epilogue<4>(sum, p.out[0], q0, n0, lane, p.B, p.S); break;
-          case 8: floor_epilogue<8>(sum, p.out[0], q0, n0, lane, p.B, p.S); break;
-          case 16: floor_epilogue<16>(sum, p.out[0], q0, n0, lane, p.B, p.S); break;
-          case 32: floor_epilogue<32>(sum, p.out[0], q0, n0, lane, p.B, p.S); break;
-          case 64: floor_epilogue<64>(sum, p.out[0], q0, n0, lane, p.B, p.S); break;
-          default: floor_epilogue<128>(sum, p.out[0], q0, n0, lane, p.B, p.S); break;
-        }
       } else if constexpr (ASSIGN) {
         const uint32_t pn_s = pn_base + (cs.u % pn_buffers(nk)) * (BM * 4);
         const float pn[2] = {ld_shared_f32(pn_s + qr * 4), ld_shared_f32(pn_s + (qr + 8) * 4)};
@@ -842,7 +782,7 @@ inline int l2_layout(Params& p, int lanes_max) {
   return best < 0 ? static_cast<int>(cudaErrorInvalidValue) : static_cast<int>(cudaSuccess);
 }
 
-// Launches the kernel for p (B, S, d, w, q, x, pen, out and, for K1, K5 and K3,
+// Launches the kernel for p (B, S, d, w, q, x, pen, out and, for K1 and K3,
 // n_units and per_unit, for K3 ids, for K4 tile and seg, set by the caller;
 // the rest here): persistent, as many blocks as fit on the card, each
 // walking the units of one query tile (K3: units of query tiles). p.vec
@@ -858,9 +798,9 @@ int launch(Params p, void* stream) {
       ((reinterpret_cast<uintptr_t>(p.q) | reinterpret_cast<uintptr_t>(p.x)) & 15) == 0;
   p.vec = aligned && p.d % VEC_ALIGN == 0;
   const int a_tiles = resident<M>(p.nk) ? p.nk : NS;
-  const int pen_bytes = M == Mode::L2      ? 2 * BN * 4
-                        : M == Mode::FLOOR ? 0
-                        : NS * NPEN * BN * 4 + (M == Mode::ASSIGN ? pn_buffers(p.nk) * BM * 4 : 0);
+  const int pen_bytes = M == Mode::L2 ? 2 * BN * 4
+                                      : NS * NPEN * BN * 4 +
+                                            (M == Mode::ASSIGN ? pn_buffers(p.nk) * BM * 4 : 0);
   const int smem = a_tiles * C::A_BYTES + NS * C::STAGE_B + pen_bytes + 1024;
   auto kernel = blockmin_tc_kernel<M, NPEN>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -32,15 +32,6 @@
 // 384 FLOP per byte, so it is bound by the tensor cores' TF32 rate (the
 // FP32 FFMA units, 67 TFLOP/s, would take 2.5x longer).
 //
-// K5, the matmul floor (vrt_matmul_floor_f32): replaces the TPU kernel of
-// scripts/exp_dbm_tune.py matmul_floor (its body matmul_floor_kernel), a
-// tuning probe that keeps K1 f32's tiling and product and swaps the block
-// minimum for a strided slice: out[g, q] = <payload[g*w], queries[q]>,
-// [S/w, B] f32. Here it is the FLOOR mode of the same persistent kernel:
-// K1 f32's loads, split and 3xTF32 products of every row (so its time is
-// K1 f32's main loop), then an epilogue that stores each group's first row
-// and reads no pen. Bound as K1 f32: three TF32 products, 6 B S d FLOP.
-//
 // Launch rules: runs on the caller's stream, allocates nothing and does not
 // synchronise. The C entry points return cudaGetLastError().
 
@@ -109,12 +100,6 @@ extern "C" int vrt_dist_blockmin_u8(const void* queries, const void* payload,
                                     const void* pen, void* out, int B, int S,
                                     int d, int w, void* stream) {
   return launch_one<Mode::U8>(queries, payload, pen, out, B, S, d, w, stream);
-}
-
-// K5: queries f32 [B, d]; payload f32 [S, d]; out f32 [S/w, B]
-extern "C" int vrt_matmul_floor_f32(const void* queries, const void* payload, void* out,
-                                    int B, int S, int d, int w, void* stream) {
-  return launch_one<Mode::FLOOR>(queries, payload, nullptr, out, B, S, d, w, stream);
 }
 
 // Two pens over one product: out_a from pen_a, out_b from pen_b.

@@ -172,9 +172,9 @@ slab_prep_kernel(const float* __restrict__ q, const int* __restrict__ sel, void*
       const float v = __ldg(q + i);
       if constexpr (F32) {
         float* o = static_cast<float*>(pieces);
-        const float big = __uint_as_float(btc::tf32_rna(v));
+        const float big = __uint_as_float(vrt::tf32_rna(v));
         o[i] = big;
-        o[qvals + i] = __uint_as_float(btc::tf32_rna(v - big));
+        o[qvals + i] = __uint_as_float(vrt::tf32_rna(v - big));
       } else {
         uint16_t* o = static_cast<uint16_t*>(pieces);
         const uint16_t hi = bf16_rn(v);
@@ -387,7 +387,7 @@ __global__ void __launch_bounds__(THREADS, 1) slab_dots_tc_kernel(const SlabPara
       __syncwarp();
       const int row0 = 64 * wg + 16 * ((tid >> 5) & 3), col = cs.n * 128 + 4 * lane;
       for (int rr = 0; rr < 16 && row0 + rr < item.z; ++rr) {
-        float4 v = btc::ld_shared_f4(stg + rr * ROW_B + ((lane ^ ((rr & 7) << 1)) << 4));
+        float4 v = vrt::ld_shared_f4(stg + rr * ROW_B + ((lane ^ ((rr & 7) << 1)) << 4));
         if (item.x >= p.Nb) v = make_float4(NAN, NAN, NAN, NAN);  // the id was not clamped
         float* o = p.out + static_cast<size_t>(__ldg(p.order + item.y + row0 + rr)) * p.L + col;
         if (p.out_vec) {

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks for tensor-core kernels of the port:
-// 16-byte asynchronous copies into shared memory (cp.async), the 128-byte
-// swizzled K-major operand layout that wgmma reads, its shared-memory matrix
-// descriptor, the wgmma fences, and the m64n128 products with f32
-// accumulators: bf16 operands (k16) and tf32 operands (k8). blockmin_tc.cuh
-// uses them.
+// 16-byte asynchronous copies into shared memory (cp.async), 16-byte
+// shared-memory loads and stores, the tf32 rounding of the 3xTF32 split, the
+// 128-byte swizzled K-major operand layout that wgmma reads, its
+// shared-memory matrix descriptor, the wgmma fences, and the m64n128
+// products with f32 accumulators: bf16 operands (k16) and tf32 operands (k8),
+// and m64n64 over tf32 with A from registers. blockmin_tc.cuh and
+// matmul_floor.cu use them.
 //
 // Operand tiles: R rows of 128 bytes each (64 bf16 or 32 f32/tf32 values,
 // the k-extent of one pipeline stage), stored as 8-row atoms of 1024 bytes.
@@ -56,6 +58,28 @@ __device__ __forceinline__ void cp_async_wait() {
 // before later reads by the async proxy (wgmma operands).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- shared memory and the tf32 split ---------------------------------------
+
+__device__ __forceinline__ void st_shared_16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
+}
+
+__device__ __forceinline__ float4 ld_shared_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+// v rounded to tf32 (cvt.rna.tf32.f32: the low 13 bits zero, ties away from
+// zero), as f32 bits
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
 }
 
 // ---- the 128B-swizzled K-major layout ---------------------------------------
@@ -161,6 +185,38 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(static_cast<int>(accumulate)));
 }
 
+#define VRT_ACC32(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+
+// d = A (64 x 8 tf32, from registers) * B (64 x 8, K-major in shared
+// memory)^T + (accumulate ? d : 0), f32 accumulators: thread t of the
+// warpgroup holds a = {A[r][c], A[r + 8][c], A[r][c + 4], A[r + 8][c + 4]}
+// for r = 16 (t / 32) + (t % 32) / 4, c = t % 4, and d[4i + 2h + j] =
+// D[r + 8h][8i + 2c + j] for i < 8. The registers of a are read while the
+// product runs: they must not change before wgmma_wait.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : VRT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(static_cast<int>(accumulate)));
+}
+
+#undef VRT_ACC32
 #undef VRT_ACC64_REGS
 #undef VRT_ACC64
 

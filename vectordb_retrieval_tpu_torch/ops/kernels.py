@@ -29,21 +29,23 @@ kernel lives in a tuning probe):
   * :func:`matmul_floor` — K1 f32 without its epilogue: the product of each
     ``w``-block's first row with every query, ``[S/w, B]``. Replaces the
     tuning probe's ``matmul_floor`` (``scripts/exp_dbm_tune.py``), which
-    times K1's main loop alone. CUDA C++ source: ``csrc/dist_blockmin_tc.cu``
-    (the FLOOR mode of K1's persistent kernel: the same loads and 3xTF32
-    products of every row, an epilogue that stores and reduces nothing).
+    times K1's main loop alone. CUDA C++ source: ``csrc/matmul_floor.cu``
+    (K1 f32's 3xTF32 products of every row in Hopper's own idiom: TMA into
+    an ``mbarrier`` ring fed by a producer warp, the payload as ``wgmma``'s
+    A operand from registers, the queries split once a call), so its time
+    is the card's floor for K1 f32's main loop.
 
 Each wrapper routes by the device of its tensors: a CUDA tensor goes to the
 kernel (or the wrapper raises), a CPU tensor goes to the plain PyTorch
 version beside it. Nothing falls back from one to the other.
 
-Kernels are compiled from ``csrc/`` (every source includes the tensor-core
-kernel ``blockmin_tc.cuh``, on the helpers of ``wgmma.cuh``: K1, K3 and K4
-run its main loop, K2 its loaders) with ``nvcc`` for ``sm_90a`` at first
-use, into ``_build/<hash of source, every header and flags>/``, and loaded
-with ``ctypes`` through a plain C interface. Every launch adds one to
-``LAUNCHES[name]`` (one name per kernel mode); nothing else touches the
-counts.
+Kernels are compiled from ``csrc/`` (K1, K3 and K4 run the main loop of
+the tensor-core kernel ``blockmin_tc.cuh``, K2 its loaders, all on the
+helpers of ``wgmma.cuh``; K5 runs on those of ``tma.cuh``) with ``nvcc``
+for ``sm_90a`` at first use, into ``_build/<hash of source, every header
+and flags>/``, and loaded with ``ctypes`` through a plain C interface.
+Every launch adds one to ``LAUNCHES[name]`` (one name per kernel mode);
+nothing else touches the counts.
 
 Counted work: while a :func:`count_work` scope is open, every wrapper call
 adds the operations and bytes of the function it computes to the scope,
@@ -75,7 +77,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNEL_SOURCES = ("dist_blockmin_tc", "assign", "slab_dots", "blockmin")
+KERNEL_SOURCES = ("dist_blockmin_tc", "assign", "slab_dots", "blockmin", "matmul_floor")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -201,8 +203,8 @@ def matmul_floor_work(b: int, s: int, d: int, w: int) -> Tuple[float, float]:
     call computes: ``2 B (S/w) d`` for the dot products of each
     ``w``-block's first row with every query; the queries and those ``S/w``
     rows read once, the ``[S/w, B]`` output written once. The kernel itself
-    multiplies every row, as K1 f32's main loop does: that is the loop it
-    times, not work the function needs."""
+    multiplies every row at K1 f32's shapes (``6 B S d`` TF32 operations):
+    that is the loop it is the floor of, not work the function needs."""
     g = s // w
     return 2.0 * b * g * d, 4.0 * (b * d + g * d + g * b)
 
@@ -238,7 +240,6 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             for _, source, fn in _DBM_MODES.values() if source == name}
     if name == "dist_blockmin_tc":
         sigs.update({fn: [vp] * 6 + [ci] * 4 + [vp] for fn in _PAIR_ENTRIES.values()})
-        sigs["vrt_matmul_floor_f32"] = [vp] * 3 + [ci] * 4 + [vp]
     elif name == "assign":
         sigs["vrt_assign_f32"] = [vp] * 5 + [ci] * 3 + [vp]
     elif name == "slab_dots":
@@ -247,6 +248,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.vrt_slab_dots_scratch_words.restype = ctypes.c_longlong
     elif name == "blockmin":
         sigs["vrt_blockmin_f32"] = [vp] * 4 + [ci] * 5 + [vp]
+    elif name == "matmul_floor":
+        sigs["vrt_matmul_floor_f32"] = [vp] * 4 + [ci] * 4 + [vp]
+        lib.vrt_matmul_floor_scratch_floats.argtypes = [ci, ci]
+        lib.vrt_matmul_floor_scratch_floats.restype = ctypes.c_longlong
     for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ci
@@ -331,7 +336,8 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     bits of each piece are zero). ``big + small`` is ``x`` to the rounding
     of ``small`` (~2^-22 relative); products of pieces are exact in f32, so
     ``small_q big_x + big_q small_x + big_q big_x`` is the kernels' product.
-    The kernels split in shared memory; no search path calls this."""
+    The kernels split in shared memory (K5: the payload in registers, the
+    queries in a launch of their own); no search path calls this."""
 
     def rna(v: torch.Tensor) -> torch.Tensor:
         # on the magnitude bits: + half of the dropped field, carry, clear
@@ -945,13 +951,16 @@ def matmul_floor(
 ) -> torch.Tensor:
     """``out[g, q] = <payload[g*w], queries[q]>``, ``[S/w, B]`` f32: K1
     f32 with its pen, block minimum and transpose taken out, as the TPU
-    probe's floor returns it. It measures the cost of K1's main loop, and
-    no search path calls it.
+    probe's floor returns it. Like the probe it multiplies every row, so
+    it times the card's floor for K1 f32's main loop; no search path calls
+    it.
 
-    CUDA tensors launch the FLOOR mode of ``csrc/dist_blockmin_tc.cu`` on
-    the current stream (K1 f32's loads and 3xTF32 products of every row,
-    see :func:`split_tf32`) and count under ``LAUNCHES['matmul_floor']``.
-    CPU tensors take :func:`matmul_floor_reference`.
+    CUDA tensors launch ``csrc/matmul_floor.cu`` on the current stream (a
+    split of the queries into tf32 pieces in scratch allocated here, then
+    the 3xTF32 products of every row, see :func:`split_tf32`; TMA where the
+    payload's base and rows are 16-byte aligned, masked loads otherwise)
+    and count under ``LAUNCHES['matmul_floor']``. CPU tensors take
+    :func:`matmul_floor_reference`.
     """
     _check_matmul_floor(queries, payload, w)
     (b, d), s = queries.shape, payload.shape[0]
@@ -968,12 +977,16 @@ def _launch_matmul_floor(queries: torch.Tensor, payload: torch.Tensor, w: int) -
         return out
     if b >= 2**31 or s >= 2**31:
         raise ValueError(f"matmul_floor: B={b}, S={s} exceed the launch grid")
-    lib = _lib("dist_blockmin_tc")
+    lib = _lib("matmul_floor")
+    # the queries' tf32 pieces, split once a call
+    scratch = torch.empty(lib.vrt_matmul_floor_scratch_floats(b, d), dtype=torch.float32,
+                          device=payload.device)
     with torch.cuda.device(payload.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.vrt_matmul_floor_f32(
-            queries.data_ptr(), payload.data_ptr(), out.data_ptr(), b, s, d, w, stream,
+            queries.data_ptr(), payload.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            b, s, d, w, stream,
         )
-    _check_launch("dist_blockmin_tc", "matmul_floor", rc)
+    _check_launch("matmul_floor", "matmul_floor", rc)
     LAUNCHES["matmul_floor"] += 1
     return out

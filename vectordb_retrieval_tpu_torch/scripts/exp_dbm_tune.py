@@ -2,11 +2,13 @@
 
 At a given (n, d, b, w): the full kernel (K1 f32, ``ops/kernels.
 dist_blockmin``: distance, pen and block minimum), then the matmul floor
-(K5, ``ops/kernels.matmul_floor``: the same loads and 3xTF32 products of
-every row, the epilogue reduced to a store of each block's first row), so
-that the difference is the cost of K1's epilogue, then K1 at the other
-widths. Run at the flagship shape (100k x 384, w 8) and the SIFT shape
-(``--n 1000000 --d 128 --w 32``).
+(K5, ``ops/kernels.matmul_floor``: K1 f32's 3xTF32 products of every row
+at the same shapes, with no pen and no minimum, in a kernel of its own
+built the card's way: TMA into an mbarrier ring fed by a producer warp),
+so that K1 f32's time less K5's is what K1 loses to the card's product
+loop, epilogue included, then K1 at the other widths. Run at the flagship
+shape (100k x 384, w 8) and the SIFT shape (``--n 1000000 --d 128 --w
+32``).
 
 The counterpart of the JAX package's ``scripts/exp_dbm_tune.py``: the same
 options, inputs (NumPy seed 0, the corpus padded to ``S`` rows by the JAX
