@@ -57,6 +57,7 @@ from vectordb_retrieval_tpu_torch.ops.kmeans import (
     training_sample,
 )
 from vectordb_retrieval_tpu_torch.utils.device import synchronize
+from vectordb_retrieval_tpu_torch.utils.profiling import span
 
 _FACTORY_RE = re.compile(
     r"^(?:OPQ(?P<opq>\d+),)?(?:IVF(?P<nlist>\d+),)?(?P<code>Flat|PQ(?P<m>\d+)|SQ8)$"
@@ -674,22 +675,25 @@ class ANNSearcher(BaseSearcher):
         """Dispatch without waiting: returns (dists_dev, ids_dev, n_rows)."""
         if self.artifact is None:
             raise RuntimeError("searcher not attached")
-        q = torch.as_tensor(
-            np.ascontiguousarray(queries, dtype=np.float32), device=self.device
-        )
-        dists, ids = self.device_kernel(q, k)
+        with span("vrt.h2d"):
+            q = torch.as_tensor(
+                np.ascontiguousarray(queries, dtype=np.float32), device=self.device
+            )
+        with span("vrt.search"):
+            dists, ids = self.device_kernel(q, k)
         return dists, ids, q.shape[0]
 
     def batch_search(
         self, queries: np.ndarray, k: int
     ) -> Tuple[np.ndarray, np.ndarray]:
         dists, ids, _ = self.device_batch_search(queries, k)
-        out_d = dists.cpu().numpy()
-        out_i = ids.cpu().numpy().astype(np.int64)
-        if out_d.shape[1] < k:
-            pad = k - out_d.shape[1]
-            out_d = np.pad(out_d, ((0, 0), (0, pad)), constant_values=np.inf)
-            out_i = np.pad(out_i, ((0, 0), (0, pad)), constant_values=-1)
+        with span("vrt.d2h"):
+            out_d = dists.cpu().numpy()
+            out_i = ids.cpu().numpy().astype(np.int64)
+            if out_d.shape[1] < k:
+                pad = k - out_d.shape[1]
+                out_d = np.pad(out_d, ((0, 0), (0, pad)), constant_values=np.inf)
+                out_i = np.pad(out_i, ((0, 0), (0, pad)), constant_values=-1)
         return out_d, out_i
 
     def estimated_ops_per_query(self, n_database: int) -> int:

@@ -22,6 +22,7 @@ from vectordb_retrieval_tpu_torch.models.base import (
     register_searcher,
 )
 from vectordb_retrieval_tpu_torch.ops import distances as dops
+from vectordb_retrieval_tpu_torch.utils.profiling import span
 
 
 @register_indexer("BruteForceIndexer")
@@ -142,20 +143,23 @@ class LinearSearcher(BaseSearcher):
         """Dispatch without waiting: returns (dists_dev, ids_dev, n_rows)."""
         if self.artifact is None:
             raise RuntimeError("searcher not attached to an artifact")
-        q = torch.as_tensor(
-            np.ascontiguousarray(queries, dtype=np.float32), device=self.device
-        )
-        dists, ids = self.device_kernel(q, k)
+        with span("vrt.h2d"):
+            q = torch.as_tensor(
+                np.ascontiguousarray(queries, dtype=np.float32), device=self.device
+            )
+        with span("vrt.search"):
+            dists, ids = self.device_kernel(q, k)
         return dists, ids, q.shape[0]
 
     def batch_search(
         self, queries: np.ndarray, k: int
     ) -> Tuple[np.ndarray, np.ndarray]:
         dists, ids, _ = self.device_batch_search(queries, k)
-        d = dists.cpu().numpy()
-        i = ids.cpu().numpy()
-        if d.shape[1] < k:  # pad to requested k with inf/-1
-            pad = k - d.shape[1]
-            d = np.pad(d, ((0, 0), (0, pad)), constant_values=np.inf)
-            i = np.pad(i, ((0, 0), (0, pad)), constant_values=-1)
+        with span("vrt.d2h"):
+            d = dists.cpu().numpy()
+            i = ids.cpu().numpy()
+            if d.shape[1] < k:  # pad to requested k with inf/-1
+                pad = k - d.shape[1]
+                d = np.pad(d, ((0, 0), (0, pad)), constant_values=np.inf)
+                i = np.pad(i, ((0, 0), (0, pad)), constant_values=-1)
         return d, i

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from vectordb_retrieval_tpu_torch.ops import kernels
 from vectordb_retrieval_tpu_torch.utils.device import DeviceLike, resolve_device
+from vectordb_retrieval_tpu_torch.utils.profiling import span
 
 METRICS = ("l2", "ip", "cosine")
 
@@ -285,23 +286,24 @@ def _exact_search_blockmin(
     )  # [B, S/w]
     nb = min(k + slack, bmins.shape[1])
     blk = _select_blocks(bmins, nb)
-    # whole w-row blocks: [B, nb, w, d], a fresh copy, updated in place
-    bvecs = payload.reshape(-1, w, dim)[blk]
-    if metric == "l2":
-        diff = bvecs.sub_(queries[:, None, None, :])
-        cd = torch.sum(diff.mul_(diff), dim=-1)
-    else:  # ip/cosine: negated dot, elementwise sum
-        cd = -torch.sum(bvecs.mul_(queries[:, None, None, :]), dim=-1)
-    cand = (
-        blk[:, :, None] * w + torch.arange(w, device=dev)
-    ).reshape(b, nb * w)
-    cand = torch.where(cand < n, cand, torch.full_like(cand, -1))
-    cd = torch.where(
-        cand.reshape(b, nb, w) >= 0, cd, torch.full_like(cd, float("inf"))
-    ).reshape(b, nb * w)
-    vals, sel = top_k_smallest(cd, k)
-    ids = torch.gather(cand, 1, sel)
-    ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
+    with span("vrt.rescore"):
+        # whole w-row blocks: [B, nb, w, d], a fresh copy, updated in place
+        bvecs = payload.reshape(-1, w, dim)[blk]
+        if metric == "l2":
+            diff = bvecs.sub_(queries[:, None, None, :])
+            cd = torch.sum(diff.mul_(diff), dim=-1)
+        else:  # ip/cosine: negated dot, elementwise sum
+            cd = -torch.sum(bvecs.mul_(queries[:, None, None, :]), dim=-1)
+        cand = (
+            blk[:, :, None] * w + torch.arange(w, device=dev)
+        ).reshape(b, nb * w)
+        cand = torch.where(cand < n, cand, torch.full_like(cand, -1))
+        cd = torch.where(
+            cand.reshape(b, nb, w) >= 0, cd, torch.full_like(cd, float("inf"))
+        ).reshape(b, nb * w)
+        vals, sel = top_k_smallest(cd, k)
+        ids = torch.gather(cand, 1, sel)
+        ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))
     return vals, ids
 
 

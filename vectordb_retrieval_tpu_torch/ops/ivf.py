@@ -45,6 +45,7 @@ import torch
 from vectordb_retrieval_tpu_torch.ops import distances as dops
 from vectordb_retrieval_tpu_torch.ops import kernels
 from vectordb_retrieval_tpu_torch.ops import pq
+from vectordb_retrieval_tpu_torch.utils.profiling import span
 
 _INF = float("inf")
 
@@ -212,12 +213,13 @@ def _coarse_probes(queries, centroids, nprobe):
 def _probes(queries, centroids, nprobe, bucket_lists, nlist, nprobe_lists,
             list_centroids):
     """``(probes, valid or None)`` under the caller's probe semantics."""
-    if bucket_lists is not None and nprobe_lists and nlist:
-        return exact_probe_mask(
-            queries, centroids, bucket_lists, nlist, nprobe_lists, nprobe,
-            list_centroids=list_centroids,
-        )
-    return _coarse_probes(queries, centroids, nprobe), None
+    with span("vrt.probe"):
+        if bucket_lists is not None and nprobe_lists and nlist:
+            return exact_probe_mask(
+                queries, centroids, bucket_lists, nlist, nprobe_lists, nprobe,
+                list_centroids=list_centroids,
+            )
+        return _coarse_probes(queries, centroids, nprobe), None
 
 
 def _probe_scan(probes, k, score_fn, bucket_len=0, row_bytes=0, valid=None):
@@ -299,15 +301,16 @@ def _rescore_blocks(
     (a query with fewer probed blocks than selected) stay invisible."""
     n_bkt, L = slot_ids.shape
     b, nb = blk.shape
-    cand = slot_ids.reshape(-1, w)[blk]  # [B, nb, w]
-    cd = block_rescore(tuple(
-        p.reshape((n_bkt * L // w, w) + tuple(p.shape[2:]))[blk] for p in payload
-    ))
-    cd = torch.where(torch.isfinite(blk_vals)[:, :, None], cd, _INF)
-    cd = torch.where(cand >= 0, cd, _INF).reshape(b, nb * w)
-    vals, sel = dops.top_k_smallest(cd, k)
-    ids = torch.gather(cand.reshape(b, nb * w), 1, sel).long()
-    return vals, torch.where(torch.isfinite(vals), ids, -1)
+    with span("vrt.rescore"):
+        cand = slot_ids.reshape(-1, w)[blk]  # [B, nb, w]
+        cd = block_rescore(tuple(
+            p.reshape((n_bkt * L // w, w) + tuple(p.shape[2:]))[blk] for p in payload
+        ))
+        cd = torch.where(torch.isfinite(blk_vals)[:, :, None], cd, _INF)
+        cd = torch.where(cand >= 0, cd, _INF).reshape(b, nb * w)
+        vals, sel = dops.top_k_smallest(cd, k)
+        ids = torch.gather(cand.reshape(b, nb * w), 1, sel).long()
+        return vals, torch.where(torch.isfinite(vals), ids, -1)
 
 
 def _masked_minima(
@@ -514,10 +517,11 @@ def _flat_chunk_score(q_cast, qn, metric):
 
 def _final_rescore(queries, full_vectors, ids, k, metric):
     """Exact re-rank of compressed-list candidates against f32 rows."""
-    cd = dops.rescore(queries, full_vectors, ids, metric)
-    vals, sel = dops.top_k_smallest(cd, k)
-    ids = torch.gather(ids, 1, sel)
-    return vals, torch.where(torch.isfinite(vals), ids, -1)
+    with span("vrt.rescore"):
+        cd = dops.rescore(queries, full_vectors, ids, metric)
+        vals, sel = dops.top_k_smallest(cd, k)
+        ids = torch.gather(ids, 1, sel)
+        return vals, torch.where(torch.isfinite(vals), ids, -1)
 
 
 def ivf_flat_search(

@@ -1,15 +1,44 @@
 """Tracing and counted work.
 
+  * :func:`span` marks one stage of the search path for ``torch.profiler``
+    (names in :data:`SPANS`); with no profiler running it costs one flag
+    check and records nothing;
   * :func:`trace` writes a ``torch.profiler`` Chrome trace (CPU and, where
-    there is a card, CUDA activity) around a region;
+    there is a card, CUDA activity) around a region: the way to see the
+    spans beside the kernels and copies they enqueue;
   * :func:`cost_estimate` counts the operations and bytes of one call from
     the shapes of what it runs, the same on the CPU as on the card, in
     place of a compiler's cost model (the runner's roofline keys,
-    ``bench/experiment.py`` ``_roofline``);
-  * :func:`memory_stats` reports each card's allocator statistics.
+    ``bench/experiment.py`` ``_roofline``).
 
 The ``ndis`` counter on ``BaseAlgorithm`` (models/base.py) stays the count
 of distance evaluations.
+
+Spans. While a profiler runs, ``with span(name):`` records one event named
+``name`` with its start and end on the profiler's clock, the clock of the
+device's kernels and copies in the same trace. It is an ordinary host
+event (``torch._C._profiler._RecordFunctionFast``), not a user
+annotation, so the profiler's records list it among the host's operators.
+Its parent is the innermost span or operator open around it on the same
+thread; its request is whatever span the caller opened around the call
+(a benchmark's per-request span), which every span of that call shares.
+No span here runs on another thread. An op's span shows for every caller
+of that op (ground truth, the cover tree's exact fallback), inside a
+``vrt.search`` only where a searcher called it. The spans, in the order a
+request opens them:
+
+  * ``vrt.h2d``: the query upload in ``device_batch_search``
+    (``LinearSearcher``, ``ANNSearcher``);
+  * ``vrt.search``: ``device_kernel`` in the same two methods, every search
+    op enqueued;
+  * ``vrt.probe``: the IVF coarse probe (``ops/ivf._probes``), inside
+    ``vrt.search``;
+  * ``vrt.rescore``: the gather, exact rescore and top-k of exact search's
+    blockmin path (``ops/distances._exact_search_blockmin``) and of IVF's
+    ``_rescore_blocks`` and ``_final_rescore`` (one span each), inside
+    ``vrt.search``;
+  * ``vrt.d2h``: the copies back to NumPy and the padding in
+    ``batch_search``: the wait for the card and the copies.
 """
 
 from __future__ import annotations
@@ -21,15 +50,30 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from vectordb_retrieval_tpu_torch.ops import kernels
-
 aten = torch.ops.aten
+
+SPANS = ("vrt.h2d", "vrt.search", "vrt.probe", "vrt.rescore", "vrt.d2h")
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("vrt.search"):`` records the block as an event named
+    ``name`` while ``torch.profiler`` runs; otherwise it returns one shared
+    null context and records nothing. ``name`` is one of :data:`SPANS`."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    if name not in SPANS:
+        raise ValueError(f"unknown span {name!r}: add it to SPANS")
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
     """``with trace("traces/run"):`` profiles the region and writes
-    ``log_dir/torch_trace.json`` (Chrome trace format) when it ends."""
+    ``log_dir/torch_trace.json`` (Chrome trace format) when it ends: the
+    :func:`span` stages on the host's rows above the kernels and copies
+    they enqueue on the card's."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -88,8 +132,9 @@ class _AtenWork(TorchDispatchMode):
     wrappers (the wrappers count their own work, ``ops/kernels.py``).
     Views move no bytes and ``empty*`` writes none: neither is counted."""
 
-    def __init__(self) -> None:
+    def __init__(self, inside_wrapper: Callable[[], bool]) -> None:
         super().__init__()
+        self.inside_wrapper = inside_wrapper
         self.flops = 0.0
         self.bytes = 0.0
         self.ops = 0
@@ -97,7 +142,7 @@ class _AtenWork(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if kernels.inside_wrapper():
+        if self.inside_wrapper():
             return out
         packet = func.overloadpacket
         if func.is_view or packet.__name__.startswith("empty"):
@@ -127,7 +172,10 @@ def cost_estimate(fn: Callable, *args: Any, **kwargs: Any) -> Dict[str, float]:
     distinct slabs its ids select), so the CPU and the card count the same
     work for the same call path.
     """
-    with kernels.count_work() as work, _AtenWork() as ops:
+    # imported here: the search ops import span from this module
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    with kernels.count_work() as work, _AtenWork(kernels.inside_wrapper) as ops:
         fn(*args, **kwargs)
     if not (work["calls"] or ops.ops):
         return {}
@@ -139,11 +187,3 @@ def flops_estimate(fn: Callable, *args: Any, **kwargs: Any) -> Optional[float]:
     """``cost_estimate(fn, ...)["flops"]``; None where nothing was counted."""
     return cost_estimate(fn, *args, **kwargs).get("flops")
 
-
-def memory_stats() -> Dict[str, Any]:
-    """``torch.cuda.memory_stats`` of each visible card, keyed ``cuda:i``;
-    ``{}`` on a host without one. A report, not a device choice."""
-    if not torch.cuda.is_available():
-        return {}
-    return {f"cuda:{i}": torch.cuda.memory_stats(i)
-            for i in range(torch.cuda.device_count())}
