@@ -206,3 +206,23 @@ def test_exact_search_blockmin_route_ignores_refine(rng):
     assert d.shape == i.shape == (3, 7)
     full = ((q[:, None, :] - x[None, :, :]) ** 2).sum(-1)
     np.testing.assert_allclose(d.numpy(), np.sort(full, 1)[:, :7], rtol=RTOL)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+@pytest.mark.parametrize("n", [tops._DENSE_PATH_MAX_ROWS + 13, 262_144 + 77])
+def test_exact_search_above_the_dense_cut_matches_jax(rng, metric, n):
+    """Above _DENSE_PATH_MAX_ROWS both packages take the blockmin path; the
+    port's stage 3 is kernels.block_rescore (its plain version here). n is
+    ragged at the width rule's w (8, then 16), and the first query is the
+    last database row, so the ragged last block, padding rows and all, is
+    among its selected blocks: ids and distances agree with the JAX
+    package's exact search and no padding row is returned."""
+    x, q = _data(rng, n, 8, 6, metric)
+    q[0] = x[-1]
+    assert tops.blockmin_width(n) == (8 if n < 262_144 else 16)
+    wd, wi = jops.exact_search(jnp.asarray(q), jnp.asarray(x), 10, metric=metric)
+    gd, gi = tops.exact_search(q, x, 10, metric=metric, device="cpu")
+    assert_same_topk(gd, gi, wd, wi)
+    gi = gi.numpy()
+    assert (gi >= 0).all() and (gi < n).all()
+    assert n - 1 in gi[0].tolist()

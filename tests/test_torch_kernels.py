@@ -1,7 +1,9 @@
 """The port's kernels against the JAX Pallas kernels: dist_blockmin in its
 f32, bf16 and u8 modes and dist_blockmin_pair (two pens over one bf16/u8
 product), the k-means assignment, the graph beam's slab dot products, and
-the interleaved full-L2 blockmin (K4).
+the interleaved full-L2 blockmin (K4); K5's plain version against the
+tuning probe's floor; and K6's plain version (the exact rescore of the
+selected blocks) against the JAX package's rescore arithmetic.
 
 On CPU tensors the port's wrappers run their plain PyTorch versions; the
 JAX kernels run in interpret mode, as their own tests run them.
@@ -328,7 +330,7 @@ def test_assign_launch_count_untouched_on_cpu(rng):
     assert kernels.LAUNCHES == before
     assert set(kernels.LAUNCHES) == {
         "dist_blockmin", "dist_blockmin_bf16", "dist_blockmin_u8", "assign",
-        "slab_dots", "blockmin", "matmul_floor"}
+        "slab_dots", "blockmin", "matmul_floor", "block_rescore"}
 
 
 @pytest.mark.parametrize("kind", ["f64", "int_points", "dim", "noncontig", "empty"])
@@ -399,14 +401,16 @@ def test_dist_blockmin_wrapper_rejects(kind, exc):
 def test_kernel_source_and_build_key():
     """Every kernel's source ships in csrc/ and includes its header: the
     tensor-core kernel's (K1, K3 and K4 run its main loop, K2 its loaders)
-    or, for K5, the TMA and mbarrier helpers; both headers stand on the
-    wgmma helpers; the FFMA tile is gone; each build directory is keyed by
-    the source, the headers and the compiler flags."""
+    or, for K5, the TMA and mbarrier helpers; K6 stands alone on the CUDA
+    cores and includes no header of csrc/ (so none of the tensor-core
+    helpers); both headers stand on the wgmma helpers; the FFMA tile is
+    gone; each build directory is keyed by the source, the headers and the
+    compiler flags."""
     import os
 
     headers = {"dist_blockmin_tc": "blockmin_tc.cuh", "blockmin": "blockmin_tc.cuh",
                "assign": "blockmin_tc.cuh", "slab_dots": "blockmin_tc.cuh",
-               "matmul_floor": "tma.cuh"}
+               "matmul_floor": "tma.cuh", "block_rescore": None}
     assert set(headers) == set(kernels.KERNEL_SOURCES)
     assert sorted(f for f in os.listdir(kernels.CSRC_DIR) if f.endswith(".cuh")) == [
         "blockmin_tc.cuh", "tma.cuh", "wgmma.cuh"]
@@ -414,11 +418,15 @@ def test_kernel_source_and_build_key():
         src = os.path.join(kernels.CSRC_DIR, f"{name}.cu")
         assert os.path.exists(src)
         with open(src) as f:
-            assert f'#include "{headers[name]}"' in f.read()
+            text = f.read()
+        if headers[name] is None:
+            assert '#include "' not in text and "wgmma" not in text, name
+        else:
+            assert f'#include "{headers[name]}"' in text
         path = kernels._lib_path(name)
         assert path.startswith(kernels.BUILD_DIR)
         assert path.endswith(f"lib{name}.so")
-    for header in set(headers.values()):
+    for header in set(headers.values()) - {None}:
         assert os.path.exists(os.path.join(kernels.CSRC_DIR, header))
     for header in ("blockmin_tc.cuh", "tma.cuh"):
         with open(os.path.join(kernels.CSRC_DIR, header)) as f:
@@ -430,7 +438,8 @@ def test_k1_entry_points_live_in_one_source_each():
     """Each K1 entry point the wrappers call is defined in the source the
     wrapper loads and in no other: every mode (f32, bf16 and u8, one pen
     and the pair) in the tensor-core source; K4's in blockmin.cu, K3's in
-    assign.cu, K2's in slab_dots.cu, K5's in matmul_floor.cu; no source
+    assign.cu, K2's in slab_dots.cu, K5's in matmul_floor.cu, K6's in
+    block_rescore.cu; no source
     holds an FFMA kernel or names the FFMA tile."""
     import os
     import re
@@ -448,6 +457,7 @@ def test_k1_entry_points_live_in_one_source_each():
     assert defined["vrt_blockmin_f32"] == ["blockmin"]
     assert defined["vrt_assign_f32"] == ["assign"]
     assert defined["vrt_matmul_floor_f32"] == ["matmul_floor"]
+    assert defined["vrt_block_rescore_f32"] == ["block_rescore"]
     for fn in kernels._SLAB_MODES.values():
         assert defined[fn] == ["slab_dots"], fn
     assert not [fn for fn, srcs in defined.items()
@@ -1158,3 +1168,188 @@ def test_matmul_floor_wrapper_rejects(kind, exc):
         w = 256
     with pytest.raises(exc):
         kernels.matmul_floor(q, x, w=w)
+
+
+# ---- K6: exact rescore of the selected blocks -------------------------------
+
+
+def _rescore_case(rng, b, n, d, w, nb, metric):
+    """Queries, the payload padded with zero rows to whole blocks, and block
+    ids drawn with repeats, the ragged last block always among them."""
+    s = kernels.dist_blockmin_pad_rows(n, w)
+    x = np.zeros((s, d), np.float32)
+    x[:n] = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    if metric == "cosine":
+        x[:n] /= np.linalg.norm(x[:n], axis=1, keepdims=True)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+    blk = rng.integers(0, s // w, (b, nb))
+    blk[0, 0] = s // w - 1
+    return q, x, blk
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("d", [3, 50, 128, 384])
+@pytest.mark.parametrize("w", [8, 16, 32])
+def test_block_rescore_reference_matches_jax_rescore(rng, w, d, metric):
+    """The plain version against the JAX package's stage-3 arithmetic on the
+    gathered blocks (``jnp.sum((x - q)**2)`` and ``-jnp.sum(x * q)``; cosine
+    is ip on normalised rows), within 1e-5 of the largest |score| (f32 sums
+    in another order); n is not a multiple of w and the ragged block is
+    selected: its padding rows read +inf and -1."""
+    n = 7 * w + 3
+    b, nb = 5, 4
+    q, x, blk = _rescore_case(rng, b, n, d, w, nb, metric)
+    cd, cand = kernels.block_rescore_reference(
+        torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(blk), n, w,
+        "l2" if metric == "l2" else "ip")
+    blocks = jnp.asarray(x.reshape(-1, w, d)[blk])  # [B, nb, w, d]
+    qj = jnp.asarray(q)[:, None, None, :]
+    if metric == "l2":
+        want = jnp.sum((blocks - qj) ** 2, axis=-1)
+    else:
+        want = -jnp.sum(blocks * qj, axis=-1)
+    want = np.asarray(want).reshape(b, nb * w)
+    ids = (blk[:, :, None] * w + np.arange(w)).reshape(b, nb * w)
+    pad = ids >= n
+    assert pad[0, :w].sum() == w - 3  # the ragged block's padding rows
+    assert cd.dtype == torch.float32 and cand.dtype == torch.int64
+    assert cd.shape == cand.shape == (b, nb * w)
+    np.testing.assert_array_equal(cand.numpy(), np.where(pad, -1, ids))
+    cd = cd.numpy()
+    assert np.isposinf(cd[pad]).all() and np.isfinite(cd[~pad]).all()
+    scale = np.abs(want[~pad]).max()
+    assert np.abs(cd[~pad] - want[~pad]).max() <= 1e-5 * scale
+
+
+def test_block_rescore_is_exact_search_stage_three(rng):
+    """The wrapper on CPU tensors is the plain version: what
+    _exact_search_blockmin rescores equals a direct distance of every
+    selected row (integer rows: exact in f32)."""
+    n, d, w = 1003, 16, 8
+    x = rng.integers(0, 256, (n, d)).astype(np.float32)
+    q = rng.integers(0, 256, (4, d)).astype(np.float32)
+    s = kernels.dist_blockmin_pad_rows(n, w)
+    payload = np.zeros((s, d), np.float32)
+    payload[:n] = x
+    blk = rng.integers(0, s // w, (4, 6))
+    cd, cand = kernels.block_rescore(torch.from_numpy(q), torch.from_numpy(payload),
+                                     torch.from_numpy(blk), n, w, "l2")
+    for r in range(4):
+        for c, i in enumerate(cand[r].tolist()):
+            if i < 0:
+                assert cd[r, c] == float("inf")
+            else:
+                assert float(cd[r, c]) == float(((x[i] - q[r]) ** 2).sum())
+
+
+def test_block_rescore_launch_count_untouched_on_cpu(rng):
+    """CPU tensors take the plain version: no launch is counted. The counted
+    work reads each distinct selected block once (a repeated id and an
+    id of another query's block count once)."""
+    q, x, blk = _rescore_case(rng, 3, 100, 8, 8, 4, "l2")
+    blk[1] = blk[0]  # every block of query 1 is one of query 0's
+    before = dict(kernels.LAUNCHES)
+    args = (torch.from_numpy(q), torch.from_numpy(x), torch.from_numpy(blk), 100, 8)
+    with kernels.count_work() as work:
+        kernels.block_rescore(*args, "l2")
+        kernels.block_rescore(*args, "ip")
+    assert kernels.LAUNCHES == before
+    distinct = len(np.unique(blk))
+    l2 = kernels.block_rescore_work(3, 4, 8, 8, distinct, "l2")
+    ip = kernels.block_rescore_work(3, 4, 8, 8, distinct, "ip")
+    assert work == {"flops": l2[0] + ip[0], "bytes": l2[1] + ip[1], "calls": 2}
+    assert l2 == (3.0 * 3 * 4 * 8 * 8,
+                  4.0 * distinct * 8 * 8 + 4.0 * 3 * 8 + 8.0 * 3 * 4 + 12.0 * 3 * 4 * 8)
+    assert ip[0] == 2.0 * 3 * 4 * 8 * 8 and ip[1] == l2[1]
+
+
+@pytest.mark.parametrize(
+    "kind,exc",
+    [
+        ("f64", TypeError),
+        ("bf16", TypeError),
+        ("blk_int32", TypeError),
+        ("rank", ValueError),
+        ("noncontig", ValueError),
+        ("noncontig_queries", ValueError),
+        ("noncontig_blk", ValueError),
+        ("ragged_s", ValueError),
+        ("metric", ValueError),
+        ("w", ValueError),
+        ("w_4", ValueError),
+        ("dim", ValueError),
+        ("rows", ValueError),
+        ("n", ValueError),
+        ("blk_negative", IndexError),
+        ("blk_past_the_blocks", IndexError),
+    ],
+)
+def test_block_rescore_wrapper_rejects(kind, exc):
+    q, x, blk = torch.zeros((4, 16)), torch.zeros((64, 16)), torch.zeros((4, 3), dtype=torch.int64)
+    n, w, metric = 60, 8, "l2"
+    if kind == "f64":
+        q = q.double()
+    elif kind == "bf16":
+        x = x.to(torch.bfloat16)
+    elif kind == "blk_int32":
+        blk = blk.int()
+    elif kind == "rank":
+        blk = torch.zeros(12, dtype=torch.int64)
+    elif kind == "noncontig":
+        x = torch.zeros((16, 64)).T
+    elif kind == "noncontig_queries":
+        q = torch.zeros((16, 4)).T
+    elif kind == "noncontig_blk":
+        blk = torch.zeros((3, 4), dtype=torch.int64).T
+    elif kind == "ragged_s":
+        x = torch.zeros((60, 16))
+    elif kind == "metric":  # cosine is ip on normalised rows: the caller maps it
+        metric = "cosine"
+    elif kind == "w":
+        w = 12
+    elif kind == "w_4":  # the kernel's row groups start at 8
+        w = 4
+    elif kind == "dim":
+        q = torch.zeros((4, 12))
+    elif kind == "rows":
+        blk = torch.zeros((5, 3), dtype=torch.int64)
+    elif kind == "n":
+        n = 65
+    elif kind == "blk_negative":  # the plain gather would wrap it
+        blk[1, 2] = -1
+    elif kind == "blk_past_the_blocks":
+        blk[3, 0] = 64 // 8
+    with pytest.raises(exc):
+        kernels.block_rescore(q, x, blk, n, w, metric)
+
+
+def test_block_rescore_binding_and_source():
+    """K6's entry point is bound in its own library alone, with its
+    argument types; its source states what it replaces and keeps the
+    module's precision rule (an elementwise f32 sum, no tensor cores)."""
+    import ctypes
+    import os
+
+    class Lib:  # records what _bind sets on each entry point
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, fn):
+            return self.fns.setdefault(fn, type("Fn", (), {})())
+
+    bound = {}
+    for name in kernels.KERNEL_SOURCES:
+        lib = Lib()
+        kernels._bind(name, lib)
+        bound[name] = lib.fns
+    assert [n for n, fns in bound.items() if "vrt_block_rescore_f32" in fns] == ["block_rescore"]
+    fn = bound["block_rescore"]["vrt_block_rescore_f32"]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    assert fn.argtypes == [vp] * 5 + [ci] * 7 + [vp] and fn.restype == ci
+    assert "block_rescore" in kernels.KERNELS and kernels.LAUNCHES["block_rescore"] >= 0
+    with open(os.path.join(kernels.CSRC_DIR, "block_rescore.cu")) as f:
+        src = f.read()
+    assert "Replaces no Pallas kernel" in src and "vectordb_retrieval_tpu/ops/distances.py" in src
+    for word in ("wgmma", "mma.sync", "tf32", "__shfl_xor_sync", "fmaf"):
+        assert (word in src) == (word in ("__shfl_xor_sync", "fmaf")), word

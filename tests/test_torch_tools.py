@@ -180,19 +180,23 @@ def test_wrapper_internals_are_not_counted_twice():
 
 
 def test_exact_search_blockmin_path_counts_k1_by_its_formula():
-    """At 40,000 rows exact search takes the blockmin path: K1 f32's share of
-    the count is its formula, and the aten ops around it add the rest."""
+    """At 40,000 rows exact search takes the blockmin path: K1 f32's and
+    K6's shares of the count are their formulas (K6's bytes: the distinct
+    blocks stage 2 selected), and the aten ops around them add the rest."""
     rng = np.random.default_rng(5)
     n, d, b, k = 40_000, 8, 16, 10
     x = torch.as_tensor(rng.standard_normal((n, d), dtype=np.float32))
     q = torch.as_tensor(rng.standard_normal((b, d), dtype=np.float32))
     sqn = tdist.sq_norms(x)
     w = tdist.blockmin_width(n)
+    _, blk = tdist._blockmin_blocks(q, x, sqn, k, "l2", tdist.DEFAULT_CHUNK_ROWS, w)
     with kernels.count_work() as work:
         cost = profiling.cost_estimate(tdist.exact_search, q, x, k, "l2", sqn, device="cpu")
     flops, nbytes = kernels.dist_blockmin_work(b, n, d, w, torch.float32)
-    assert work == {"flops": flops, "bytes": nbytes, "calls": 1}
-    assert cost["flops"] >= flops and cost["bytes_accessed"] > nbytes
+    k6_flops, k6_bytes = kernels.block_rescore_work(b, blk.shape[1], w, d,
+                                                    int(torch.unique(blk).numel()), "l2")
+    assert work == {"flops": flops + k6_flops, "bytes": nbytes + k6_bytes, "calls": 2}
+    assert cost["flops"] >= flops + k6_flops and cost["bytes_accessed"] > nbytes + k6_bytes
 
 
 # ---- the runner's roofline keys -----------------------------------------------

@@ -377,6 +377,20 @@ def test_ivf_tail_packed_ids_round_above_a_bf16_limb():
     assert back.tolist()[0] == 65_535.0 and back.tolist()[1:] != ids.tolist()[1:]
 
 
+@pytest.mark.parametrize("gap,agree", [(0.0, 1.0), (2.0 ** -23, 1.0), (2.0 ** -18, 0.5)])
+def test_agree_where_distinct_skips_float32_ties(gap, agree):
+    """Two rows whose reference distances lie within F32_TIE_REL may rank
+    either way (two summation orders): a swap of them is no disagreement;
+    a swap of rows farther apart is."""
+    from vectordb_retrieval_tpu_torch.scripts.probes import F32_TIE_REL, agree_where_distinct
+
+    assert 2.0 ** -23 < F32_TIE_REL < 2.0 ** -18
+    ref_d = np.array([[1.0, 2.0, 2.0 * (1.0 + gap), 3.0]], np.float64)
+    ref_i = np.array([[10, 11, 12, 13]])
+    swapped = np.array([[10, 12, 11, 13]])
+    assert agree_where_distinct(swapped, ref_i, ref_d) == agree
+
+
 def test_block_rescore_matches_jax(jax_runs, monkeypatch, capsys):
     port, check = _port("exp_block_rescore", monkeypatch, capsys)
     jax_out, arrays = jax_runs("exp_block_rescore")

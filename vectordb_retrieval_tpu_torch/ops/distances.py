@@ -20,6 +20,9 @@ Precision: f32 matrix products run in full FP32 (TF32 off, see
 (``ops/kernels.split_tf32``), never plain TF32. Exact rescoring is an elementwise f32 difference sum,
 never a product: the expansion ``||q||^2+||x||^2-2qx`` loses ~1e-3 relative
 precision to cancellation, enough to flip near-ties at the top-k boundary.
+The blockmin path's stage 3 is the kernel
+:func:`~vectordb_retrieval_tpu_torch.ops.kernels.block_rescore`, which keeps
+this rule.
 """
 
 from __future__ import annotations
@@ -245,6 +248,41 @@ def _select_blocks(bmins: torch.Tensor, nb: int) -> torch.Tensor:
     return torch.gather(mem, 1, order[:, :nb])
 
 
+def _blockmin_blocks(
+    queries: torch.Tensor,
+    database: torch.Tensor,
+    db_sqnorms: Optional[torch.Tensor],
+    k: int,
+    metric: str,
+    chunk_rows: int,
+    w: int = _BLOCKMIN_WIDTH,
+    slack: int = _BLOCKMIN_SLACK,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stages 1 and 2 of :func:`_exact_search_blockmin`: ``(payload, blk)``,
+    the database padded to whole ``w``-row blocks (``[S, d]``) and the top
+    ``k+slack`` block ids of each query (``[B, nb]`` int64)."""
+    n = database.shape[0]
+    dev = database.device
+    s = kernels.dist_blockmin_pad_rows(n, w)
+    payload = F.pad(database, (0, 0, 0, s - n)) if s != n else database
+    if metric == "l2":
+        xn = db_sqnorms if db_sqnorms is not None else sq_norms(database)
+        pen = xn.float()
+    else:
+        # the kernel scores pen - 2*dot: rank-equal to the -dot convention
+        # (positive scale); exact values come from the rescore
+        pen = torch.zeros((n,), dtype=torch.float32, device=dev)
+    if s != n:
+        # +inf pens keep padded rows out of every block minimum
+        pen = F.pad(pen, (0, s - n), value=float("inf"))
+    bmins = kernels.dist_blockmin(
+        queries.contiguous(), payload.contiguous(),
+        pen.reshape(-1, w).contiguous(), w=w, chunk_rows=chunk_rows,
+    )  # [B, S/w]
+    nb = min(k + slack, bmins.shape[1])
+    return payload, _select_blocks(bmins, nb)
+
+
 def _exact_search_blockmin(
     queries: torch.Tensor,
     database: torch.Tensor,
@@ -263,44 +301,17 @@ def _exact_search_blockmin(
     (2) the top ``k+slack`` blocks per query provably contain every true
     top-k element (any block holding one has blockmin <= d_k, and at most
     k-1 blocks rank strictly below it — ``slack`` absorbs exact ties).
-    (3) those blocks are gathered whole and rescored exactly.
+    (3) ``kernels.block_rescore`` rescores those blocks whole, exactly
+    (elementwise f32), reading each once.
     """
-    n, dim = database.shape
-    b = queries.shape[0]
-    dev = database.device
-    s = kernels.dist_blockmin_pad_rows(n, w)
-    payload = F.pad(database, (0, 0, 0, s - n)) if s != n else database
-    if metric == "l2":
-        xn = db_sqnorms if db_sqnorms is not None else sq_norms(database)
-        pen = xn.float()
-    else:
-        # the kernel scores pen - 2*dot: rank-equal to the -dot convention
-        # (positive scale); exact values come from the rescore below
-        pen = torch.zeros((n,), dtype=torch.float32, device=dev)
-    if s != n:
-        # +inf pens keep padded rows out of every block minimum
-        pen = F.pad(pen, (0, s - n), value=float("inf"))
-    bmins = kernels.dist_blockmin(
-        queries.contiguous(), payload.contiguous(),
-        pen.reshape(-1, w).contiguous(), w=w, chunk_rows=chunk_rows,
-    )  # [B, S/w]
-    nb = min(k + slack, bmins.shape[1])
-    blk = _select_blocks(bmins, nb)
+    payload, blk = _blockmin_blocks(queries, database, db_sqnorms, k, metric,
+                                    chunk_rows, w, slack)
     with span("vrt.rescore"):
-        # whole w-row blocks: [B, nb, w, d], a fresh copy, updated in place
-        bvecs = payload.reshape(-1, w, dim)[blk]
-        if metric == "l2":
-            diff = bvecs.sub_(queries[:, None, None, :])
-            cd = torch.sum(diff.mul_(diff), dim=-1)
-        else:  # ip/cosine: negated dot, elementwise sum
-            cd = -torch.sum(bvecs.mul_(queries[:, None, None, :]), dim=-1)
-        cand = (
-            blk[:, :, None] * w + torch.arange(w, device=dev)
-        ).reshape(b, nb * w)
-        cand = torch.where(cand < n, cand, torch.full_like(cand, -1))
-        cd = torch.where(
-            cand.reshape(b, nb, w) >= 0, cd, torch.full_like(cd, float("inf"))
-        ).reshape(b, nb * w)
+        # ip/cosine: the negated dot (cosine's rows are normalised)
+        cd, cand = kernels.block_rescore(
+            queries.contiguous(), payload.contiguous(), blk, database.shape[0], w,
+            "l2" if metric == "l2" else "ip",
+        )  # [B, nb*w] each; padding rows +inf / -1
         vals, sel = top_k_smallest(cd, k)
         ids = torch.gather(cand, 1, sel)
         ids = torch.where(torch.isfinite(vals), ids, torch.full_like(ids, -1))

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels of the port, their plain versions and wrappers.
 
 Kernels (each replaces one TPU kernel of
-``vectordb_retrieval_tpu/ops/pallas_kernels.py``, but the last, whose TPU
-kernel lives in a tuning probe):
+``vectordb_retrieval_tpu/ops/pallas_kernels.py``, but K5, whose TPU kernel
+lives in a tuning probe, and K6, which replaces plain ``jnp`` ops):
   * :func:`dist_blockmin` — fused distance + per-block minimum over f32,
     bf16 or u8 payloads (exact-search stage 1; the IVF-Flat and IVF-SQ8
     fused probed stream; the cover tree's block walk). Replaces
@@ -34,6 +34,15 @@ kernel lives in a tuning probe):
     an ``mbarrier`` ring fed by a producer warp, the payload as ``wgmma``'s
     A operand from registers, the queries split once a call), so its time
     is the card's floor for K1 f32's main loop.
+  * :func:`block_rescore` — the exact rescore of the blocks exact search's
+    stage 2 selected: each selected ``w``-row block's elementwise f32
+    distances to its query, with the global row ids, padding rows masked.
+    Replaces no Pallas kernel: the JAX package does this step as plain
+    ``jnp`` ops (``vectordb_retrieval_tpu/ops/distances.py``, stage 3 of
+    ``_exact_search_blockmin``). CUDA C++ source: ``csrc/block_rescore.cu``
+    (one warp a (query, block) pair, 16-byte loads, a butterfly over the
+    rows' partial sums; on the CUDA cores: the step is bound by the bytes
+    of the selected blocks).
 
 Each wrapper routes by the device of its tensors: a CUDA tensor goes to the
 kernel (or the wrapper raises), a CPU tensor goes to the plain PyTorch
@@ -41,7 +50,8 @@ version beside it. Nothing falls back from one to the other.
 
 Kernels are compiled from ``csrc/`` (K1, K3 and K4 run the main loop of
 the tensor-core kernel ``blockmin_tc.cuh``, K2 its loaders, all on the
-helpers of ``wgmma.cuh``; K5 runs on those of ``tma.cuh``) with ``nvcc``
+helpers of ``wgmma.cuh``; K5 runs on those of ``tma.cuh``; K6 stands
+alone) with ``nvcc``
 for ``sm_90a`` at first use, into ``_build/<hash of source, every header
 and flags>/``, and loaded with ``ctypes`` through a plain C interface.
 Every launch adds one to ``LAUNCHES[name]`` (one name per kernel mode);
@@ -77,7 +87,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNEL_SOURCES = ("dist_blockmin_tc", "assign", "slab_dots", "blockmin", "matmul_floor")
+KERNEL_SOURCES = ("dist_blockmin_tc", "assign", "slab_dots", "blockmin", "matmul_floor",
+                  "block_rescore")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -101,7 +112,7 @@ _SLAB_MODES = {
     torch.bfloat16: "vrt_slab_dots_bf16",
 }
 KERNELS = tuple(name for name, _, _ in _DBM_MODES.values()) + (
-    "assign", "slab_dots", "blockmin", "matmul_floor")
+    "assign", "slab_dots", "blockmin", "matmul_floor", "block_rescore")
 
 # launches per kernel mode, counted by the wrappers where they launch
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -209,6 +220,18 @@ def matmul_floor_work(b: int, s: int, d: int, w: int) -> Tuple[float, float]:
     return 2.0 * b * g * d, 4.0 * (b * d + g * d + g * b)
 
 
+def block_rescore_work(b: int, nb: int, w: int, d: int, distinct_blocks: int,
+                       metric: str) -> Tuple[float, float]:
+    """``(operations, bytes)`` of one :func:`block_rescore` call: for each
+    of the ``B nb w d`` elements, a difference, a product and an add (l2)
+    or a product and an add (ip); the distinct selected blocks read once
+    each, the queries and the int64 ids read, the ``[B, nb w]`` f32 scores and int64 row ids written."""
+    per_element = 3.0 if metric == "l2" else 2.0
+    nbytes = (4.0 * distinct_blocks * w * d + 4.0 * b * d + 8.0 * b * nb
+              + 12.0 * b * nb * w)
+    return per_element * b * nb * w * d, nbytes
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -252,6 +275,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         sigs["vrt_matmul_floor_f32"] = [vp] * 4 + [ci] * 4 + [vp]
         lib.vrt_matmul_floor_scratch_floats.argtypes = [ci, ci]
         lib.vrt_matmul_floor_scratch_floats.restype = ctypes.c_longlong
+    elif name == "block_rescore":
+        sigs["vrt_block_rescore_f32"] = [vp] * 5 + [ci] * 7 + [vp]
     for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ci
@@ -990,3 +1015,129 @@ def _launch_matmul_floor(queries: torch.Tensor, payload: torch.Tensor, w: int) -
     _check_launch("matmul_floor", "matmul_floor", rc)
     LAUNCHES["matmul_floor"] += 1
     return out
+
+
+# ---- K6: exact rescore of the selected blocks ------------------------------
+
+BLOCK_RESCORE_METRICS = ("l2", "ip")
+
+
+def block_rescore_reference(
+    queries: torch.Tensor,
+    payload: torch.Tensor,
+    blk: torch.Tensor,
+    n: int,
+    w: int,
+    metric: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`block_rescore` (same contract): the
+    selected blocks gathered whole into a fresh ``[B, nb, w, d]`` copy,
+    updated in place (difference and square, or product), summed over
+    ``d``; then the row ids and the padding rows' ``+inf`` / ``-1``."""
+    b, nb = blk.shape
+    dim = payload.shape[1]
+    # whole w-row blocks: [B, nb, w, d], a fresh copy, updated in place
+    bvecs = payload.reshape(-1, w, dim)[blk]
+    if metric == "l2":
+        diff = bvecs.sub_(queries[:, None, None, :])
+        cd = torch.sum(diff.mul_(diff), dim=-1)
+    else:  # ip/cosine: negated dot, elementwise sum
+        cd = -torch.sum(bvecs.mul_(queries[:, None, None, :]), dim=-1)
+    cand = (
+        blk[:, :, None] * w + torch.arange(w, device=payload.device)
+    ).reshape(b, nb * w)
+    cand = torch.where(cand < n, cand, torch.full_like(cand, -1))
+    cd = torch.where(
+        cand.reshape(b, nb, w) >= 0, cd, torch.full_like(cd, float("inf"))
+    ).reshape(b, nb * w)
+    return cd, cand
+
+
+def _check_block_rescore(queries: torch.Tensor, payload: torch.Tensor, blk: torch.Tensor,
+                         n: int, w: int, metric: str) -> None:
+    fn = "block_rescore"
+    for t, what in ((queries, "queries"), (payload, "payload")):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {what} must be float32, got {t.dtype}")
+    if blk.dtype != torch.int64:
+        raise TypeError(f"{fn}: blk must be int64, got {blk.dtype}")
+    for t, what in ((queries, "queries"), (payload, "payload"), (blk, "blk")):
+        _check_2d(fn, what, t, payload)
+    if metric not in BLOCK_RESCORE_METRICS:
+        raise ValueError(f"{fn}: metric {metric!r} must be one of {BLOCK_RESCORE_METRICS}")
+    if w < 8 or w > 128 or w & (w - 1):
+        raise ValueError(f"{fn}: w={w} must be a power of two in [8, 128]")
+    s, d = payload.shape
+    if queries.shape[1] != d:
+        raise ValueError(f"{fn}: queries have d={queries.shape[1]}, payload d={d}")
+    if blk.shape[0] != queries.shape[0]:
+        raise ValueError(f"{fn}: blk has {blk.shape[0]} rows, queries {queries.shape[0]}")
+    if s % w:
+        raise ValueError(f"{fn}: S={s} must be a multiple of w={w} (dist_blockmin_pad_rows)")
+    if not 0 <= n <= s:
+        raise ValueError(f"{fn}: n={n} real rows must lie in [0, S={s}]")
+    _check_device(fn, payload)
+
+
+def block_rescore(
+    queries: torch.Tensor,  # [B, d] f32
+    payload: torch.Tensor,  # [S, d] f32, S % w == 0, rows >= n padding
+    blk: torch.Tensor,  # [B, nb] int64 block ids in [0, S/w)
+    n: int,
+    w: int,
+    metric: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact scores of every row of each query's selected blocks:
+    ``(cd [B, nb w] f32, cand [B, nb w] int64)``, where for block
+    ``g = blk[b, i]`` and row ``j < w``, ``cand[b, i w + j] = g w + j`` and
+    ``cd[b, i w + j]`` is ``sum((payload[g w + j] - queries[b])^2)`` (l2)
+    or ``-sum(payload[g w + j] * queries[b])`` (ip; cosine on normalised
+    rows), elementwise in f32, never a matrix product; rows ``>= n`` give
+    ``+inf`` and ``-1``. ``w`` is a power of two in ``[8, 128]``.
+
+    CUDA tensors launch the kernel of ``csrc/block_rescore.cu`` on the
+    current stream (each selected block read once, only the outputs
+    written) and count under ``LAUNCHES['block_rescore']``. CPU tensors
+    take :func:`block_rescore_reference`. Every id of ``blk`` lies in
+    ``[0, S/w)`` (stage 2 of exact search gives no other): on the CPU
+    another raises ``IndexError``; on the card it traps the launch, which
+    fails at the next synchronisation (checking it on the host would wait
+    for the device).
+    """
+    _check_block_rescore(queries, payload, blk, n, w, metric)
+    b, nb = blk.shape
+    s, d = payload.shape
+
+    def work():  # reads the blocks this call's ids select: waits for the device
+        distinct = int(torch.unique(blk).numel())
+        return block_rescore_work(b, nb, w, d, distinct, metric)
+
+    with _counted(work):
+        if payload.device.type == "cpu":
+            if blk.numel() and (int(blk.min()) < 0 or int(blk.max()) >= s // w):
+                raise IndexError(f"block_rescore: block ids must lie in [0, {s // w})")
+            return block_rescore_reference(queries, payload, blk, n, w, metric)
+        return _launch_block_rescore(queries, payload, blk, n, w, metric)
+
+
+def _launch_block_rescore(queries: torch.Tensor, payload: torch.Tensor, blk: torch.Tensor,
+                          n: int, w: int, metric: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, nb = blk.shape
+    s, d = payload.shape
+    dev = payload.device
+    cd = torch.empty((b, nb * w), dtype=torch.float32, device=dev)
+    cand = torch.empty((b, nb * w), dtype=torch.int64, device=dev)
+    if cd.numel() == 0:
+        return cd, cand
+    if b >= 2**31 or nb >= 2**31 or s >= 2**31 or d >= 2**31:
+        raise ValueError(f"block_rescore: B={b}, nb={nb}, S={s}, d={d} exceed int32")
+    lib = _lib("block_rescore")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vrt_block_rescore_f32(
+            queries.data_ptr(), payload.data_ptr(), blk.data_ptr(), cd.data_ptr(),
+            cand.data_ptr(), b, nb, s, d, w, n, int(metric == "l2"), stream,
+        )
+    _check_launch("block_rescore", "block_rescore", rc)
+    LAUNCHES["block_rescore"] += 1
+    return cd, cand

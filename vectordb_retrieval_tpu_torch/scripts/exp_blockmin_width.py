@@ -13,8 +13,8 @@ The counterpart of the JAX package's ``scripts/exp_blockmin_width.py``:
 the same options (``--device`` for ``--platform``), inputs (NumPy seed 0)
 and printed lines, then one ``check`` line (``scripts/probes.print_check``):
 for each shape and width the largest distance error relative to the
-default width's, and the share of certain ranks (distinct distances) whose
-ids equal the default width's. Stage 1 of every width is kernel K1 in its
+default width's, and the share of certain ranks (distances apart by more
+than a float32 tie) whose ids equal the default width's. Stage 1 of every width is kernel K1 in its
 f32 mode (``ops/kernels.dist_blockmin``). Timing: the JAX script times a
 ``lax.scan`` of ``--iters`` passes inside one ``jit``, each pass's queries
 shifted by a zero carry; here one untimed pass, then ``--iters`` passes on

@@ -12,8 +12,8 @@ the same module constants (``N``, ``D``, ``K``, ``TOTAL``; its ``UNROLL``,
 a scan unroll, has no counterpart), inputs (NumPy seed 7, drawn anew for
 each run, so both batch sizes search the same queries) and JSON lines,
 then one ``check`` line (``scripts/probes.print_check``): the share of
-certain ranks (distinct distances) at which each run's ids equal a dense
-exact reference's (``scripts/probes.dense_reference``, the plain route, no
+certain ranks (distances apart by more than a float32 tie) at which each
+run's ids equal a dense exact reference's (``scripts/probes.dense_reference``, the plain route, no
 kernel). Timing: the JAX script scans the batches inside one ``jit`` and
 keeps the best of two timed streams, copying a checksum to the host inside
 the clock and the ids after it; here each of the two timed streams follows

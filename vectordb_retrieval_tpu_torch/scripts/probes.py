@@ -27,6 +27,12 @@ Search = Callable[[torch.Tensor], Union[torch.Tensor, Sequence[torch.Tensor]]]
 # FAISS CPU hnsw row on random-20k, 23,886 QPS at recall@20 0.9156
 BEAM_PASS_QPS, BEAM_PASS_RECALL = 23886, 0.9156
 
+# Two exact f32 distances summed in different orders (exact search's block
+# rescore, K6, and the plain route's gathered sum) differ by a few ulps, so
+# rows whose distances lie that close may rank either way: 8 ulps (2^-21)
+# of the distance
+F32_TIE_REL = 2.0 ** -21
+
 
 def pad_rows(n: int, w: int) -> int:
     """The JAX package's padding of a K1 payload: a multiple of ``8 w`` rows
@@ -131,12 +137,14 @@ def dense_reference(q: torch.Tensor, x: torch.Tensor, k: int,
 def agree_where_distinct(ids: np.ndarray, ref_ids: np.ndarray,
                          ref_d: np.ndarray) -> float:
     """Share of the positions whose reference distance differs from both
-    neighbours in its row (its rank is certain) where ``ids`` holds the
-    reference's id; 1.0 where no position is certain."""
+    neighbours in its row by more than ``F32_TIE_REL`` of its value (its
+    rank is certain) where ``ids`` holds the reference's id; 1.0 where no
+    position is certain."""
     ref_d = np.asarray(ref_d)
     prev = np.concatenate([np.full((ref_d.shape[0], 1), -np.inf), ref_d[:, :-1]], axis=1)
     nxt = np.concatenate([ref_d[:, 1:], np.full((ref_d.shape[0], 1), np.inf)], axis=1)
-    certain = (ref_d != prev) & (ref_d != nxt)
+    tie = F32_TIE_REL * np.abs(ref_d)
+    certain = (np.abs(ref_d - prev) > tie) & (np.abs(nxt - ref_d) > tie)
     if not certain.any():
         return 1.0
     return float(np.mean(np.asarray(ids)[certain] == np.asarray(ref_ids)[certain]))
