@@ -638,10 +638,12 @@ K3_DSUB = (2, 4, 6)
 # clamps stale pops to); two f32 shapes, the second exp_block_geometry's
 # default wave (512 x 8 popped slabs of 256 x 384: 384 KiB a slab); ragged
 # cases (W = 5, L = 100, d = 50; W = 1, L = 12, d = 40) with ids 0 and
-# Nb - 1 and repeated ids. Every
-# graph row's own launches are checked in phase 5b (check_launched).
+# Nb - 1 and repeated ids; the benchmark cell glove50.hnsw's wave (256 x 96
+# slabs of 256 x 50 over 4,624: a 100-byte bf16 row, K2's masked loads).
+# Every graph row's own launches are checked in phase 5b (check_launched).
 K2_SHAPES = (
     (512, 96, 128, 384, 782, "bf16", 0.0),
+    (256, 96, 256, 50, 4624, "bf16", 0.0),
     (256, 62, 256, 128, 3907, "bf16", 0.0),
     (512, 96, 128, 384, 782, "bf16", 0.5),
     (256, 40, 128, 384, 782, "f32", 0.0),
@@ -1572,6 +1574,10 @@ IVF_CONFIGS = (
         },
     },
 )
+# the benchmark cell glove50.hnsw's deployment, timed in phase 6: the port's
+# glove50_surrogate loader at glove-50-angular's 1,183,514 rows (256
+# queries), cosine, GraphIndexer block mode at efSearch 200 (two waves)
+GLOVE50 = {"rows": 1_183_514, "queries": 256, "k": 10, "efSearch": 200}
 SURROGATE_CONFIG = {
     "name": "msmarco_surrogate",
     "source": ("configs/msmarco_surrogate.yaml hnsw (graph_cosine, ann_cosine), "
@@ -3265,6 +3271,71 @@ def _k6_cell_data(cell: dict) -> tuple:
         "train_limit": cell["n"], "test_size": cell["batch"], "ground_truth_k": cell["k"],
         "metric": cell["metric"], "use_cache": False}, device=DEV).load()
     return ds.train_vectors, ds.test_vectors
+
+
+def phase_glove50_graph(card: str) -> dict:
+    """K2 at the benchmark cell glove50.hnsw's shape, on the port's own
+    data and index: the glove50_surrogate loader at GLOVE50's rows, the
+    block graph built as the cell builds it, then phase_graph_throughput
+    (QPS; each stage timed on the inputs the search gives it; K2 on every
+    wave's own inputs beside its plain version, checked against it). Each
+    wave's line adds the share of its pairs' slabs that are distinct and
+    the bound from ``kernels.slab_dots_work`` (three bf16 products a pair;
+    the distinct slabs, queries and ids read once, the dots written);
+    recall@10 against the loader's ground truth."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.bench.metrics import recall_at_k
+    from vectordb_retrieval_tpu_torch.data import datasets
+    from vectordb_retrieval_tpu_torch.models import get_algorithm_instance
+    from vectordb_retrieval_tpu_torch.models import graph as gm
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    ds = datasets.Dataset("glove50_surrogate", data_dir=OUT_DIR, options={
+        "train_limit": GLOVE50["rows"], "test_size": GLOVE50["queries"],
+        "ground_truth_k": GLOVE50["k"], "metric": "cosine", "use_cache": False},
+        device=DEV).load()
+    ef = GLOVE50["efSearch"]
+    algo = get_algorithm_instance(
+        "composite", dimension=50, device=DEV, metric="cosine",
+        indexer={"type": "GraphIndexer", "metric": "cosine", "M": 16, "efConstruction": 200,
+                 "efSearch": ef, "mode": "block"},
+        searcher={"type": "ANNSearcher", "metric": "cosine", "efSearch": ef})
+    t0 = time.perf_counter()
+    algo.build_index(ds.train_vectors)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    _, ids = algo.batch_search(ds.test_vectors, GLOVE50["k"])
+    recall = float(recall_at_k(np.asarray(ds.ground_truth)[:, :GLOVE50["k"]], ids, GLOVE50["k"]))
+    info = {"algo": algo, "batch": GLOVE50["queries"], "k": GLOVE50["k"],
+            "queries": ds.test_vectors}
+    out = phase_graph_throughput(card, "glove50_surrogate", "hnsw_block", info)
+    meta = algo.artifact.metadata
+    for wave in out["waves"]:
+        b, w, length, d = wave["shape"]
+        flops, nbytes = kernels.slab_dots_work(b, w, length, d, 2, 8, wave["distinct_blocks"])
+        bound_ms = max(3.0 * flops / BF16_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        line = {"phase": "k2_glove50", "card": card, "wave": wave["wave"],
+                "shape": wave["shape"], "n_blocks": meta["n_blocks"],
+                "slab_dots_ms": wave["slab_dots_ms"], "plain_ms": wave["plain_ms"],
+                "library_ms": wave["library_ms"], "distinct_blocks": wave["distinct_blocks"],
+                "distinct_share": wave["distinct_blocks"] / (b * w),
+                "work_bound_ms": bound_ms, "bound_share": bound_ms / wave["slab_dots_ms"],
+                "launch_split_ms": wave["launch_split_ms"]}
+        emit(line)
+        wave.update(line)
+    out.update({"build_s": build_s, "recall_at_10": recall,
+                "selfcheck_recall": meta.get("selfcheck_recall"),
+                "n_blocks": meta["n_blocks"], "n_entries": meta["n_entries"]})
+    emit({"phase": "glove50_graph", "card": card, "build_s": build_s, "recall_at_10": recall,
+          "selfcheck_recall": meta.get("selfcheck_recall"), "qps": out["qps"],
+          "ms_per_batch": out["ms_per_batch"], "n_blocks": meta["n_blocks"],
+          "n_entries": meta["n_entries"]})
+    if recall < gm._SELFCHECK_MIN:  # the recall a block build must reach in auto mode
+        raise AssertionError(f"glove50 block graph: recall@10 {recall}")
+    del algo, ds
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_block_rescore_throughput(card: str) -> list:
@@ -5708,6 +5779,7 @@ def _main(launcher) -> int:
         if info["algo"].artifact.kind == "graph"
     }
     k2 = graph[(SURROGATE_CONFIG["name"], "hnsw")]["waves"][0]
+    glove = phase_glove50_graph(card)
     ct_k1 = phase_covertree_throughput(card, ct_paths[0]["name"], ct_row)
     k3 = phase_assign_throughput(card)
     dsub_launches = {dsub: sum(_dsub_launches(path["counts"], row, dsub)
@@ -5793,7 +5865,12 @@ def _main(launcher) -> int:
         "library_ms": k2["library_ms"], "gather_ms": k2["gather_ms"],
         "per_pair_bytes_ms": k2["per_pair_bytes_ms"], "shape": k2["shape"],
         # the block-geometry probe's f32 wave (all its K2 launches beside it)
-        "other_shapes": [other(probes["k2_f32"], "slab_dots_ms")],
+        # and the benchmark cell glove50.hnsw's two waves
+        "other_shapes": [other(probes["k2_f32"], "slab_dots_ms")] + [
+            {"ms": wave["slab_dots_ms"], "shape": wave["shape"], "plain_ms": wave["plain_ms"],
+             "library_ms": wave["library_ms"], "bound_ms": wave["work_bound_ms"],
+             "distinct_share": wave["distinct_share"], "row": f"glove50_surrogate/wave{wave['wave']}"}
+            for wave in glove["waves"]],
     })
     entries.append({
         "name": "blockmin", "route": "cuda", "source": src + "blockmin.cu",

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from vectordb_retrieval_tpu_torch.ops import distances as dops
 from vectordb_retrieval_tpu_torch.ops import kernels
 from vectordb_retrieval_tpu_torch.utils.device import DeviceLike, resolve_device
+from vectordb_retrieval_tpu_torch.utils.profiling import span
 
 # 1024 keeps the kNN-graph build's per-batch candidate rescore within a
 # sane transient footprint
@@ -754,12 +755,14 @@ class BlockBeam:
         return nd, torch.gather(st.rk_i, 1, sel)
 
     def run(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        st = self.seed()
+        with span("vrt.seed"):
+            st = self.seed()
         for t in range(self.iters):
-            st, p = self.pop(st, t)
-            st = self.merge(st, p, self.score(p))
-            if t < self.iters - 1:  # pushed neighbours of the last wave are never popped
-                st = self.push(st, p)
+            with span("vrt.wave"):
+                st, p = self.pop(st, t)
+                st = self.merge(st, p, self.score(p))
+                if t < self.iters - 1:  # pushed neighbours of the last wave are never popped
+                    st = self.push(st, p)
         return self.result(st)
 
 

@@ -31,6 +31,11 @@ request opens them:
     (``LinearSearcher``, ``ANNSearcher``);
   * ``vrt.search``: ``device_kernel`` in the same two methods, every search
     op enqueued;
+  * ``vrt.seed``: the block beam's dense entry scan and its first
+    frontier (``ops/graph.BlockBeam.seed``), inside ``vrt.search``;
+  * ``vrt.wave``: one wave of the block beam (``pop``, ``score``: K2
+    ``kernels.slab_dots``, ``merge`` and, on every wave but the last,
+    ``push``), ``iters`` of them after ``vrt.seed``, inside ``vrt.search``;
   * ``vrt.probe``: the IVF coarse probe (``ops/ivf._probes``), inside
     ``vrt.search``;
   * ``vrt.rescore``: the exact rescore (K6, ``kernels.block_rescore``) and
@@ -53,7 +58,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 aten = torch.ops.aten
 
-SPANS = ("vrt.h2d", "vrt.search", "vrt.probe", "vrt.rescore", "vrt.d2h")
+SPANS = ("vrt.h2d", "vrt.search", "vrt.seed", "vrt.wave", "vrt.probe", "vrt.rescore", "vrt.d2h")
 
 _NO_SPAN = contextlib.nullcontext()
 
