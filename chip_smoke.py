@@ -15,7 +15,9 @@ on failure:
                    libassign.so K3, libslab_dots.so K2, libblockmin.so K4,
                    libmatmul_floor.so K5;
                    none in any of them fails the run; libblock_rescore.so,
-                   K6, runs on the CUDA cores and is not counted). Beside nvcc, ``make
+                   K6 and the IVF bf16 rescore, runs on the CUDA cores and
+                   is not counted; the registers and spills of each of its
+                   instantiations on a line of their own). Beside nvcc, ``make
                    -C native`` (the host IO library) and the port's
                    scripts.make_sift1m_surrogate at its defaults (1M x
                    128, 1,024 queries, seed 20) into _smoke_out/sift1m_synth;
@@ -52,7 +54,10 @@ on failure:
                    float64) and block_rescore (K6: the two exact cells'
                    shapes, integer rows equal to the plain version, float
                    rows within 1e-6 of its largest score, d 3-2048, w
-                   8-128, single-float loads)
+                   8-128, single-float loads) and ivf_block_rescore (the
+                   IVF bf16 rescore: sift1m.ivf_flat's shape and nine
+                   more, dead slots, unprobed pairs and shared blocks,
+                   the same tolerances, d 32-768, w 8-128, single loads)
   4. exact path  - the port's BenchmarkRunner (exact row: BruteForceIndexer +
                    LinearSearcher) on 100k x 384 random data, l2 and cosine;
                    ground truth, timed batched search, recall@20 == 1.0, the
@@ -228,7 +233,12 @@ on failure:
                    port's surrogates of their data and the blocks exact
                    search selects there: its time, the plain version's,
                    its bound (the distinct selected blocks once), the
-                   distinct share and the bound were every pair's block read
+                   distinct share and the bound were every pair's block read;
+                   the IVF bf16 rescore on the SIFT surrogate's IVF-Flat
+                   row (sift1m.ivf_flat's shape) and the blocks its stages
+                   select, checked there and one element off alignment,
+                   timed beside its plain version (the gathered chain it
+                   replaced) and both bounds
   7. entry points - the port's CLIs as subprocesses with no --device (the
                    card is their default): the flagship (its JSON line beside
                    phase 6's QPS for the same workload), then together
@@ -551,10 +561,41 @@ def phase_build(work: dict) -> dict:
     host = _finish_host_work(work)
     emit({"phase": "build", "kernels": list(kernels.KERNEL_SOURCES),
           "seconds": secs, "ptxas": ptxas, "hgmma": hgmma, "host_work": host})
+    emit({"phase": "block_rescore_registers",
+          **_rescore_registers(kernels.BUILD_LOG.get("block_rescore", ""))})
     for name, n in hgmma.items():
         if n < 1:
             raise AssertionError(f"lib{name}.so holds no HGMMA instruction")
     return host
+
+
+def _rescore_registers(log: str) -> dict:
+    """Registers and spill bytes of every instantiation in
+    ``libblock_rescore.so``'s ptxas output, by kernel: K6 f32
+    (``block_rescore_kernel``) and the IVF bf16 rescore
+    (``ivf_block_rescore_kernel``); their template arguments as the mangled
+    name gives them. Empty where the library was found already built."""
+    import re
+
+    out = {"k6": {}, "ivf_block_rescore": {}}
+    fn = None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None or "block_rescore_kernel" not in fn:
+            continue
+        kind = "ivf_block_rescore" if "ivf_block_rescore_kernel" in fn else "k6"
+        args = re.search(r"kernelI(.*?)EEv", fn)
+        entry = out[kind].setdefault(args.group(1) if args else fn, {})
+        regs = re.search(r"Used (\d+) registers", ln)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if regs:
+            entry["registers"] = int(regs.group(1))
+        if spill:
+            entry["spill_stores"], entry["spill_loads"] = map(int, spill.groups())
+    return out
 
 
 def phase_sift_surrogate(host: dict) -> None:
@@ -723,6 +764,26 @@ K6_CELLS = (
      "n": SIFT_ROWS, "d": 128, "batch": 256, "k": 100},
     {"cell": "msmarco100k.exact", "data": "msmarco_surrogate", "metric": "cosine",
      "n": 100_000, "d": 384, "batch": 512, "k": 20},
+)
+# ivf_block_rescore (IVF-Flat's stage 3 over bf16 lists), (B, S, d, w, nb,
+# metric, rows, offset): sift1m.ivf_flat's shape (B 256, nb 116, w 32, d 128
+# on the SIFT surrogate's 1,531,648 slots), w 16 and 8, d 64 and 32 (4 and
+# 8 rows a warp load), d 50 (single loads), d 384 and 768 (two and four
+# 16-byte chunks a lane past 32 chunks), w 128, integer rows under ip and
+# the payload a view one element into its buffer (single loads); a tenth of
+# the slots dead, a tenth of the pairs never probed, one block shared by
+# every query
+IVF_RESCORE_SHAPES = (
+    (256, 1_531_648, 128, 32, 116, "l2", "int", 0),
+    (64, 65_536, 128, 16, 60, "l2", "float", 0),
+    (64, 65_536, 128, 8, 80, "ip", "int", 0),
+    (33, 32_768, 64, 32, 20, "l2", "float", 0),
+    (17, 16_384, 32, 16, 9, "ip", "float", 0),
+    (37, 20_480, 50, 16, 9, "l2", "float", 0),
+    (20, 16_384, 384, 32, 7, "ip", "float", 0),
+    (9, 8_192, 768, 64, 3, "l2", "float", 0),
+    (16, 8_192, 96, 128, 4, "ip", "int", 0),
+    (40, 12_288, 128, 32, 10, "l2", "float", 1),
 )
 # sources whose kernels run on the CUDA cores by design (no HGMMA expected)
 CUDA_CORE_SOURCES = ("block_rescore",)
@@ -946,6 +1007,79 @@ def check_block_rescore_shape(b, n, d, w, nb, metric, rows, offset, seed) -> flo
     return err
 
 
+def check_ivf_block_rescore(q, x, slots, blk, vals, w, metric, where, exact=False,
+                            quiet=False) -> float:
+    """One ivf_block_rescore launch against its plain version on the same
+    inputs: the row ids equal, identical +inf positions, no NaN, the scores
+    equal where the rows are integers (``exact``) and within K6_REL_TOL x
+    max|plain| otherwise. Emits the check (``quiet``: only a failing one)
+    and returns the max abs error."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    cd, cand = kernels.ivf_block_rescore(q, x, slots, blk, vals, w, metric)
+    b, nb = blk.shape
+    # the plain version gathers [rows, nb, w, d] bf16 and f32 copies: at most
+    # 256 MB of the f32 one at a time
+    step = max(1, (1 << 26) // (nb * w * x.shape[1]))
+    want = [kernels.ivf_block_rescore_reference(q[i:i + step], x, slots, blk[i:i + step],
+                                                vals[i:i + step], w, metric)
+            for i in range(0, b, step)]
+    want_cd, want_cand = torch.cat([c for c, _ in want]), torch.cat([c for _, c in want])
+    torch.cuda.synchronize()
+    ids_ok = bool(torch.equal(cand, want_cand))
+    inf_ok, nan, err, scale = _blockmin_diff(cd, want_cd)
+    tol = 0.0 if exact else K6_REL_TOL * scale
+    ok = ids_ok and inf_ok and not nan and err <= tol
+    if not ok or not quiet:
+        emit({"phase": "kernel_check", "kernel": "ivf_block_rescore", "at": where,
+              "shape": [b, x.shape[0], x.shape[1], w, nb], "metric": metric,
+              "payload_aligned": x.data_ptr() % 16 == 0,
+              "unprobed_pairs": int((~torch.isfinite(vals)).sum()),
+              "dead_rows": int((want_cand < 0).sum()),
+              "max_abs_err": err, "max_abs_plain": scale,
+              "rel_err": err / scale if scale else 0.0, "tol": tol,
+              "ids_equal": ids_ok, "inf_equal": inf_ok, "nan": nan, "ok": ok})
+    if not ok:
+        raise AssertionError(f"ivf_block_rescore {where}: err {err}, ids equal {ids_ok}, "
+                             f"+inf equal {inf_ok}, NaN {nan}")
+    return err
+
+
+def check_ivf_block_rescore_shape(b, s, d, w, nb, metric, rows, offset, seed) -> float:
+    """The IVF bf16 rescore on seeded bf16 lists (``rows`` "int": integers
+    0-255, exact in bf16; else normals), the payload a view ``offset``
+    elements into its buffer, a tenth of the slots dead, random block ids
+    with one block in every query's selection, a tenth of the pairs never
+    probed."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def draw(*shape):
+        if rows == "int":
+            return torch.randint(0, 256, shape, generator=gen, device=DEV).float()
+        return torch.randn(shape, generator=gen, device=DEV)
+
+    q = draw(b, d)
+    x = torch.zeros((s * d + offset,), dtype=torch.bfloat16, device=DEV)[offset:].view(s, d)
+    x.copy_(draw(s, d))
+    slots = torch.randperm(s, generator=gen, device=DEV).to(torch.int32)
+    slots[torch.rand(s, generator=gen, device=DEV) < 0.1] = -1
+    blk = torch.randint(0, s // w, (b, nb), generator=gen, device=DEV)
+    blk[1:, 0] = blk[0, 0]
+    vals = torch.rand((b, nb), generator=gen, device=DEV)
+    vals[torch.rand((b, nb), generator=gen, device=DEV) < 0.1] = float("inf")
+    where = "synthetic" if offset == 0 else f"view+{offset}"
+    err = check_ivf_block_rescore(q, x, slots, blk, vals, w, metric, where, exact=rows == "int")
+    del q, x, slots, blk, vals
+    torch.cuda.empty_cache()
+    return err
+
+
 def check_assign(n, k, d, dup, seed) -> float:
     import torch
 
@@ -1083,6 +1217,7 @@ def capture_launch_inputs(store: dict, stage: list, pairs: list = None,
     orig_dbm, orig_assign = kernels.dist_blockmin, kernels.assign
     orig_slab, orig_pair = kernels.slab_dots, kernels.dist_blockmin_pair
     orig_floor, orig_rescore = kernels.matmul_floor, kernels.block_rescore
+    orig_ivf_rescore = kernels.ivf_block_rescore
     modes = _dtype_modes()
 
     def keep(key, args):
@@ -1129,15 +1264,24 @@ def capture_launch_inputs(store: dict, stage: list, pairs: list = None,
               tuple(blk.shape), w, metric), (queries, payload, blk, n, w, metric))
         return out
 
+    def ivf_block_rescore(queries, payload, slot_ids, blk, blk_vals, w, metric):
+        out = orig_ivf_rescore(queries, payload, slot_ids, blk, blk_vals, w, metric)
+        keep((stage[0], "ivf_block_rescore", tuple(queries.shape), tuple(payload.shape),
+              tuple(blk.shape), w, metric),
+             (queries, payload, slot_ids, blk, blk_vals, w, metric))
+        return out
+
     kernels.dist_blockmin, kernels.assign = dist_blockmin, assign
     kernels.slab_dots, kernels.dist_blockmin_pair = slab_dots, dist_blockmin_pair
     kernels.matmul_floor, kernels.block_rescore = matmul_floor, block_rescore
+    kernels.ivf_block_rescore = ivf_block_rescore
     try:
         yield store
     finally:
         kernels.dist_blockmin, kernels.assign = orig_dbm, orig_assign
         kernels.slab_dots, kernels.dist_blockmin_pair = orig_slab, orig_pair
         kernels.matmul_floor, kernels.block_rescore = orig_floor, orig_rescore
+        kernels.ivf_block_rescore = orig_ivf_rescore
 
 
 def check_launched(store: dict, prefix: str, worst: dict) -> None:
@@ -1157,6 +1301,8 @@ def check_launched(store: dict, prefix: str, worst: dict) -> None:
             err = check_matmul_floor(*args, where)
         elif key[1] == "block_rescore":
             err = check_block_rescore(*args, where)
+        elif key[1] == "ivf_block_rescore":
+            err = check_ivf_block_rescore(*args, where)
         else:
             q, x, pen, w = args
             err = check_dist_blockmin(q, x, pen, w, where)
@@ -1345,7 +1491,8 @@ def phase_depth_precision(card: str) -> None:
 def phase_kernels() -> dict:
     """Worst max abs error per kernel name."""
     worst = {name: 0.0 for name in (*_MODE_NAME.values(), PAIR, "assign", "slab_dots",
-                                    "blockmin", "matmul_floor", "block_rescore")}
+                                    "blockmin", "matmul_floor", "block_rescore",
+                                    "ivf_block_rescore")}
     for i, (b, n, d, w, dead) in enumerate(K1_SHAPES):
         for pen_kind in ("l2", "zero"):
             q, x, pen = _k1_inputs(b, n, d, w, dead, pen_kind, SEED + i)
@@ -1375,6 +1522,9 @@ def phase_kernels() -> dict:
     for i, shape in enumerate(K6_SHAPES):
         err = check_block_rescore_shape(*shape, SEED + i)
         worst["block_rescore"] = max(worst["block_rescore"], err)
+    for i, shape in enumerate(IVF_RESCORE_SHAPES):
+        err = check_ivf_block_rescore_shape(*shape, SEED + i)
+        worst["ivf_block_rescore"] = max(worst["ivf_block_rescore"], err)
     return worst
 
 
@@ -2104,7 +2254,9 @@ def _ivf_stages(info):
         qk, payload = q, d["list_vecs"].reshape(n_bkt * L, -1)
         pen = ivf._fused_pen(slot_ids, d["list_sqnorms"], metric)
         rs_payload = (d["list_vecs"],)
-        rescore = ivf._flat_block_rescore(q, metric)
+        rescore = (ivf._KernelRescore(q, metric)
+                   if ivf._use_kernel_rescore(d["list_vecs"], slot_ids, None)
+                   else ivf._flat_block_rescore(q, metric))
     elif art.kind == "ivf_pq":
         dim = d["centroids"].shape[1]
         if n_bkt * L * dim * 2 > ivf._IVFPQ_RESIDENT_BUDGET:
@@ -3395,6 +3547,66 @@ def phase_block_rescore_throughput(card: str) -> list:
     return out
 
 
+def phase_ivf_rescore_throughput(card: str, path_name: str, info) -> dict:
+    """The IVF bf16 rescore at an IVF-Flat row's shape (the SIFT surrogate's
+    ``IVF1024,Flat`` np 32, B 256, k 100: sift1m.ivf_flat's), on the blocks
+    its stages 1 and 2 select for the row's first batch: checked against
+    its plain version (the gathered chain the kernel replaced) there and on
+    the same inputs with the payload one element into its buffer (single
+    loads); the kernel, the plain version, the function's bound
+    (``ivf_block_rescore_work``: the probed pairs' distinct blocks read
+    once), the bound were every pair's block read and both shares of the
+    kernel's time."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import ivf, kernels
+
+    st = _ivf_stages(info)
+    if not isinstance(st.rescore, ivf._KernelRescore):
+        raise AssertionError(f"{path_name}: the row's stage 3 is not the IVF bf16 rescore")
+    probes, valid = st.coarse()
+    bm = kernels.dist_blockmin(st.qk, st.payload, st.pen, w=st.w)
+    vals, blk = ivf._probed_blocks(bm, probes, st.n_bkt, st.bpb, st.k + ivf._BLOCKMIN_SLACK,
+                                   valid)
+    q, w, metric = st.rescore.queries, st.w, st.rescore.metric
+    x = st.rs_payload[0].reshape(-1, st.rs_payload[0].shape[-1])
+    slots = st.slot_ids.reshape(-1)
+    integer = bool(torch.equal(q, q.round()) and torch.equal(x.float(), x.float().round()))
+    err = check_ivf_block_rescore(q, x, slots, blk, vals, w, metric, path_name, exact=integer)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=DEV)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    err = max(err, check_ivf_block_rescore(q, view, slots, blk, vals, w, metric,
+                                           f"{path_name}/view+1", exact=integer))
+    del buf, view
+    ms = time_ms(lambda: kernels.ivf_block_rescore(q, x, slots, blk, vals, w, metric),
+                 prime=True)
+    plain_ms = time_ms(
+        lambda: kernels.ivf_block_rescore_reference(q, x, slots, blk, vals, w, metric),
+        reps=10, prime=True)
+    (b, nb), d = blk.shape, x.shape[1]
+    probed = torch.isfinite(vals)
+    distinct = int(torch.unique(blk[probed]).numel())
+    pairs = int(probed.sum())
+    flops, nbytes = kernels.ivf_block_rescore_work(b, nb, w, d, pairs, distinct, metric)
+    _, pair_bytes = kernels.ivf_block_rescore_work(b, nb, w, d, pairs, pairs, metric)
+    bound_ms = max(flops / FP32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    pairs_bound_ms = pair_bytes / HBM_BYTES_PER_S * 1e3
+    out = {"phase": "ivf_rescore_throughput", "config": path_name, "row": "ivf_flat",
+           "card": card, "shape": [b, x.shape[0], d, w, nb], "metric": metric,
+           "ivf_block_rescore_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_PEAK_FLOPS
+           else "operations",
+           "bound_share": bound_ms / ms, "probed_pairs": pairs, "distinct_blocks": distinct,
+           "distinct_share": distinct / pairs, "pairs_bound_ms": pairs_bound_ms,
+           "pairs_bound_share": pairs_bound_ms / ms, "flops": flops, "bytes": nbytes,
+           "integer_rows": integer, "max_abs_err": err}
+    emit(out)
+    del bm, vals, blk
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_assign_throughput(card: str, n=1_000_000, k=1024, d=128) -> dict:
     """The IVF1024 corpus assignment at the SIFT1M shape: kernel, plain
     version, one FP32 library product (TF32 off) and the card's bounds (the
@@ -3770,7 +3982,8 @@ def _ivf_serving_stages(idx, qd, k):
     else:
         raise AssertionError(f"a batch of {b} took the probe scan")
     sel_vals, blk = stages["select"]()
-    rescore = ivf._flat_block_rescore(qd, "l2")
+    rescore = (ivf._KernelRescore(qd, "l2") if ivf._use_kernel_rescore(vecs, slot_ids, None)
+               else ivf._flat_block_rescore(qd, "l2"))
     stages["rescore"] = lambda: ivf._rescore_blocks(blk, sel_vals, slot_ids, (vecs,), rescore, k, w)
     if not torch.equal(stages["rescore"]()[1], idx.device_search(qd, k)[1]):
         raise AssertionError("serving IVF: the stage split differs from the search")
@@ -5760,6 +5973,7 @@ def _main(launcher) -> int:
     }
     for row in ("ivf_flat", "ivf_sq8"):
         phase_ivf_throughput(card, paths[1]["name"], row, paths[1]["rows"][row])
+    ivf_rescore = phase_ivf_rescore_throughput(card, paths[0]["name"], sift["ivf_flat"])
     phase_lsh_throughput(card, paths[0]["name"], "lsh", sift["lsh"])
     sift_binary = next(p for p in paths if p["name"] == LSH_CONFIGS[-1]["name"])
     phase_lsh_throughput(card, sift_binary["name"], "faiss_lsh", sift_binary["rows"]["faiss_lsh"])
@@ -5908,6 +6122,16 @@ def _main(launcher) -> int:
         "other_shapes": [{key: t[key] for key in (
             "cell", "shape", "block_rescore_ms", "plain_ms", "bound_ms", "bound_by",
             "distinct_share")} for t in k6[1:]],
+    })
+    # IVF-Flat's stage 3 over bf16 lists, wherever an unfiltered search runs
+    entries.append({
+        "name": "ivf_block_rescore", "route": "cuda", "source": src + "block_rescore.cu",
+        "replaces": "vectordb_retrieval_tpu/ops/ivf.py:521 (jnp ops, no Pallas kernel)",
+        "launches": launches["ivf_block_rescore"], "max_abs_err": worst["ivf_block_rescore"],
+        "ms": ivf_rescore["ivf_block_rescore_ms"], "plain_ms": ivf_rescore["plain_ms"],
+        "bound_ms": ivf_rescore["bound_ms"], "bound_by": ivf_rescore["bound_by"],
+        "pairs_bound_ms": ivf_rescore["pairs_bound_ms"],
+        "distinct_share": ivf_rescore["distinct_share"], "shape": ivf_rescore["shape"],
     })
     for e in entries:
         if e["launches"] < 1:

@@ -299,3 +299,53 @@ def test_block_selection_breaks_ties_by_block_id(rng):
         tied = np.sort(blk[row].numpy()[vals[row].numpy() == vals[row, 40].item()])
         kept = [i for i in ids if i in set(tied.tolist())]
         assert kept == sorted(kept) and kept == tied[: len(kept)].tolist()
+
+
+ROUTES = {"bf16": 1, "bf16_full": 1, "bf16_slot_pen": 0, "f32": 0, "sq8": 0}
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("payload", list(ROUTES))
+@pytest.mark.parametrize("name", ["masked", "fused"])
+def test_ivf_stage_three_takes_the_kernel_on_unfiltered_bf16_lists(
+        layout, monkeypatch, name, payload, metric):
+    """Both streams hand stage 3 of an unfiltered IVF-Flat search over bf16
+    lists to ``kernels.ivf_block_rescore``, once a search (its plain version
+    on the host), and answer as the gathered chain does, bit for bit; a
+    search with ``slot_pen``, over f32 lists or over IVF-SQ8 codes never
+    calls it."""
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    L = layout
+    calls = []
+    orig = kernels.ivf_block_rescore
+
+    def spy(*a):
+        calls.append(a[3].shape)
+        return orig(*a)
+
+    monkeypatch.setattr(kernels, "ivf_block_rescore", spy)
+    head = (_t(L["q"]), _t(L["coarse"]), _t(L["slot"]))
+
+    def search():
+        if payload == "sq8":
+            return tivf.ivf_sq_search(*head, _t(L["codes"]), _t(L["dsqn"]), _t(L["vmin"]),
+                                      _t(L["step"]), K, 6, metric=metric)
+        kw = {}
+        if payload == "bf16_full":
+            kw["full_vectors"] = _t(L["x"])
+        if payload == "bf16_slot_pen":
+            kw["slot_pen"] = _t(L["pen"])
+        vecs = _t(L["vecs"] if payload == "f32" else L["vecs16"])
+        return tivf.ivf_flat_search(*head, vecs, _t(L["sqn"]), K, 6, metric=metric, **kw)
+
+    taken = []
+    with regime(name, taken):
+        got = search()
+        assert len(calls) == ROUTES[payload]
+        monkeypatch.setattr(tivf, "_use_kernel_rescore", lambda *a: False)
+        want = search()
+    assert taken == [name, name] and len(calls) == ROUTES[payload]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if calls:  # k + slack blocks of w slots, one row a query
+        assert calls[0][0] == L["q"].shape[0]

@@ -330,7 +330,7 @@ def test_assign_launch_count_untouched_on_cpu(rng):
     assert kernels.LAUNCHES == before
     assert set(kernels.LAUNCHES) == {
         "dist_blockmin", "dist_blockmin_bf16", "dist_blockmin_u8", "assign",
-        "slab_dots", "blockmin", "matmul_floor", "block_rescore"}
+        "slab_dots", "blockmin", "matmul_floor", "block_rescore", "ivf_block_rescore"}
 
 
 @pytest.mark.parametrize("kind", ["f64", "int_points", "dim", "noncontig", "empty"])
@@ -458,6 +458,7 @@ def test_k1_entry_points_live_in_one_source_each():
     assert defined["vrt_assign_f32"] == ["assign"]
     assert defined["vrt_matmul_floor_f32"] == ["matmul_floor"]
     assert defined["vrt_block_rescore_f32"] == ["block_rescore"]
+    assert defined["vrt_ivf_block_rescore_bf16"] == ["block_rescore"]
     for fn in kernels._SLAB_MODES.values():
         assert defined[fn] == ["slab_dots"], fn
     assert not [fn for fn, srcs in defined.items()
@@ -1353,3 +1354,227 @@ def test_block_rescore_binding_and_source():
     assert "Replaces no Pallas kernel" in src and "vectordb_retrieval_tpu/ops/distances.py" in src
     for word in ("wgmma", "mma.sync", "tf32", "__shfl_xor_sync", "fmaf"):
         assert (word in src) == (word in ("__shfl_xor_sync", "fmaf")), word
+
+
+# ---- IVF-Flat's stage 3 over bf16 lists (ivf_block_rescore) ---------------------
+
+
+def _ivf_rescore_case(rng, b, s, d, w, nb, integer):
+    """bf16 lists (integers 0-255, exact in bf16, or normals), slot ids with
+    a fifth of the slots dead, block ids with one block shared by every
+    query and repeats, and a fifth of the pairs never probed (+inf)."""
+    if integer:
+        x = rng.integers(0, 256, (s, d)).astype(np.float32)
+        q = rng.integers(0, 256, (b, d)).astype(np.float32)
+    else:
+        x = rng.standard_normal((s, d)).astype(np.float32)
+        q = rng.standard_normal((b, d)).astype(np.float32)
+    x16 = np.asarray(jnp.asarray(x).astype(jnp.bfloat16))
+    slots = rng.permutation(s).astype(np.int32)
+    slots[rng.random(s) < 0.2] = -1
+    blk = rng.integers(0, s // w, (b, nb))
+    blk[:, 0] = blk[0, 1]  # one block in every query's selection
+    vals = rng.random((b, nb)).astype(np.float32)
+    vals[rng.random((b, nb)) < 0.2] = np.inf
+    return q, x16, slots, blk, vals
+
+
+def _ivf_rescore_tensors(q, x16, slots, blk, vals):
+    payload = torch.from_numpy(x16.view(np.uint16).astype(np.int16)).view(torch.bfloat16)
+    return (torch.from_numpy(q), payload, torch.from_numpy(slots), torch.from_numpy(blk),
+            torch.from_numpy(vals))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [50, 128])
+@pytest.mark.parametrize("w", [8, 16, 32])
+def test_ivf_block_rescore_reference_matches_jax_stage_three(rng, w, d, metric, integer):
+    """The plain version against the JAX package's IVF stage 3 on the same
+    inputs (``_ivf_probed_blockmin`` / ``_ivf_blockmin`` with IVF-Flat's
+    block rescore: the blocks and their slot ids gathered whole, widened to
+    f32, ``jnp.sum((x - q)**2)`` or ``-jnp.sum(x * q)``, then the unprobed
+    pairs and dead slots masked to +inf). Integer rows: equal; normals:
+    within 1e-5 of the largest |score| (f32 sums in another order). The row
+    ids equal the slots' where the score is finite, -1 elsewhere."""
+    b, s, nb = 6, 64 * w, 7
+    q, x16, slots, blk, vals = _ivf_rescore_case(rng, b, s, d, w, nb, integer)
+    cd, cand = kernels.ivf_block_rescore_reference(
+        *_ivf_rescore_tensors(q, x16, slots, blk, vals), w, metric)
+    # the JAX package's stage 3, as its IVF-Flat streams run it
+    jcand = jnp.asarray(slots).reshape(-1, w)[jnp.asarray(blk)]  # [B, nb, w]
+    v32 = jnp.asarray(x16).reshape(-1, w, d)[jnp.asarray(blk)].astype(jnp.float32)
+    jq = jnp.asarray(q)[:, None, None, :]
+    if metric == "l2":
+        diff = v32 - jq
+        jcd = jnp.sum(diff * diff, axis=-1)
+    else:
+        jcd = -jnp.sum(v32 * jq, axis=-1)
+    jcd = jnp.where(jnp.isfinite(jnp.asarray(vals))[:, :, None], jcd, jnp.inf)
+    jcd = jnp.where(jcand >= 0, jcd, jnp.inf).reshape(b, nb * w)
+    want_cd, want_slots = np.asarray(jcd), np.asarray(jcand).reshape(b, nb * w)
+    assert cd.dtype == torch.float32 and cand.dtype == torch.int64
+    assert cd.shape == cand.shape == (b, nb * w)
+    cd, cand = cd.numpy(), cand.numpy()
+    fin = np.isfinite(want_cd)
+    assert 0 < fin.sum() < fin.size  # dead slots and unprobed pairs were selected
+    np.testing.assert_array_equal(np.isposinf(cd), ~fin)
+    np.testing.assert_array_equal(cand, np.where(fin, want_slots, -1))
+    if integer:
+        np.testing.assert_array_equal(cd[fin], want_cd[fin])
+    else:
+        assert np.abs(cd[fin] - want_cd[fin]).max() <= 1e-5 * np.abs(want_cd[fin]).max()
+
+
+def test_ivf_block_rescore_launch_count_untouched_on_cpu(rng):
+    """CPU tensors take the plain version: no launch is counted. The counted
+    work reads each distinct block of the probed pairs once and computes
+    the probed pairs alone."""
+    q, x16, slots, blk, vals = _ivf_rescore_case(rng, 3, 256, 16, 8, 4, True)
+    blk[1] = blk[0]  # every block of query 1 is one of query 0's
+    vals[2, 3] = np.inf
+    before = dict(kernels.LAUNCHES)
+    args = _ivf_rescore_tensors(q, x16, slots, blk, vals)
+    with kernels.count_work() as work:
+        kernels.ivf_block_rescore(*args, 8, "l2")
+        kernels.ivf_block_rescore(*args, 8, "ip")
+    assert kernels.LAUNCHES == before
+    probed = np.isfinite(vals)
+    distinct = len(np.unique(blk[probed]))
+    l2 = kernels.ivf_block_rescore_work(3, 4, 8, 16, int(probed.sum()), distinct, "l2")
+    ip = kernels.ivf_block_rescore_work(3, 4, 8, 16, int(probed.sum()), distinct, "ip")
+    assert work == {"flops": l2[0] + ip[0], "bytes": l2[1] + ip[1], "calls": 2}
+    assert l2 == (3.0 * probed.sum() * 8 * 16,
+                  distinct * 8 * (2.0 * 16 + 4.0) + 4.0 * 3 * 16 + 12.0 * 3 * 4
+                  + 12.0 * 3 * 4 * 8)
+    assert ip[0] == 2.0 * probed.sum() * 8 * 16 and ip[1] == l2[1]
+
+
+@pytest.mark.parametrize(
+    "kind,exc",
+    [
+        ("queries_bf16", TypeError),
+        ("payload_f32", TypeError),
+        ("slots_int64", TypeError),
+        ("blk_int32", TypeError),
+        ("vals_f64", TypeError),
+        ("rank", ValueError),
+        ("slots_2d", ValueError),
+        ("slots_short", ValueError),
+        ("noncontig", ValueError),
+        ("noncontig_queries", ValueError),
+        ("vals_shape", ValueError),
+        ("ragged_s", ValueError),
+        ("metric", ValueError),
+        ("w", ValueError),
+        ("w_4", ValueError),
+        ("w_256", ValueError),
+        ("dim", ValueError),
+        ("rows", ValueError),
+        ("device_mix", ValueError),
+        ("slots_device_mix", ValueError),
+        ("device", ValueError),
+        ("blk_negative", IndexError),
+        ("blk_past_the_blocks", IndexError),
+    ],
+)
+def test_ivf_block_rescore_wrapper_rejects(kind, exc):
+    q, x = torch.zeros((4, 16)), torch.zeros((64, 16), dtype=torch.bfloat16)
+    slots = torch.arange(64, dtype=torch.int32)
+    blk, vals = torch.zeros((4, 3), dtype=torch.int64), torch.zeros((4, 3))
+    w, metric = 8, "l2"
+    # another device than the payload's: "meta" stands in for the card here
+    meta = torch.device("meta")
+    if kind == "queries_bf16":
+        q = q.to(torch.bfloat16)
+    elif kind == "payload_f32":  # f32 lists keep the gathered chain
+        x = x.float()
+    elif kind == "slots_int64":
+        slots = slots.long()
+    elif kind == "blk_int32":
+        blk = blk.int()
+    elif kind == "vals_f64":
+        vals = vals.double()
+    elif kind == "rank":
+        blk = torch.zeros(12, dtype=torch.int64)
+    elif kind == "slots_2d":
+        slots = slots.reshape(8, 8)
+    elif kind == "slots_short":
+        slots = slots[:56]
+    elif kind == "noncontig":
+        x = torch.zeros((16, 64), dtype=torch.bfloat16).T
+    elif kind == "noncontig_queries":
+        q = torch.zeros((16, 4)).T
+    elif kind == "vals_shape":
+        vals = torch.zeros((4, 2))
+    elif kind == "ragged_s":
+        x, slots = x[:60], slots[:60]
+    elif kind == "metric":  # cosine is ip on normalised rows: the caller maps it
+        metric = "cosine"
+    elif kind == "w":
+        w = 12
+    elif kind == "w_4":
+        w = 4
+    elif kind == "w_256":
+        w, x, slots = 256, torch.zeros((256, 16), dtype=torch.bfloat16), torch.arange(
+            256, dtype=torch.int32)
+    elif kind == "dim":
+        q = torch.zeros((4, 12))
+    elif kind == "rows":
+        blk, vals = torch.zeros((5, 3), dtype=torch.int64), torch.zeros((5, 3))
+    elif kind == "device_mix":
+        q = q.to(meta)
+    elif kind == "slots_device_mix":
+        slots = slots.to(meta)
+    elif kind == "device":  # neither the card nor the host
+        q, x, slots, blk, vals = (t.to(meta) for t in (q, x, slots, blk, vals))
+    elif kind == "blk_negative":  # the plain gather would wrap it
+        blk[1, 2] = -1
+    elif kind == "blk_past_the_blocks":
+        blk[3, 0] = 64 // 8
+    with pytest.raises(exc):
+        kernels.ivf_block_rescore(q, x, slots, blk, vals, w, metric)
+
+
+def test_ivf_block_rescore_binding_and_source():
+    """The kernel's entry point is bound in K6's library alone (no library
+    more to load), with its argument types; its source states what it
+    replaces, keeps the precision rule, and names its kernel so that K6's
+    reader (``block_rescore_kernel<`` after a word boundary) cannot match it;
+    K6's kernel and entry point lie before it."""
+    import ctypes
+    import os
+    import re
+
+    class Lib:  # records what _bind sets on each entry point
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, fn):
+            return self.fns.setdefault(fn, type("Fn", (), {})())
+
+    bound = {}
+    for name in kernels.KERNEL_SOURCES:
+        lib = Lib()
+        kernels._bind(name, lib)
+        bound[name] = lib.fns
+    assert [n for n, fns in bound.items() if "vrt_ivf_block_rescore_bf16" in fns] == [
+        "block_rescore"]
+    fn = bound["block_rescore"]["vrt_ivf_block_rescore_bf16"]
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    assert fn.argtypes == [vp] * 7 + [ci] * 6 + [vp] and fn.restype == ci
+    assert "ivf_block_rescore" in kernels.KERNELS and kernels.LAUNCHES["ivf_block_rescore"] >= 0
+    assert "ivf_block_rescore" not in kernels.KERNEL_SOURCES
+    with open(os.path.join(kernels.CSRC_DIR, "block_rescore.cu")) as f:
+        src = f.read()
+    head, ivf = src.split("// ---- IVF-Flat's stage 3 over bf16 lists")
+    assert "Replaces no Pallas kernel" in ivf and "vectordb_retrieval_tpu/ops/" in ivf
+    assert "_ivf_probed_blockmin" in ivf and "_ivf_blockmin" in ivf
+    for word in ("wgmma", "mma.sync", "tf32", "__half", "__nv_bfloat16"):
+        assert word not in ivf, word
+    assert "ivf_block_rescore_kernel(" in ivf and "block_rescore_kernel(" in head
+    assert not re.search(r"\bblock_rescore_kernel<", "void vrt::ivfr::ivf_block_rescore_kernel<16, "
+                         "16, 8, 1, true>(float const*)")
+    # K6 lies whole before the new section (the new kernel reuses its
+    # add_term and halve_rows as they are)
+    assert 'extern "C" int vrt_block_rescore_f32(' in head and "namespace ivfr" not in head

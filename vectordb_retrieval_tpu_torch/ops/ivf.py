@@ -287,29 +287,59 @@ def _smallest_blocks(vals: torch.Tensor, blk: torch.Tensor, nb: int):
     return dops.top_k_smallest_by_id(vals, blk, nb)
 
 
+class _KernelRescore:
+    """Stage 3 of unfiltered IVF-Flat over bf16 lists as one call of
+    :func:`~vectordb_retrieval_tpu_torch.ops.kernels.ivf_block_rescore`:
+    the selected blocks read straight from the lists (``payload[0]``), the
+    unprobed pairs and dead slots masked inside. No gathered copy."""
+
+    def __init__(self, queries: torch.Tensor, metric: str):
+        self.queries = queries.float().contiguous()
+        self.metric = "l2" if metric == "l2" else "ip"
+
+    def __call__(self, blk, blk_vals, slot_ids, payload, w):
+        vecs = payload[0]
+        return kernels.ivf_block_rescore(
+            self.queries, vecs.reshape(-1, vecs.shape[-1]), slot_ids.reshape(-1), blk,
+            blk_vals.contiguous(), w, self.metric)
+
+
+def _use_kernel_rescore(list_vecs, slot_ids, slot_pen) -> bool:
+    """Whether IVF-Flat's stage 3 takes :class:`_KernelRescore`: bf16
+    lists, int32 slot ids, no per-slot penalty."""
+    return (list_vecs.dtype == torch.bfloat16 and slot_ids.dtype == torch.int32
+            and slot_pen is None)
+
+
 def _rescore_blocks(
     blk: torch.Tensor,  # [B, nb] selected global block ids
     blk_vals: torch.Tensor,  # [B, nb] their block minima (+inf = unprobed)
     slot_ids: torch.Tensor,  # [n_bkt, L]
     payload: Sequence[torch.Tensor],  # [n_bkt, L, ...] rescoring arrays
-    block_rescore: Callable,  # ([B, nb, w, ...] blocks) -> exact f32 [B, nb, w]
-    k: int,
+    block_rescore: Callable,  # ([B, nb, w, ...] blocks) -> exact f32 [B, nb, w],
+    k: int,                   # or a _KernelRescore (the whole stage)
     w: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Last stage of both streams: gather the selected ``w``-slot blocks,
     rescore them exactly, keep the top k. Blocks with an infinite minimum
-    (a query with fewer probed blocks than selected) stay invisible."""
+    (a query with fewer probed blocks than selected) stay invisible. A
+    :class:`_KernelRescore` does the gather, the rescore and the masks in
+    one launch."""
     n_bkt, L = slot_ids.shape
     b, nb = blk.shape
     with span("vrt.rescore"):
-        cand = slot_ids.reshape(-1, w)[blk]  # [B, nb, w]
-        cd = block_rescore(tuple(
-            p.reshape((n_bkt * L // w, w) + tuple(p.shape[2:]))[blk] for p in payload
-        ))
-        cd = torch.where(torch.isfinite(blk_vals)[:, :, None], cd, _INF)
-        cd = torch.where(cand >= 0, cd, _INF).reshape(b, nb * w)
+        if isinstance(block_rescore, _KernelRescore):
+            cd, cand = block_rescore(blk, blk_vals, slot_ids, payload, w)
+        else:
+            cand = slot_ids.reshape(-1, w)[blk]  # [B, nb, w]
+            cd = block_rescore(tuple(
+                p.reshape((n_bkt * L // w, w) + tuple(p.shape[2:]))[blk] for p in payload
+            ))
+            cd = torch.where(torch.isfinite(blk_vals)[:, :, None], cd, _INF)
+            cd = torch.where(cand >= 0, cd, _INF).reshape(b, nb * w)
+            cand = cand.reshape(b, nb * w)
         vals, sel = dops.top_k_smallest(cd, k)
-        ids = torch.gather(cand.reshape(b, nb * w), 1, sel).long()
+        ids = torch.gather(cand, 1, sel).long()
         return vals, torch.where(torch.isfinite(vals), ids, -1)
 
 
@@ -545,7 +575,9 @@ def ivf_flat_search(
     bf16 lists score candidates on the compressed copies (queries rounded
     to bf16); with ``full_vectors`` the best ``k + 8`` are rescored exactly
     against the f32 rows. ``slot_pen`` is a per-slot additive penalty
-    (0 = allowed, +inf = filtered) applied before any top-k.
+    (0 = allowed, +inf = filtered) applied before any top-k. Both streams
+    rescore the selected blocks of unfiltered bf16 lists in one kernel
+    launch (:class:`_KernelRescore`); other lists take the gathered chain.
     """
     probes, pvalid = _probes(
         queries, centroids, nprobe, bucket_lists, nlist, nprobe_lists,
@@ -558,7 +590,13 @@ def ivf_flat_search(
     # the k+8 overfetch is the bf16-noise margin
     fetch_k = k + 8 if compressed else k
     q_cast = queries.to(list_vecs.dtype)
-    block_rescore = _flat_block_rescore(queries, metric, slot_pen is not None)
+    if _use_kernel_rescore(list_vecs, slot_ids, slot_pen):
+        block_rescore = masked_rescore = _KernelRescore(queries, metric)
+    else:
+        block_rescore = _flat_block_rescore(queries, metric, slot_pen is not None)
+
+        def masked_rescore(pl):  # the stream's payload holds the norms second
+            return block_rescore((pl[0],) + tuple(pl[2:]))
 
     if _use_stream(b, probes.shape[1], n_bkt):
         fw = _use_fused(n_bkt, L)
@@ -575,8 +613,7 @@ def ivf_flat_search(
                 (list_vecs, list_sqnorms) if slot_pen is None
                 else (list_vecs, list_sqnorms, slot_pen),
                 _flat_chunk_score(q_cast, qn, metric),
-                lambda pl: block_rescore((pl[0],) + tuple(pl[2:])),
-                fetch_k, probe_valid=pvalid,
+                masked_rescore, fetch_k, probe_valid=pvalid,
             )
     else:
         def score(lists):

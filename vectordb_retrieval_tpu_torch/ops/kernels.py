@@ -2,7 +2,8 @@
 
 Kernels (each replaces one TPU kernel of
 ``vectordb_retrieval_tpu/ops/pallas_kernels.py``, but K5, whose TPU kernel
-lives in a tuning probe, and K6, which replaces plain ``jnp`` ops):
+lives in a tuning probe, and K6 and the IVF rescore, which replace plain
+``jnp`` ops):
   * :func:`dist_blockmin` — fused distance + per-block minimum over f32,
     bf16 or u8 payloads (exact-search stage 1; the IVF-Flat and IVF-SQ8
     fused probed stream; the cover tree's block walk). Replaces
@@ -43,6 +44,15 @@ lives in a tuning probe, and K6, which replaces plain ``jnp`` ops):
     (one warp a (query, block) pair, 16-byte loads, a butterfly over the
     rows' partial sums; on the CUDA cores: the step is bound by the bytes
     of the selected blocks).
+  * :func:`ivf_block_rescore` — the same step for IVF-Flat over bf16 lists:
+    each selected block's rows read straight from the bucketed list
+    payload, widened exactly to f32 and rescored elementwise, with the
+    slots' row ids; dead slots and never-probed pairs masked. Replaces no
+    Pallas kernel: the JAX package does this step as plain ``jnp`` ops
+    (``vectordb_retrieval_tpu/ops/ivf.py``, stage 3 of
+    ``_ivf_probed_blockmin`` and ``_ivf_blockmin``). CUDA C++ source: its
+    own kernel beside K6's in ``csrc/block_rescore.cu`` (K6's design, with
+    2 to 8 bf16 rows a warp load).
 
 Each wrapper routes by the device of its tensors: a CUDA tensor goes to the
 kernel (or the wrapper raises), a CPU tensor goes to the plain PyTorch
@@ -50,8 +60,8 @@ version beside it. Nothing falls back from one to the other.
 
 Kernels are compiled from ``csrc/`` (K1, K3 and K4 run the main loop of
 the tensor-core kernel ``blockmin_tc.cuh``, K2 its loaders, all on the
-helpers of ``wgmma.cuh``; K5 runs on those of ``tma.cuh``; K6 stands
-alone) with ``nvcc``
+helpers of ``wgmma.cuh``; K5 runs on those of ``tma.cuh``; K6 and the
+IVF rescore stand alone, in one source) with ``nvcc``
 for ``sm_90a`` at first use, into ``_build/<hash of source, every header
 and flags>/``, and loaded with ``ctypes`` through a plain C interface.
 Every launch adds one to ``LAUNCHES[name]`` (one name per kernel mode);
@@ -112,7 +122,7 @@ _SLAB_MODES = {
     torch.bfloat16: "vrt_slab_dots_bf16",
 }
 KERNELS = tuple(name for name, _, _ in _DBM_MODES.values()) + (
-    "assign", "slab_dots", "blockmin", "matmul_floor", "block_rescore")
+    "assign", "slab_dots", "blockmin", "matmul_floor", "block_rescore", "ivf_block_rescore")
 
 # launches per kernel mode, counted by the wrappers where they launch
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -232,6 +242,20 @@ def block_rescore_work(b: int, nb: int, w: int, d: int, distinct_blocks: int,
     return per_element * b * nb * w * d, nbytes
 
 
+def ivf_block_rescore_work(b: int, nb: int, w: int, d: int, probed_pairs: int,
+                           distinct_blocks: int, metric: str) -> Tuple[float, float]:
+    """``(operations, bytes)`` of one :func:`ivf_block_rescore` call: for
+    each of the ``w d`` elements of each probed pair's block, a difference,
+    a product and an add (l2) or a product and an add (ip); the distinct
+    blocks of the probed pairs read once each (bf16 rows and their int32
+    slot ids), the queries, the int64 block ids and f32 block minima read,
+    the ``[B, nb w]`` f32 scores and int64 row ids written."""
+    per_element = 3.0 if metric == "l2" else 2.0
+    nbytes = (distinct_blocks * w * (2.0 * d + 4.0) + 4.0 * b * d + 12.0 * b * nb
+              + 12.0 * b * nb * w)
+    return per_element * probed_pairs * w * d, nbytes
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -277,6 +301,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.vrt_matmul_floor_scratch_floats.restype = ctypes.c_longlong
     elif name == "block_rescore":
         sigs["vrt_block_rescore_f32"] = [vp] * 5 + [ci] * 7 + [vp]
+        sigs["vrt_ivf_block_rescore_bf16"] = [vp] * 7 + [ci] * 6 + [vp]
     for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ci
@@ -1140,4 +1165,138 @@ def _launch_block_rescore(queries: torch.Tensor, payload: torch.Tensor, blk: tor
         )
     _check_launch("block_rescore", "block_rescore", rc)
     LAUNCHES["block_rescore"] += 1
+    return cd, cand
+
+
+# ---- IVF-Flat's stage 3 over bf16 lists --------------------------------------
+
+
+def ivf_block_rescore_reference(
+    queries: torch.Tensor,
+    payload: torch.Tensor,
+    slot_ids: torch.Tensor,
+    blk: torch.Tensor,
+    blk_vals: torch.Tensor,
+    w: int,
+    metric: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`ivf_block_rescore` (same contract),
+    IVF's gathered stage-3 chain: the selected blocks gathered whole into
+    a fresh ``[B, nb, w, d]`` bf16 copy, widened to a fresh f32 one,
+    updated in place (difference and square, or product) and summed over
+    ``d``; then the dead slots' and unprobed pairs' ``+inf`` / ``-1``."""
+    b, nb = blk.shape
+    dim = payload.shape[1]
+    cand = slot_ids.reshape(-1, w)[blk].long()  # [B, nb, w]
+    v32 = payload.reshape(-1, w, dim)[blk].float()  # [B, nb, w, d], exact
+    if metric == "l2":
+        v32.sub_(queries[:, None, None, :])
+        cd = torch.sum(v32.mul_(v32), dim=-1)
+    else:  # ip/cosine: negated dot, elementwise sum
+        cd = -torch.sum(v32.mul_(queries[:, None, None, :]), dim=-1)
+    live = torch.isfinite(blk_vals)[:, :, None] & (cand >= 0)
+    cd = torch.where(live, cd, float("inf")).reshape(b, nb * w)
+    return cd, torch.where(live, cand, -1).reshape(b, nb * w)
+
+
+def _check_ivf_block_rescore(queries: torch.Tensor, payload: torch.Tensor,
+                             slot_ids: torch.Tensor, blk: torch.Tensor, blk_vals: torch.Tensor,
+                             w: int, metric: str) -> None:
+    fn = "ivf_block_rescore"
+    for t, what, dtype in ((queries, "queries", torch.float32),
+                           (payload, "payload", torch.bfloat16),
+                           (slot_ids, "slot_ids", torch.int32),
+                           (blk, "blk", torch.int64),
+                           (blk_vals, "blk_vals", torch.float32)):
+        if t.dtype != dtype:
+            raise TypeError(f"{fn}: {what} must be {dtype}, got {t.dtype}")
+    for t, what in ((queries, "queries"), (payload, "payload"), (blk, "blk"),
+                    (blk_vals, "blk_vals")):
+        _check_2d(fn, what, t, payload)
+    if slot_ids.dim() != 1 or not slot_ids.is_contiguous() or slot_ids.device != payload.device:
+        raise ValueError(f"{fn}: slot_ids must be 1-D, contiguous and on {payload.device}")
+    if metric not in BLOCK_RESCORE_METRICS:
+        raise ValueError(f"{fn}: metric {metric!r} must be one of {BLOCK_RESCORE_METRICS}")
+    if w < 8 or w > 128 or w & (w - 1):
+        raise ValueError(f"{fn}: w={w} must be a power of two in [8, 128]")
+    s, d = payload.shape
+    if queries.shape[1] != d:
+        raise ValueError(f"{fn}: queries have d={queries.shape[1]}, payload d={d}")
+    if blk.shape[0] != queries.shape[0] or blk_vals.shape != blk.shape:
+        raise ValueError(f"{fn}: blk {tuple(blk.shape)} and blk_vals "
+                         f"{tuple(blk_vals.shape)} must be [B={queries.shape[0]}, nb]")
+    if s % w:
+        raise ValueError(f"{fn}: S={s} must be a multiple of w={w}")
+    if slot_ids.shape[0] != s:
+        raise ValueError(f"{fn}: {slot_ids.shape[0]} slot ids for S={s} slots")
+    _check_device(fn, payload)
+
+
+def ivf_block_rescore(
+    queries: torch.Tensor,  # [B, d] f32
+    payload: torch.Tensor,  # [S, d] bf16 bucketed lists, S % w == 0
+    slot_ids: torch.Tensor,  # [S] int32 row ids, -1 = dead slot
+    blk: torch.Tensor,  # [B, nb] int64 block ids in [0, S/w)
+    blk_vals: torch.Tensor,  # [B, nb] f32 block minima, non-finite = unprobed
+    w: int,
+    metric: str,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact scores of every slot of each query's selected blocks of bf16
+    IVF lists: ``(cd [B, nb w] f32, cand [B, nb w] int64)``, where for
+    block ``g = blk[b, i]`` and row ``j < w``, ``cand[b, i w + j] =
+    slot_ids[g w + j]`` and, with ``x = payload[g w + j]`` widened exactly
+    to f32, ``cd[b, i w + j]`` is ``sum((x - queries[b])^2)`` (l2) or
+    ``-sum(x * queries[b])`` (ip; cosine on normalised rows), elementwise
+    in f32, never a matrix product. Dead slots and pairs whose
+    ``blk_vals`` is not finite (never probed) give ``+inf`` and ``-1``.
+    ``w`` is a power of two in ``[8, 128]``.
+
+    CUDA tensors launch the kernel of ``csrc/block_rescore.cu`` on the
+    current stream (each pair's block read once, an unprobed pair's not at
+    all; only the outputs written) and count under
+    ``LAUNCHES['ivf_block_rescore']``. CPU tensors take
+    :func:`ivf_block_rescore_reference`. Every id of ``blk`` lies in
+    ``[0, S/w)`` (IVF's stage 2 gives no other): on the CPU another raises
+    ``IndexError``; on the card it traps the launch.
+    """
+    _check_ivf_block_rescore(queries, payload, slot_ids, blk, blk_vals, w, metric)
+    b, nb = blk.shape
+    s, d = payload.shape
+
+    def work():  # reads the blocks this call's probed pairs select: waits for the device
+        probed = torch.isfinite(blk_vals)
+        distinct = int(torch.unique(blk[probed]).numel())
+        return ivf_block_rescore_work(b, nb, w, d, int(probed.sum()), distinct, metric)
+
+    with _counted(work):
+        if payload.device.type == "cpu":
+            if blk.numel() and (int(blk.min()) < 0 or int(blk.max()) >= s // w):
+                raise IndexError(f"ivf_block_rescore: block ids must lie in [0, {s // w})")
+            return ivf_block_rescore_reference(queries, payload, slot_ids, blk, blk_vals, w,
+                                               metric)
+        return _launch_ivf_block_rescore(queries, payload, slot_ids, blk, blk_vals, w, metric)
+
+
+def _launch_ivf_block_rescore(queries: torch.Tensor, payload: torch.Tensor,
+                              slot_ids: torch.Tensor, blk: torch.Tensor, blk_vals: torch.Tensor,
+                              w: int, metric: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, nb = blk.shape
+    s, d = payload.shape
+    dev = payload.device
+    cd = torch.empty((b, nb * w), dtype=torch.float32, device=dev)
+    cand = torch.empty((b, nb * w), dtype=torch.int64, device=dev)
+    if cd.numel() == 0:
+        return cd, cand
+    if b >= 2**31 or nb >= 2**31 or s >= 2**31 or d >= 2**31:
+        raise ValueError(f"ivf_block_rescore: B={b}, nb={nb}, S={s}, d={d} exceed int32")
+    lib = _lib("block_rescore")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vrt_ivf_block_rescore_bf16(
+            queries.data_ptr(), payload.data_ptr(), slot_ids.data_ptr(), blk.data_ptr(),
+            blk_vals.data_ptr(), cd.data_ptr(), cand.data_ptr(), b, nb, s, d, w,
+            int(metric == "l2"), stream,
+        )
+    _check_launch("block_rescore", "ivf_block_rescore", rc)
+    LAUNCHES["ivf_block_rescore"] += 1
     return cd, cand

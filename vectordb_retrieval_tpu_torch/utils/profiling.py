@@ -41,8 +41,10 @@ request opens them:
   * ``vrt.rescore``: the exact rescore (K6, ``kernels.block_rescore``) and
     top-k of exact search's blockmin path
     (``ops/distances._exact_search_blockmin``), and the gather, exact
-    rescore and top-k of IVF's ``_rescore_blocks`` and ``_final_rescore``
-    (one span each), inside ``vrt.search``;
+    rescore and top-k of IVF's ``_rescore_blocks`` (over unfiltered bf16
+    lists one kernel, ``kernels.ivf_block_rescore``, in place of the
+    gather and rescore) and ``_final_rescore`` (one span each), inside
+    ``vrt.search``;
   * ``vrt.d2h``: the copies back to NumPy and the padding in
     ``batch_search``: the wait for the card and the copies.
 """
