@@ -2246,17 +2246,12 @@ def _ivf_stages(info):
     metric = searcher._score_metric()
     slot_ids = d["slot_ids"]
     n_bkt, L = slot_ids.shape
-    w = ivf._use_fused(n_bkt, L)
-    if not w:
+    if ivf.ivf_route(info["batch"], searcher._nprobe(), n_bkt, L) != "fused_k1":
         raise AssertionError(f"layout {n_bkt} x {L} does not take the fused stream")
+    w = ivf._fused_w(L)
     decode = None
     if art.kind == "ivf_flat":
-        qk, payload = q, d["list_vecs"].reshape(n_bkt * L, -1)
-        pen = ivf._fused_pen(slot_ids, d["list_sqnorms"], metric)
-        rs_payload = (d["list_vecs"],)
-        rescore = (ivf._KernelRescore(q, metric)
-                   if ivf._use_kernel_rescore(d["list_vecs"], slot_ids, None)
-                   else ivf._flat_block_rescore(q, metric))
+        coding = ivf.ListCoding(d["list_vecs"], d["list_sqnorms"], q)
     elif art.kind == "ivf_pq":
         dim = d["centroids"].shape[1]
         if n_bkt * L * dim * 2 > ivf._IVFPQ_RESIDENT_BUDGET:
@@ -2267,17 +2262,11 @@ def _ivf_stages(info):
             return ivf.decode_resident(d["list_codes"], d["centroids"], d["codebooks"], rots,
                                        None if rots is None else d["bucket_lists"])
 
-        recon, recon_sqn = decode()
-        qk, payload = q.to(torch.bfloat16), recon.reshape(n_bkt * L, dim)
-        pen = ivf._fused_pen(slot_ids, recon_sqn, metric)
-        rs_payload = (recon,)
-        rescore = ivf._flat_block_rescore(q, metric)
+        coding = ivf.ListCoding(*decode(), q)
     else:
-        qk = (q * d["step"][None, :]).to(torch.bfloat16)
-        payload = d["list_codes"].reshape(n_bkt * L, -1)
-        pen = ivf._fused_pen(slot_ids, d["list_sqnorms"], metric)
-        rs_payload = (d["list_codes"],)
-        rescore = ivf._sq_block_rescore(q, d["vmin"], d["step"], metric)
+        coding = ivf.ListCoding(d["list_codes"], d["list_sqnorms"], q, vmin=d["vmin"],
+                                step=d["step"])
+    pen = ivf._fused_pen(slot_ids, coding.sqnorms, metric)
     budget = searcher._nprobe()
     pk = searcher._probe_kwargs()
     if pk:
@@ -2289,10 +2278,10 @@ def _ivf_stages(info):
         def coarse():
             return ivf._coarse_probes(q, d["centroids"], budget), None
     return types.SimpleNamespace(
-        q_raw=q_raw, q=q, qk=qk, payload=payload, pen=pen.reshape(-1, w), w=w,
-        n_bkt=n_bkt, bpb=L // w, slot_ids=slot_ids, rs_payload=rs_payload,
-        rescore=rescore, coarse=coarse, decode=decode,
-        k=min(info["k"], meta["n_vectors"]), searcher=searcher,
+        q_raw=q_raw, q=q, qk=coding.index_queries(), payload=coding.rows.reshape(n_bkt * L, -1),
+        pen=pen.reshape(-1, w), w=w, metric=metric, n_bkt=n_bkt, bpb=L // w, slot_ids=slot_ids,
+        coding=coding, scorer=ivf._block_scorer(coding, slot_ids, w, metric), coarse=coarse,
+        decode=decode, k=min(info["k"], meta["n_vectors"]), searcher=searcher,
     )
 
 
@@ -2921,8 +2910,7 @@ def phase_ivf_throughput(card: str, path_name: str, row: str, info, launches=Non
     sel_vals, blk = ivf._probed_blocks(bm, probes, st.n_bkt, st.bpb, k + slack, valid)
 
     def rescore():
-        return ivf._rescore_blocks(blk, sel_vals, st.slot_ids, st.rs_payload,
-                                   st.rescore, k, st.w)
+        return ivf._rescore_blocks(blk, sel_vals, st.scorer, k)
 
     rescore_ms = time_ms(rescore, prime=True)
     batch_ms = time_ms(lambda: searcher.device_kernel(st.q_raw, k), prime=True)
@@ -3562,14 +3550,16 @@ def phase_ivf_rescore_throughput(card: str, path_name: str, info) -> dict:
     from vectordb_retrieval_tpu_torch.ops import ivf, kernels
 
     st = _ivf_stages(info)
-    if not isinstance(st.rescore, ivf._KernelRescore):
-        raise AssertionError(f"{path_name}: the row's stage 3 is not the IVF bf16 rescore")
     probes, valid = st.coarse()
     bm = kernels.dist_blockmin(st.qk, st.payload, st.pen, w=st.w)
     vals, blk = ivf._probed_blocks(bm, probes, st.n_bkt, st.bpb, st.k + ivf._BLOCKMIN_SLACK,
                                    valid)
-    q, w, metric = st.rescore.queries, st.w, st.rescore.metric
-    x = st.rs_payload[0].reshape(-1, st.rs_payload[0].shape[-1])
+    before = kernels.LAUNCHES["ivf_block_rescore"]
+    st.scorer(blk, vals)
+    if kernels.LAUNCHES["ivf_block_rescore"] != before + 1:
+        raise AssertionError(f"{path_name}: the row's stage 3 is not the IVF bf16 rescore")
+    q, w, metric = st.coding.queries.float().contiguous(), st.w, st.metric
+    x = st.coding.rows.reshape(-1, st.coding.rows.shape[-1])
     slots = st.slot_ids.reshape(-1)
     integer = bool(torch.equal(q, q.round()) and torch.equal(x.float(), x.float().round()))
     err = check_ivf_block_rescore(q, x, slots, blk, vals, w, metric, path_name, exact=integer)
@@ -3965,26 +3955,27 @@ def _ivf_serving_stages(idx, qd, k):
     k = min(k, n_bkt * L)
     probes = ivf._coarse_probes(qd, idx._coarse, eff)
     stages = {"coarse": lambda: ivf._coarse_probes(qd, idx._coarse, eff)}
+    coding = ivf.ListCoding(vecs, sqn, qd)
     if route == "fused":
-        w = ivf._use_fused(n_bkt, L)
+        w = ivf._fused_w(L)
         pen = ivf._fused_pen(slot_ids, sqn, "l2").reshape(-1, w)
         payload = vecs.reshape(n_bkt * L, -1)
-        stages["dist_blockmin"] = lambda: kernels.dist_blockmin(qd, payload, pen, w=w)
+        qk = coding.index_queries()
+        stages["dist_blockmin"] = lambda: kernels.dist_blockmin(qk, payload, pen, w=w)
         bm = stages["dist_blockmin"]()
         stages["select"] = lambda: ivf._probed_blocks(bm, probes, n_bkt, L // w, k + slack)
     elif route == "masked":
         w = ivf._BLOCKMIN_W
-        score = ivf._flat_chunk_score(qd, torch.sum(qd * qd, dim=-1), "l2")
-        stages["masked_stream"] = lambda: ivf._masked_minima(probes, slot_ids, (vecs, sqn), score, w)
+        stages["masked_stream"] = lambda: ivf._masked_minima(probes, None, slot_ids, coding,
+                                                             "l2", w)
         bm = stages["masked_stream"]()
         blk_ids = torch.arange(bm.shape[1], device=DEV).expand(b, -1)
         stages["select"] = lambda: ivf._smallest_blocks(bm, blk_ids, min(k + slack, bm.shape[1]))
     else:
         raise AssertionError(f"a batch of {b} took the probe scan")
     sel_vals, blk = stages["select"]()
-    rescore = (ivf._KernelRescore(qd, "l2") if ivf._use_kernel_rescore(vecs, slot_ids, None)
-               else ivf._flat_block_rescore(qd, "l2"))
-    stages["rescore"] = lambda: ivf._rescore_blocks(blk, sel_vals, slot_ids, (vecs,), rescore, k, w)
+    scorer = ivf._block_scorer(coding, slot_ids, w, "l2")
+    stages["rescore"] = lambda: ivf._rescore_blocks(blk, sel_vals, scorer, k)
     if not torch.equal(stages["rescore"]()[1], idx.device_search(qd, k)[1]):
         raise AssertionError("serving IVF: the stage split differs from the search")
     return route, w, stages
@@ -4406,7 +4397,7 @@ SHARDED_CONFIGS = tuple(_sharded_config(n) for n in SHARDED_SHARDS)
 def _sharded_row_line(algo, bsz) -> dict:
     """A sharded row's own numbers: mesh, index bytes, build seconds by
     part, and for IVF the route each shard takes at a batch of ``bsz``."""
-    from vectordb_retrieval_tpu_torch.parallel.sharded_ivf import ivf_route
+    from vectordb_retrieval_tpu_torch.ops.ivf import ivf_route
 
     art = algo.artifact
     meta = art.metadata

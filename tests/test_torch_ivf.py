@@ -1,12 +1,16 @@
 """The port's IVF ops (ops/ivf.py, ops/sq.py) against the JAX package's.
 
 Inputs are built once by the JAX package (k-means, bucketed layout,
-quantised payloads) and handed to both as the same arrays. Each search
-runs in each of the three regimes, forced in both packages the way the
-JAX package's own tests force them: ``_use_stream`` swapped, and the fused
-stream switched on with ``FORCE_FUSED_INTERPRET`` (JAX, Pallas interpret
-mode) or off with ``_use_fused`` (the port, which otherwise takes it on
-any device). Ids must be equal as sorted sets per query (tie-free random
+quantised payloads, IVF-PQ codebooks and codes) and handed to both as the
+same arrays. Each list coding (f32 or bf16 IVF-Flat lists, with or
+without ``slot_pen`` or ``full_vectors``, IVF-PQ's resident
+reconstructions, IVF-SQ8 codes) runs in each of the three regimes, forced
+in both packages the way the JAX package's own tests force them:
+``_use_stream`` swapped, and the fused stream switched on with
+``FORCE_FUSED_INTERPRET`` (JAX, Pallas interpret mode) or off with
+``_use_fused`` (the port, which otherwise takes it on any device); the
+port's one regime choice (``ivf_route``) reads both, so one swap forces
+every coding. Ids must be equal as sorted sets per query (tie-free random
 data); distances within 1e-5 relative to the largest (f32 sums taken in
 another order; bf16-scored candidates are compared after their exact
 rescore or on exact bf16 products).
@@ -21,6 +25,7 @@ import pytest
 import torch
 
 from vectordb_retrieval_tpu.ops import ivf as jivf
+from vectordb_retrieval_tpu.ops import pq as jpq
 from vectordb_retrieval_tpu.ops import sq as jsq
 from vectordb_retrieval_tpu.ops.kmeans import kmeans_assign, kmeans_fit
 from vectordb_retrieval_tpu_torch.models.base import leaf_to_tensor
@@ -54,6 +59,12 @@ def layout():
     codes = np.asarray(jsq.sq_encode(jnp.asarray(vecs.reshape(-1, d)), vmin, step))
     dec = np.asarray(jsq.sq_decode(jnp.asarray(codes), vmin, step))
     pen = np.where(rng.random(slot_np.shape) < 0.15, np.inf, 0.0).astype(np.float32)
+    # IVF-PQ: m 8 over the live slots' residuals to their bucket's centroid
+    live = (slot_np >= 0)[:, :, None]
+    resid = np.where(live, vecs - coarse[:, None, :], 0.0).astype(np.float32).reshape(-1, d)
+    books = jpq.pq_train(jnp.asarray(resid[live.reshape(-1)]), 8, iters=6)
+    pq_codes = jpq.pq_encode(jnp.asarray(resid), books)
+    pq_sqn = np.asarray(jpq.pq_code_sqnorms(pq_codes, books)).reshape(slot_np.shape)
     return {
         "x": x, "q": q, "nlist": nlist, "cents": np.asarray(cents),
         "slot": slot_np, "bl": bl_np, "coarse": coarse, "vecs": vecs,
@@ -61,15 +72,18 @@ def layout():
         "sqn": sqn, "codes": codes.reshape(vecs.shape), "vmin": vmin,
         "step": step, "dsqn": (dec * dec).sum(-1).reshape(slot_np.shape),
         "pen": pen, "cum": jivf.probe_budget_cum(bl_np, nlist),
+        "books": np.asarray(books), "pq_codes": np.asarray(pq_codes).reshape(slot_np.shape + (8,)),
+        "pq_sqn": pq_sqn,
     }
 
 
 @contextlib.contextmanager
 def regime(name, taken):
-    """Force one regime in both packages; record which port stage ran."""
+    """Force one regime in both packages; record which port stage ran.
+    ``probe_g1``: the port's probe scan one bucket a step."""
     saved = (jivf._use_stream, jivf.FORCE_FUSED_INTERPRET, tivf._use_stream,
-             tivf._use_fused, tivf._probe_scan, tivf._ivf_blockmin,
-             tivf._ivf_probed_blockmin)
+             tivf._use_fused, tivf._probe_scan, tivf._masked_stream,
+             tivf._fused_stream, tivf._PROBE_GROUP_BYTES)
 
     def spy(fn, label):
         def wrapped(*a, **kw):
@@ -78,20 +92,22 @@ def regime(name, taken):
         return wrapped
 
     try:
-        stream = name != "probe"
+        stream = not name.startswith("probe")
         jivf._use_stream = tivf._use_stream = lambda *a: stream
         jivf.FORCE_FUSED_INTERPRET = name == "fused"
         if name == "masked":
             tivf._use_fused = lambda *a: 0
+        if name == "probe_g1":
+            tivf._PROBE_GROUP_BYTES = 1
         tivf._probe_scan = spy(saved[4], "probe")
-        tivf._ivf_blockmin = spy(saved[5], "masked")
-        tivf._ivf_probed_blockmin = spy(saved[6], "fused")
+        tivf._masked_stream = spy(saved[5], "masked")
+        tivf._fused_stream = spy(saved[6], "fused")
         jax.clear_caches()
         yield
     finally:
         (jivf._use_stream, jivf.FORCE_FUSED_INTERPRET, tivf._use_stream,
-         tivf._use_fused, tivf._probe_scan, tivf._ivf_blockmin,
-         tivf._ivf_probed_blockmin) = saved
+         tivf._use_fused, tivf._probe_scan, tivf._masked_stream,
+         tivf._fused_stream, tivf._PROBE_GROUP_BYTES) = saved
         jax.clear_caches()
 
 
@@ -118,66 +134,64 @@ def _probe_args(L, semantics, nprobe_lists=3):
     return int(L["cum"][nprobe_lists - 1]), jkw, tkw
 
 
-PAYLOADS = ["f32", "bf16_full", "slot_pen", "sq8"]
+# the list codings: IVF-Flat's f32 lists ("f32", "slot_pen") and bf16 ones
+# ("bf16", "bf16_slot_pen", "bf16_full": rescored against the f32 rows),
+# IVF-SQ8's codes, IVF-PQ's resident reconstructions
+PAYLOADS = ["f32", "bf16_full", "slot_pen", "sq8", "bf16", "bf16_slot_pen", "pq"]
+
+
+def _search(L, payload, nprobe, metric, kw, to, package, slots=None):
+    """One IVF search of ``payload``'s coding in ``package`` (``jivf`` or
+    ``tivf``), arrays through ``to``; ``slots`` replaces the slot ids."""
+    head = (to(L["q"]), to(L["coarse"]), to(L["slot"]) if slots is None else slots)
+    if payload == "sq8":
+        return package.ivf_sq_search(
+            *head, to(L["codes"]), to(L["dsqn"]), to(L["vmin"]), to(L["step"]), K, nprobe,
+            metric=metric, **kw)
+    if payload == "pq":
+        return package.ivf_pq_search(
+            *head, to(L["pq_codes"]), to(L["pq_sqn"]), to(L["books"]), K, nprobe,
+            metric=metric, **kw)
+    extra = {}
+    if payload == "bf16_full":
+        extra["full_vectors"] = to(L["x"])
+    if payload.endswith("slot_pen"):
+        extra["slot_pen"] = to(L["pen"])
+    vecs = L["vecs"] if payload in ("f32", "slot_pen") else L["vecs16"]
+    return package.ivf_flat_search(*head, to(vecs), to(L["sqn"]), K, nprobe, metric=metric,
+                                   **kw, **extra)
 
 
 @pytest.mark.parametrize("semantics", ["coarse", "lists"])
 @pytest.mark.parametrize("payload", PAYLOADS)
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("name", ["probe", "masked", "fused"])
+@pytest.mark.parametrize("name", ["probe", "probe_g1", "masked", "fused"])
 def test_ivf_search_matches_jax_in_each_regime(layout, name, metric, payload, semantics):
+    """Every list coding in every regime against the JAX package's search
+    on the same arrays; bf16 lists without ``full_vectors`` are compared
+    on their bf16-product scores (the probe scan) or their exact rescore
+    against the bf16 rows (the streams)."""
     L = layout
     nprobe, jkw, tkw = _probe_args(L, semantics)
-    jq, tq = jnp.asarray(L["q"]), _t(L["q"])
-    head_j = (jq, jnp.asarray(L["coarse"]), jnp.asarray(L["slot"]))
-    head_t = (tq, _t(L["coarse"]), _t(L["slot"]))
     taken = []
     with regime(name, taken):
-        if payload == "sq8":
-            want = jivf.ivf_sq_search(
-                *head_j, jnp.asarray(L["codes"]), jnp.asarray(L["dsqn"]),
-                jnp.asarray(L["vmin"]), jnp.asarray(L["step"]), K, nprobe,
-                metric=metric, **jkw)
-            got = tivf.ivf_sq_search(
-                *head_t, _t(L["codes"]), _t(L["dsqn"]), _t(L["vmin"]),
-                _t(L["step"]), K, nprobe, metric=metric, **tkw)
-        else:
-            vk = "vecs16" if payload == "bf16_full" else "vecs"
-            extra_j, extra_t = {}, {}
-            if payload == "bf16_full":
-                extra_j["full_vectors"] = jnp.asarray(L["x"])
-                extra_t["full_vectors"] = _t(L["x"])
-            if payload == "slot_pen":
-                extra_j["slot_pen"] = jnp.asarray(L["pen"])
-                extra_t["slot_pen"] = _t(L["pen"])
-            want = jivf.ivf_flat_search(
-                *head_j, jnp.asarray(L[vk]), jnp.asarray(L["sqn"]), K, nprobe,
-                metric=metric, **jkw, **extra_j)
-            got = tivf.ivf_flat_search(
-                *head_t, _t(L[vk]), _t(L["sqn"]), K, nprobe, metric=metric,
-                **tkw, **extra_t)
-    assert taken == [name]
+        want = _search(L, payload, nprobe, metric, jkw, jnp.asarray, jivf)
+        got = _search(L, payload, nprobe, metric, tkw, _t, tivf)
+    assert taken == [name.split("_")[0]]
     _assert_same(got, want)
-    if payload == "slot_pen":  # filtered slots never come back
+    if payload.endswith("slot_pen"):  # filtered slots never come back
         filtered = set(L["slot"][np.isinf(L["pen"]) & (L["slot"] >= 0)].tolist())
         assert not filtered & set(got[1].numpy().ravel().tolist())
 
 
-def test_bf16_lists_without_full_vectors_match_jax(layout):
-    """bf16 scoring with no exact re-rank: the probe scan's distances are
-    the bf16-product scores themselves."""
-    L = layout
-    args_j = (jnp.asarray(L["q"]), jnp.asarray(L["coarse"]), jnp.asarray(L["slot"]),
-              jnp.asarray(L["vecs16"]), jnp.asarray(L["sqn"]), K, 6)
-    args_t = (_t(L["q"]), _t(L["coarse"]), _t(L["slot"]), _t(L["vecs16"]),
-              _t(L["sqn"]), K, 6)
-    for name in ("probe", "fused"):
-        taken = []
-        with regime(name, taken):
-            want = jivf.ivf_flat_search(*args_j)
-            got = tivf.ivf_flat_search(*args_t)
-        assert taken == [name]
-        _assert_same(got, want)
+def test_ivf_route_reads_the_batch_and_the_layout():
+    """The one regime choice: the probe scan below one probe a bucket,
+    else the fused stream on the bucketed layout, else the masked one."""
+    assert tivf.ivf_route(4, 2, 16, 64) == "probe_scan"
+    assert tivf.ivf_route(8, 2, 16, 64) == "fused_k1"
+    assert tivf.ivf_route(8, 2, 16, 36) == "masked_stream"  # no w divides L
+    assert tivf.ivf_route(8, 2, 12, 64) == "masked_stream"  # n_buckets % 8
+    assert tivf.ivf_route(1, 64, 16, 64) == "fused_k1"  # nprobe capped at n_buckets
 
 
 @pytest.mark.parametrize("skew", [False, True])
@@ -301,7 +315,7 @@ def test_block_selection_breaks_ties_by_block_id(rng):
         assert kept == sorted(kept) and kept == tied[: len(kept)].tolist()
 
 
-ROUTES = {"bf16": 1, "bf16_full": 1, "bf16_slot_pen": 0, "f32": 0, "sq8": 0}
+ROUTES = {"bf16": 1, "bf16_full": 1, "bf16_slot_pen": 0, "f32": 0, "sq8": 0, "pq": 1}
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
@@ -309,11 +323,12 @@ ROUTES = {"bf16": 1, "bf16_full": 1, "bf16_slot_pen": 0, "f32": 0, "sq8": 0}
 @pytest.mark.parametrize("name", ["masked", "fused"])
 def test_ivf_stage_three_takes_the_kernel_on_unfiltered_bf16_lists(
         layout, monkeypatch, name, payload, metric):
-    """Both streams hand stage 3 of an unfiltered IVF-Flat search over bf16
-    lists to ``kernels.ivf_block_rescore``, once a search (its plain version
-    on the host), and answer as the gathered chain does, bit for bit; a
-    search with ``slot_pen``, over f32 lists or over IVF-SQ8 codes never
-    calls it."""
+    """Both streams hand stage 3 of an unfiltered search over bf16 rows
+    (IVF-Flat's bf16 lists, IVF-PQ's resident reconstructions) to
+    ``kernels.ivf_block_rescore``, once a search (its plain version on the
+    host), and answer as the gathered chain does, bit for bit (the chain
+    taken by int64 slot ids); a search with ``slot_pen``, over f32 lists
+    or over IVF-SQ8 codes never calls it."""
     from vectordb_retrieval_tpu_torch.ops import kernels
 
     L = layout
@@ -325,26 +340,11 @@ def test_ivf_stage_three_takes_the_kernel_on_unfiltered_bf16_lists(
         return orig(*a)
 
     monkeypatch.setattr(kernels, "ivf_block_rescore", spy)
-    head = (_t(L["q"]), _t(L["coarse"]), _t(L["slot"]))
-
-    def search():
-        if payload == "sq8":
-            return tivf.ivf_sq_search(*head, _t(L["codes"]), _t(L["dsqn"]), _t(L["vmin"]),
-                                      _t(L["step"]), K, 6, metric=metric)
-        kw = {}
-        if payload == "bf16_full":
-            kw["full_vectors"] = _t(L["x"])
-        if payload == "bf16_slot_pen":
-            kw["slot_pen"] = _t(L["pen"])
-        vecs = _t(L["vecs"] if payload == "f32" else L["vecs16"])
-        return tivf.ivf_flat_search(*head, vecs, _t(L["sqn"]), K, 6, metric=metric, **kw)
-
     taken = []
     with regime(name, taken):
-        got = search()
+        got = _search(L, payload, 6, metric, {}, _t, tivf)
         assert len(calls) == ROUTES[payload]
-        monkeypatch.setattr(tivf, "_use_kernel_rescore", lambda *a: False)
-        want = search()
+        want = _search(L, payload, 6, metric, {}, _t, tivf, slots=_t(L["slot"]).long())
     assert taken == [name, name] and len(calls) == ROUTES[payload]
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     if calls:  # k + slack blocks of w slots, one row a query

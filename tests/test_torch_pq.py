@@ -393,8 +393,8 @@ def regime(name, taken):
     """Force one IVF-PQ regime in both packages (``streaming`` by a zero
     resident budget, passed by the caller); record which port stage ran."""
     saved = (jivf._use_stream, jivf.FORCE_FUSED_INTERPRET, tivf._use_stream,
-             tivf._use_fused, tivf._probe_scan, tivf._ivf_blockmin,
-             tivf._ivf_probed_blockmin, tivf._decode_lists)
+             tivf._use_fused, tivf._probe_scan, tivf._masked_stream,
+             tivf._fused_stream, tivf._decode_lists)
 
     def spy(fn, label):
         def wrapped(*a, **kw):
@@ -409,16 +409,16 @@ def regime(name, taken):
         if name == "masked":
             tivf._use_fused = lambda *a: 0
         tivf._probe_scan = spy(saved[4], "probe")
-        tivf._ivf_blockmin = spy(saved[5], "masked")
-        tivf._ivf_probed_blockmin = spy(saved[6], "fused")
+        tivf._masked_stream = spy(saved[5], "masked")
+        tivf._fused_stream = spy(saved[6], "fused")
         if name == "streaming":
             tivf._decode_lists = spy(saved[7], "streaming")
         jax.clear_caches()
         yield
     finally:
         (jivf._use_stream, jivf.FORCE_FUSED_INTERPRET, tivf._use_stream,
-         tivf._use_fused, tivf._probe_scan, tivf._ivf_blockmin,
-         tivf._ivf_probed_blockmin, tivf._decode_lists) = saved
+         tivf._use_fused, tivf._probe_scan, tivf._masked_stream,
+         tivf._fused_stream, tivf._decode_lists) = saved
         jax.clear_caches()
 
 

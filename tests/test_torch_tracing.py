@@ -95,8 +95,8 @@ def test_exact_blockmin_search_spans_in_order_inside_the_request(metric, monkeyp
 @pytest.mark.parametrize("exact_rescore,rescores", [(False, 1), (True, 2)])
 def test_ivf_flat_fused_stream_spans_nest_inside_search(exact_rescore, rescores, monkeypatch):
     calls = []
-    fused = tivf._ivf_probed_blockmin
-    monkeypatch.setattr(tivf, "_ivf_probed_blockmin",
+    fused = tivf._fused_stream
+    monkeypatch.setattr(tivf, "_fused_stream",
                         lambda *a, **k: calls.append(1) or fused(*a, **k))
     algo = _ivf_algo(exact_rescore)
     assert algo.artifact.data["list_vecs"].dtype == torch.bfloat16
@@ -112,6 +112,52 @@ def test_ivf_flat_fused_stream_spans_nest_inside_search(exact_rescore, rescores,
     assert all(_inside(s, search) for s in spans[2:-1])
     inner = spans[2:-1]
     assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))  # one after another
+
+
+HOST_ENTRY = {
+    "linear": dict(algorithm_type="composite", indexer={"type": "BruteForceIndexer"},
+                   searcher={"type": "LinearSearcher"}),
+    "ivf_flat": dict(algorithm_type="composite",
+                     indexer={"type": "FactoryIndexer", "index_key": "IVF2,Flat", "nprobe": 2,
+                              "seed": 1},
+                     searcher={"type": "ANNSearcher", "nprobe": 2}),
+    "lsh": dict(algorithm_type="lsh", num_tables=4, hash_size=4),
+    "covertree": dict(algorithm_type="covertree"),
+}
+
+
+@pytest.mark.parametrize("kind", list(HOST_ENTRY))
+def test_every_searcher_shares_one_host_entry(kind):
+    """``models/base.host_search`` is every searcher's host entry and the
+    cover tree's: the upload, the search and the copy back as ``vrt.h2d``,
+    ``vrt.search`` and ``vrt.d2h`` in order inside the request, float32
+    dists and int64 ids on the host, padded to ``k`` with inf / -1 past
+    the index's rows; the cover tree records its walk's ``ndis`` (plus a
+    full scan a flagged row) once a call."""
+    n, d, k = 24, 8, 32
+    rows = np.random.default_rng(3).standard_normal((n, d)).astype(np.float32)
+    spec = dict(HOST_ENTRY[kind])
+    algo = get_algorithm_instance(spec.pop("algorithm_type"), dimension=d, device="cpu",
+                                  metric="l2", **spec)
+    algo.build_index(rows)
+    q = _queries(d=d, b=5, seed=4)
+    if kind == "covertree":
+        _, _, ndis, n_flagged = algo._answer(torch.from_numpy(q), k)
+        want_ndis = int(ndis.sum()) + n_flagged * n
+        algo.reset_operations()
+    (dists, ids), rec = _traced(algo, q, k)
+    names = [n for n, _, _ in _spans(rec)]
+    assert names[:2] == ["vrt.h2d", "vrt.search"] and names[-1] == "vrt.d2h"
+    assert names.count("vrt.h2d") == names.count("vrt.search") == names.count("vrt.d2h") == 1
+    (request,) = rec["requests"]
+    assert all(_inside(s, request) for s in _spans(rec))
+    assert dists.dtype == np.float32 and ids.dtype == np.int64
+    assert dists.shape == ids.shape == (5, k)
+    assert np.isinf(dists[:, n:]).all() and (ids[:, n:] == -1).all()
+    assert (ids[:, :1] >= 0).all() and np.isfinite(dists[:, :1]).all()
+    if kind == "covertree":
+        assert algo.get_operations() == {"ndis": want_ndis}
+        assert algo._ndis_per_query == int(ndis.sum()) / 5
 
 
 @pytest.mark.parametrize("kind", ["exact", "ivf_bf16", "ivf_rescored"])

@@ -23,6 +23,7 @@ from vectordb_retrieval_tpu_torch.utils.device import (
     resolve_device,
     resolve_devices,
 )
+from vectordb_retrieval_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -191,10 +192,16 @@ class BaseSearcher(ABC):
         ...
 
     @abstractmethod
+    def device_kernel(self, q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device queries in, device ``(dists, ids)`` out; no host copy."""
+
     def batch_search(
         self, queries: np.ndarray, k: int
     ) -> Tuple[np.ndarray, np.ndarray]:
-        ...
+        if self.artifact is None:
+            raise RuntimeError("searcher not attached")
+        dists, ids, _ = host_search(lambda q: self.device_kernel(q, k), queries, k, self.device)
+        return dists, ids
 
     def search(self, query: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
         d, i = self.batch_search(
@@ -208,6 +215,32 @@ class BaseSearcher(ABC):
     def estimated_ops_per_query(self, n_database: int) -> int:
         """Analytic distance-op estimate."""
         return int(n_database)
+
+
+def host_search(
+    device_part: Callable[[torch.Tensor], Tuple[Any, ...]],
+    queries: np.ndarray,
+    k: int,
+    device: torch.device,
+) -> Tuple[np.ndarray, np.ndarray, Tuple[Any, ...]]:
+    """The host entry of every search: upload the host queries as float32
+    to ``device`` (``vrt.h2d``), run ``device_part`` on them
+    (``vrt.search``; it returns device ``(dists, ids, *extra)``), then copy
+    dists and int64 ids back and pad them to ``k`` columns with ``inf`` /
+    ``-1`` (``vrt.d2h``: the wait for the card and the copies). Returns
+    ``(dists [B, k], ids [B, k], extra)``."""
+    with span("vrt.h2d"):
+        q = torch.as_tensor(np.ascontiguousarray(queries, dtype=np.float32), device=device)
+    with span("vrt.search"):
+        dists, ids, *extra = device_part(q)
+    with span("vrt.d2h"):
+        out_d = dists.cpu().numpy()
+        out_i = ids.cpu().numpy().astype(np.int64, copy=False)
+        if out_d.shape[1] < k:
+            pad = ((0, 0), (0, k - out_d.shape[1]))
+            out_d = np.pad(out_d, pad, constant_values=np.inf)
+            out_i = np.pad(out_i, pad, constant_values=-1)
+    return out_d, out_i, tuple(extra)
 
 
 def check_artifact_device(artifact: IndexArtifact, device: torch.device) -> None:

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from vectordb_retrieval_tpu_torch.models import persist
-from vectordb_retrieval_tpu_torch.models.base import BaseAlgorithm, IndexArtifact
+from vectordb_retrieval_tpu_torch.models.base import BaseAlgorithm, IndexArtifact, host_search
 from vectordb_retrieval_tpu_torch.ops import covertree as ctops
 from vectordb_retrieval_tpu_torch.ops import distances as dops
 from vectordb_retrieval_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -473,18 +473,11 @@ class CoverTree(BaseAlgorithm):
     def batch_search(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
         if not self.is_built or self.artifact is None:
             raise RuntimeError("index not built")
-        b = queries.shape[0]
-        n = self.artifact.metadata["n_vectors"]
-        q = torch.as_tensor(np.ascontiguousarray(queries, dtype=np.float32), device=self.device)
-        dists, ids, ndis, n_flagged = self._answer(q, k)
+        out_d, out_i, (ndis, n_flagged) = host_search(
+            lambda q: self._answer(q, k), queries, k, self.device)
         walk_ndis = int(ndis.sum())
-        self._ndis_per_query = walk_ndis / max(b, 1)
-        self.record_operation("ndis", walk_ndis + n_flagged * n)
-        out_d, out_i = dists.cpu().numpy(), ids.cpu().numpy()
-        eff_k = out_d.shape[1]
-        if eff_k < k:
-            out_d = np.pad(out_d, ((0, 0), (0, k - eff_k)), constant_values=np.inf)
-            out_i = np.pad(out_i, ((0, 0), (0, k - eff_k)), constant_values=-1)
+        self._ndis_per_query = walk_ndis / max(queries.shape[0], 1)
+        self.record_operation("ndis", walk_ndis + n_flagged * self.artifact.metadata["n_vectors"])
         return out_d, out_i
 
     def device_kernel(self, qd: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

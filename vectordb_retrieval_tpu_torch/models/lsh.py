@@ -180,19 +180,6 @@ class LSHSearcher(BaseSearcher):
         dists, ids, _ = self._answer(q, k)
         return dists, ids
 
-    def batch_search(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        if self.artifact is None:
-            raise RuntimeError("searcher not attached")
-        q = torch.as_tensor(np.ascontiguousarray(queries, dtype=np.float32), device=self.device)
-        dists, ids = self.device_kernel(q, k)
-        out_d = dists.cpu().numpy()
-        out_i = ids.cpu().numpy().astype(np.int64)
-        eff_k = out_d.shape[1]
-        if eff_k < k:
-            out_d = np.pad(out_d, ((0, 0), (0, k - eff_k)), constant_values=np.inf)
-            out_i = np.pad(out_i, ((0, 0), (0, k - eff_k)), constant_values=-1)
-        return out_d, out_i
-
     def estimated_ops_per_query(self, n_database: int) -> int:
         # votes are key compares, not distance ops; the rerank is the cost
         if self.artifact is None:

@@ -20,12 +20,18 @@ Each search takes one of three regimes, chosen as the JAX package chooses:
   :func:`~vectordb_retrieval_tpu_torch.ops.kernels.dist_blockmin` over the
   whole payload (bf16 lists, u8 SQ8 codes or f32 lists), then each query
   selects its top ``k + slack`` blocks among its probed buckets' block
-  minima and rescores them exactly (:func:`_ivf_probed_blockmin`). The JAX
+  minima and rescores them exactly (:func:`_fused_stream`). The JAX
   package takes this regime only on a TPU; the port takes it on either
   device, and on the CPU the kernel's plain version runs;
 * **masked stream** (other layouts, e.g. legacy artifacts): stream the
   payload chunk by chunk, mask unprobed buckets to +inf, keep per-8-slot
-  block minima, then rescore the top blocks (:func:`_ivf_blockmin`).
+  block minima, then rescore the top blocks (:func:`_masked_stream`).
+
+:func:`ivf_route` makes the choice, once per search. The three codings
+differ only in what :class:`ListCoding` holds: the scored rows, the query
+they are scored with and stage 3's decode; :func:`_search_lists` derives
+every regime from it. Stage 3 over bf16 rows without a per-slot penalty
+is one launch of ``kernels.ivf_block_rescore`` (:func:`_block_scorer`).
 
 All three have the reference's "probe the nprobe nearest lists" semantics
 when given ``bucket_lists``/``nlist``/``nprobe_lists``
@@ -37,7 +43,8 @@ elementwise arithmetic, never a product.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -222,44 +229,6 @@ def _probes(queries, centroids, nprobe, bucket_lists, nlist, nprobe_lists,
         return _coarse_probes(queries, centroids, nprobe), None
 
 
-def _probe_scan(probes, k, score_fn, bucket_len=0, row_bytes=0, valid=None):
-    """Shared nprobe loop over probe GROUPS, merging a running top-k.
-
-    ``score_fn(lists [B, G]) -> (dist [B, G*L], ids [B, G*L] int64)`` in
-    group-major layout. ``G`` keeps the ``[B, G, L, d]`` gather within
-    ``_PROBE_GROUP_BYTES`` (``row_bytes`` = payload bytes per slot).
-    """
-    b, nprobe = probes.shape
-    dev = probes.device
-    group = 1
-    if bucket_len and row_bytes:
-        cap = _PROBE_GROUP_BYTES // max(b * bucket_len * row_bytes, 1)
-        group = int(max(1, min(nprobe, cap)))
-    steps = -(-nprobe // group)
-    pad = steps * group - nprobe
-    if valid is None:
-        valid = torch.ones((b, nprobe), dtype=torch.bool, device=dev)
-    probes_p = torch.cat(
-        [probes, torch.zeros((b, pad), dtype=probes.dtype, device=dev)], dim=1
-    ).reshape(b, steps, group)
-    valid_p = torch.cat(
-        [valid, torch.zeros((b, pad), dtype=torch.bool, device=dev)], dim=1
-    ).reshape(b, steps, group)
-    best_d = torch.full((b, k), _INF, dtype=torch.float32, device=dev)
-    best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
-    for s in range(steps):
-        dist, ids = score_fn(probes_p[:, s])  # [B, G*L]
-        L = dist.shape[1] // group
-        ids = torch.where(valid_p[:, s].repeat_interleave(L, dim=1), ids, -1)
-        dist = torch.where(ids >= 0, dist, _INF)
-        # +inf with a real id happens under slot_pen (a filtered slot):
-        # drop the id too, so no later rescore revives the row
-        ids = torch.where(torch.isfinite(dist), ids, -1)
-        best_d, sel = dops.top_k_smallest(torch.cat([best_d, dist], dim=1), k)
-        best_i = torch.gather(torch.cat([best_i, ids], dim=1), 1, sel)
-    return best_d, best_i
-
-
 # masked-stream regime: taken when the probe union of a batch is dense
 # (b * nprobe >= n_buckets) and the layout does not qualify for the fused
 # stream
@@ -271,144 +240,6 @@ _STREAM_CHUNK_BYTES = 64 * 1024 * 1024
 
 def _use_stream(b: int, nprobe: int, n_buckets: int) -> bool:
     return b * nprobe >= n_buckets
-
-
-def _smallest_blocks(vals: torch.Tensor, blk: torch.Tensor, nb: int):
-    """The ``nb`` smallest block minima of each row of ``vals [B, M]``,
-    equal minima taken in ascending global block id ``blk [B, M]``
-    (distinct in a row, < 2^31): ``(values, positions)`` ``[B, nb]``.
-
-    Equal minima are common where quantised rows repeat (PQ codes collapse
-    a tight cluster to one reconstruction, every block holding a member
-    gets the same minimum), and a top-k's own tie order differs between the
-    card and the host: :func:`~vectordb_retrieval_tpu_torch.ops.distances.
-    top_k_smallest_by_id` has no ties.
-    """
-    return dops.top_k_smallest_by_id(vals, blk, nb)
-
-
-class _KernelRescore:
-    """Stage 3 of unfiltered IVF-Flat over bf16 lists as one call of
-    :func:`~vectordb_retrieval_tpu_torch.ops.kernels.ivf_block_rescore`:
-    the selected blocks read straight from the lists (``payload[0]``), the
-    unprobed pairs and dead slots masked inside. No gathered copy."""
-
-    def __init__(self, queries: torch.Tensor, metric: str):
-        self.queries = queries.float().contiguous()
-        self.metric = "l2" if metric == "l2" else "ip"
-
-    def __call__(self, blk, blk_vals, slot_ids, payload, w):
-        vecs = payload[0]
-        return kernels.ivf_block_rescore(
-            self.queries, vecs.reshape(-1, vecs.shape[-1]), slot_ids.reshape(-1), blk,
-            blk_vals.contiguous(), w, self.metric)
-
-
-def _use_kernel_rescore(list_vecs, slot_ids, slot_pen) -> bool:
-    """Whether IVF-Flat's stage 3 takes :class:`_KernelRescore`: bf16
-    lists, int32 slot ids, no per-slot penalty."""
-    return (list_vecs.dtype == torch.bfloat16 and slot_ids.dtype == torch.int32
-            and slot_pen is None)
-
-
-def _rescore_blocks(
-    blk: torch.Tensor,  # [B, nb] selected global block ids
-    blk_vals: torch.Tensor,  # [B, nb] their block minima (+inf = unprobed)
-    slot_ids: torch.Tensor,  # [n_bkt, L]
-    payload: Sequence[torch.Tensor],  # [n_bkt, L, ...] rescoring arrays
-    block_rescore: Callable,  # ([B, nb, w, ...] blocks) -> exact f32 [B, nb, w],
-    k: int,                   # or a _KernelRescore (the whole stage)
-    w: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Last stage of both streams: gather the selected ``w``-slot blocks,
-    rescore them exactly, keep the top k. Blocks with an infinite minimum
-    (a query with fewer probed blocks than selected) stay invisible. A
-    :class:`_KernelRescore` does the gather, the rescore and the masks in
-    one launch."""
-    n_bkt, L = slot_ids.shape
-    b, nb = blk.shape
-    with span("vrt.rescore"):
-        if isinstance(block_rescore, _KernelRescore):
-            cd, cand = block_rescore(blk, blk_vals, slot_ids, payload, w)
-        else:
-            cand = slot_ids.reshape(-1, w)[blk]  # [B, nb, w]
-            cd = block_rescore(tuple(
-                p.reshape((n_bkt * L // w, w) + tuple(p.shape[2:]))[blk] for p in payload
-            ))
-            cd = torch.where(torch.isfinite(blk_vals)[:, :, None], cd, _INF)
-            cd = torch.where(cand >= 0, cd, _INF).reshape(b, nb * w)
-            cand = cand.reshape(b, nb * w)
-        vals, sel = dops.top_k_smallest(cd, k)
-        ids = torch.gather(cand, 1, sel).long()
-        return vals, torch.where(torch.isfinite(vals), ids, -1)
-
-
-def _masked_minima(
-    probes,  # [B, nprobe] bucket ranks
-    slot_ids,  # [n_bkt, L] db row ids, -1 padding
-    payload,  # tuple of [n_bkt, L, ...] tensors streamed chunk-wise
-    chunk_score,  # (payload_chunk) -> dist [B, C*L] f32 (index scoring)
-    w: int = _BLOCKMIN_W,
-    probe_valid=None,  # [B, nprobe] bool: masked probe slots stay unprobed
-):
-    """Stage 1 of the masked stream: the payload scored chunk by chunk
-    against every query, unprobed buckets and dead slots masked to +inf,
-    per-``w``-slot block minima ``[B, n_bkt * L / w]``."""
-    n_bkt, L = slot_ids.shape
-    b = probes.shape[0]
-    dev = slot_ids.device
-    row_bytes = sum(
-        int(np.prod(x.shape[2:])) * x.element_size() for x in payload
-    )
-    chunk = max(1, min(n_bkt, _STREAM_CHUNK_BYTES // max(L * row_bytes, 1)))
-    pv = (
-        torch.ones(probes.shape, dtype=torch.bool, device=dev)
-        if probe_valid is None else probe_valid
-    )
-    bms = []
-    for c0 in range(0, n_bkt, chunk):
-        c = min(chunk, n_bkt - c0)
-        dist = chunk_score(tuple(p[c0 : c0 + c] for p in payload))  # [B, c*L]
-        local = probes - c0
-        inside = (local >= 0) & (local < c) & pv
-        # out-of-chunk and invalid probes land in a spare column: every
-        # write is True, so repeated indices cannot race
-        hit = torch.zeros((b, c + 1), dtype=torch.bool, device=dev)
-        hit.scatter_(1, torch.where(inside, local, c), True)
-        valid = (slot_ids[c0 : c0 + c].reshape(1, c * L) >= 0) & (
-            hit[:, :c].repeat_interleave(L, dim=1)
-        )
-        dist = torch.where(valid, dist, _INF)
-        bms.append(dist.reshape(b, c * L // w, w).amin(dim=-1))
-    return torch.cat(bms, dim=1)
-
-
-def _ivf_blockmin(
-    probes,  # [B, nprobe] bucket ranks
-    slot_ids,  # [n_bkt, L] db row ids, -1 padding
-    payload,  # tuple of [n_bkt, L, ...] tensors streamed chunk-wise
-    chunk_score,  # (payload_chunk) -> dist [B, C*L] f32 (index scoring)
-    block_rescore,  # (payload_blocks [B, nb, w, ...]) -> exact f32 [B, nb, w]
-    k: int,
-    w: int = _BLOCKMIN_W,
-    slack: int = _BLOCKMIN_SLACK,
-    probe_valid=None,  # [B, nprobe] bool: masked probe slots stay unprobed
-):
-    """IVF search as a masked payload stream + blockmin certificate.
-
-    Stage 1 (:func:`_masked_minima`) scores the payload chunk by chunk
-    against every query, masks unprobed buckets and dead slots to +inf and
-    keeps per-``w``-slot block minima. Stage 2 keeps the top ``k + slack``
-    blocks, which provably hold the top-k probed slots under the index
-    scoring, and rescores them exactly. ``L`` is a multiple of ``w``, so
-    blocks never straddle buckets.
-    """
-    bmins = _masked_minima(probes, slot_ids, payload, chunk_score, w, probe_valid)
-    b = probes.shape[0]
-    nb = min(k + slack, bmins.shape[1])
-    blk_ids = torch.arange(bmins.shape[1], device=slot_ids.device).expand(b, -1)
-    blk_vals, blk = _smallest_blocks(bmins, blk_ids, nb)
-    return _rescore_blocks(blk, blk_vals, slot_ids, payload, block_rescore, k, w)
 
 
 def _fused_w(L: int) -> int:
@@ -430,6 +261,203 @@ def _use_fused(n_bkt: int, L: int) -> int:
     if not w or n_bkt % 8:
         return 0
     return w
+
+
+def ivf_route(b: int, nprobe: int, n_buckets: int, bucket_len: int) -> str:
+    """The regime an IVF search of ``b`` queries, ``nprobe`` probes each,
+    takes over ``n_buckets`` buckets of ``bucket_len`` slots:
+    ``probe_scan``, ``fused_k1`` or ``masked_stream``."""
+    if not _use_stream(b, min(nprobe, n_buckets), n_buckets):
+        return "probe_scan"
+    return "fused_k1" if _use_fused(n_buckets, bucket_len) else "masked_stream"
+
+
+@dataclass(frozen=True)
+class ListCoding:
+    """What one search needs of a list coding, built per call.
+
+    ``rows [n_bkt, L, d']`` are the scored rows (f32 or bf16 IVF-Flat
+    lists, IVF-PQ's bf16 reconstructions, IVF-SQ8's u8 codes) and
+    ``sqnorms [n_bkt, L]`` the f32 squared norms of the vectors they
+    decode to; ``queries [B, d]`` are the f32 queries as searched. With
+    IVF-SQ8's ``vmin`` and ``step`` a row decodes to ``vmin + code *
+    step``; otherwise it is its own vector. ``slot_pen [n_bkt, L]`` is an
+    additive per-slot penalty (0 = allowed, +inf = filtered).
+    """
+
+    rows: torch.Tensor
+    sqnorms: torch.Tensor
+    queries: torch.Tensor
+    vmin: Optional[torch.Tensor] = None
+    step: Optional[torch.Tensor] = None
+    slot_pen: Optional[torch.Tensor] = None
+
+    def index_queries(self) -> torch.Tensor:
+        """The ``[B, d']`` queries the index scoring dots with the rows: f32
+        against f32 rows, else rounded to bf16; IVF-SQ8 folds its decode
+        into them as ``q * step`` (u8 codes are exact in any float type)."""
+        q = self.queries if self.step is None else self.queries * self.step[None, :]
+        return q if self.rows.dtype == torch.float32 else q.to(torch.bfloat16)
+
+    def decode(self, rows: torch.Tensor) -> torch.Tensor:
+        """Freshly gathered rows ``[..., d']`` as exact f32 vectors (the
+        gathered copy itself where the rows are f32)."""
+        v32 = rows.float()
+        return v32 if self.step is None else v32.mul_(self.step).add_(self.vmin)
+
+
+def _index_score(coding: ListCoding, metric: str):
+    """The masked stream's and the probe scan's index scoring:
+    ``(q, score)``, where ``q`` are the index queries as f32 and
+    ``score(dots, pick)`` turns their products ``dots [B, ...]`` with some
+    slots' rows into ``||q||^2 + ||x||^2 - 2 q.x`` (l2) or ``-q.x`` (ip),
+    IVF-SQ8's per-query ``q . vmin`` added to the dot and ``slot_pen`` to
+    the score; ``pick`` takes those slots' entries of an ``[n_bkt, L]``
+    table."""
+    q = coding.index_queries().float()
+    offset = None if coding.vmin is None else coding.queries @ coding.vmin
+    qn = torch.sum(coding.queries * coding.queries, dim=-1) if metric == "l2" else None
+
+    def score(dots, pick):
+        lead = (-1,) + (1,) * (dots.dim() - 1)
+        if offset is not None:
+            dots = dots + offset.reshape(lead)
+        dist = -dots if qn is None else qn.reshape(lead) + pick(coding.sqnorms) - 2.0 * dots
+        return dist if coding.slot_pen is None else dist + pick(coding.slot_pen)
+
+    return q, score
+
+
+def _smallest_blocks(vals: torch.Tensor, blk: torch.Tensor, nb: int):
+    """The ``nb`` smallest block minima of each row of ``vals [B, M]``,
+    equal minima taken in ascending global block id ``blk [B, M]``
+    (distinct in a row, < 2^31): ``(values, positions)`` ``[B, nb]``.
+
+    Equal minima are common where quantised rows repeat (PQ codes collapse
+    a tight cluster to one reconstruction, every block holding a member
+    gets the same minimum), and a top-k's own tie order differs between the
+    card and the host: :func:`~vectordb_retrieval_tpu_torch.ops.distances.
+    top_k_smallest_by_id` has no ties.
+    """
+    return dops.top_k_smallest_by_id(vals, blk, nb)
+
+
+def _exact_scores(v32, queries, metric):
+    """Exact scores of fresh ``[B, nb, w, d]`` f32 blocks (updated in
+    place): squared L2 as a difference sum (l2) or the negated dot (ip),
+    elementwise in f32, never a product."""
+    if metric == "l2":
+        v32.sub_(queries[:, None, None, :])
+        return torch.sum(v32.mul_(v32), dim=-1)
+    return -torch.sum(v32.mul_(queries[:, None, None, :]), dim=-1)
+
+
+def _block_scorer(coding: ListCoding, slot_ids: torch.Tensor, w: int, metric: str):
+    """Stage 3's scorer ``(blk [B, nb], blk_vals [B, nb]) -> (cd [B, nb w],
+    cand [B, nb w])``: the exact scores and row ids of every slot of the
+    selected ``w``-slot blocks, ``+inf`` on dead slots and on blocks with
+    an infinite minimum (a query with fewer probed blocks than selected).
+
+    Where the call sees bf16 rows, int32 slot ids and no ``slot_pen``, one
+    launch of :func:`~vectordb_retrieval_tpu_torch.ops.kernels.
+    ivf_block_rescore` reads the selected blocks straight from the lists;
+    otherwise the blocks are gathered, decoded (:meth:`ListCoding.decode`)
+    and rescored elementwise.
+    """
+    rows, queries, pen = coding.rows, coding.queries, coding.slot_pen
+    d = rows.shape[-1]
+    if rows.dtype == torch.bfloat16 and slot_ids.dtype == torch.int32 and pen is None:
+        q = queries.float().contiguous()
+        flat_rows, flat_ids = rows.reshape(-1, d), slot_ids.reshape(-1)
+        kmetric = "l2" if metric == "l2" else "ip"
+
+        def kernel(blk, blk_vals):
+            return kernels.ivf_block_rescore(q, flat_rows, flat_ids, blk, blk_vals.contiguous(),
+                                             w, kmetric)
+
+        return kernel
+
+    def gathered(blk, blk_vals):
+        b, nb = blk.shape
+        cand = slot_ids.reshape(-1, w)[blk]  # [B, nb, w]
+        cd = _exact_scores(coding.decode(rows.reshape(-1, w, d)[blk]), queries, metric)
+        if pen is not None:
+            cd = cd + pen.reshape(-1, w)[blk]
+        cd = torch.where(torch.isfinite(blk_vals)[:, :, None], cd, _INF)
+        cd = torch.where(cand >= 0, cd, _INF).reshape(b, nb * w)
+        return cd, cand.reshape(b, nb * w)
+
+    return gathered
+
+
+def _rescore_blocks(
+    blk: torch.Tensor,  # [B, nb] selected global block ids
+    blk_vals: torch.Tensor,  # [B, nb] their block minima (+inf = unprobed)
+    scorer: Callable,  # a _block_scorer
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Last stage of both streams: score the selected blocks exactly
+    (:func:`_block_scorer`), keep the top k."""
+    with span("vrt.rescore"):
+        cd, cand = scorer(blk, blk_vals)
+        vals, sel = dops.top_k_smallest(cd, k)
+        ids = torch.gather(cand, 1, sel).long()
+        return vals, torch.where(torch.isfinite(vals), ids, -1)
+
+
+def _masked_minima(probes, probe_valid, slot_ids, coding: ListCoding, metric: str,
+                   w: int = _BLOCKMIN_W):
+    """Stage 1 of the masked stream: the rows scored chunk by chunk against
+    every query (an f32 product, :func:`_index_score`), unprobed buckets
+    and dead slots masked to +inf, per-``w``-slot block minima ``[B, n_bkt
+    * L / w]``. A chunk streams at most ``_STREAM_CHUNK_BYTES`` of rows,
+    norms and penalties."""
+    n_bkt, L = slot_ids.shape
+    b = probes.shape[0]
+    dev = slot_ids.device
+    q, score = _index_score(coding, metric)
+    tables = [t for t in (coding.rows, coding.sqnorms, coding.slot_pen) if t is not None]
+    row_bytes = sum(int(np.prod(t.shape[2:])) * t.element_size() for t in tables)
+    chunk = max(1, min(n_bkt, _STREAM_CHUNK_BYTES // max(L * row_bytes, 1)))
+    pv = (
+        torch.ones(probes.shape, dtype=torch.bool, device=dev)
+        if probe_valid is None else probe_valid
+    )
+    bms = []
+    for c0 in range(0, n_bkt, chunk):
+        c = min(chunk, n_bkt - c0)
+        rows = coding.rows[c0 : c0 + c].reshape(c * L, -1)
+        dist = score(q @ rows.float().T, lambda t: t[c0 : c0 + c].reshape(1, -1))  # [B, c*L]
+        local = probes - c0
+        inside = (local >= 0) & (local < c) & pv
+        # out-of-chunk and invalid probes land in a spare column: every
+        # write is True, so repeated indices cannot race
+        hit = torch.zeros((b, c + 1), dtype=torch.bool, device=dev)
+        hit.scatter_(1, torch.where(inside, local, c), True)
+        valid = (slot_ids[c0 : c0 + c].reshape(1, c * L) >= 0) & (
+            hit[:, :c].repeat_interleave(L, dim=1)
+        )
+        dist = torch.where(valid, dist, _INF)
+        bms.append(dist.reshape(b, c * L // w, w).amin(dim=-1))
+    return torch.cat(bms, dim=1)
+
+
+def _masked_stream(probes, probe_valid, slot_ids, coding: ListCoding, k: int, metric: str,
+                   w: int = _BLOCKMIN_W, slack: int = _BLOCKMIN_SLACK):
+    """IVF search as a masked payload stream + blockmin certificate.
+
+    Stage 1 (:func:`_masked_minima`) keeps per-``w``-slot block minima of
+    the probed slots' index scores. Stage 2 keeps the top ``k + slack``
+    blocks, which provably hold the top-k probed slots under the index
+    scoring, and stage 3 (:func:`_rescore_blocks`) rescores them exactly.
+    ``L`` is a multiple of ``w``, so blocks never straddle buckets.
+    """
+    bmins = _masked_minima(probes, probe_valid, slot_ids, coding, metric, w)
+    b = probes.shape[0]
+    nb = min(k + slack, bmins.shape[1])
+    blk_ids = torch.arange(bmins.shape[1], device=slot_ids.device).expand(b, -1)
+    blk_vals, blk = _smallest_blocks(bmins, blk_ids, nb)
+    return _rescore_blocks(blk, blk_vals, _block_scorer(coding, slot_ids, w, metric), k)
 
 
 def _fused_pen(slot_ids, list_sqnorms, metric, slot_pen=None) -> torch.Tensor:
@@ -464,85 +492,82 @@ def _probed_blocks(bm, probes, n_bkt, bpb, nb, probe_valid=None):
     return sel_vals, torch.gather(mem, 1, msel)
 
 
-def _ivf_probed_blockmin(
-    probes,  # [B, n_probe_buckets] bucket ranks (distinct per query)
-    slot_ids,  # [n_bkt, L] db row ids, -1 padding
-    q_kernel,  # [B, d'] queries for the kernel (f32; bf16 cast inside)
-    payload_kernel,  # [n_bkt*L, d'] flat payload (f32 | bf16 | u8)
-    pen,  # [n_bkt*L] f32 per-slot constant (+inf = dead/filtered slot)
-    rescore_payload,  # tuple of [n_bkt, L, ...] tensors for exact rescoring
-    block_rescore,  # ([B, nb, w, ...] blocks) -> exact f32 [B, nb, w]
-    k: int,
-    w: int,
-    slack: int = _BLOCKMIN_SLACK,
-    probe_valid=None,  # [B, nprobe] bool: masked probe slots stay unprobed
-):
+def _fused_stream(probes, probe_valid, slot_ids, coding: ListCoding, k: int, metric: str,
+                  slack: int = _BLOCKMIN_SLACK):
     """IVF search as ONE fused payload stream + probed blockmin selection.
 
-    Stage 1 is one launch of the hand-written kernel over the whole
-    payload: per-``w``-slot minima of the index scoring, with no ``[B, S]``
-    matrix and no per-query masking. Stage 2 (:func:`_probed_blocks`)
-    narrows each query to its probed buckets' minima and keeps the top
-    ``k + slack``; stage 3 (:func:`_rescore_blocks`) rescores their rows
-    exactly. Unprobed buckets are never candidates: the same recall
-    semantics as :func:`_ivf_blockmin`. Layout contract: ``L % w == 0``.
+    Stage 1 is one launch of the hand-written kernel
+    :func:`~vectordb_retrieval_tpu_torch.ops.kernels.dist_blockmin` over
+    the whole payload: per-``w``-slot minima of the index scoring, the pen
+    made from the norms and the metric (:func:`_fused_pen`), with no
+    ``[B, S]`` matrix and no per-query masking; per-query constants (SQ8's
+    ``q . vmin`` among them) are omitted, which is rank-safe. Stage 2
+    (:func:`_probed_blocks`) narrows each query to its probed buckets'
+    minima and keeps the top ``k + slack``; stage 3
+    (:func:`_rescore_blocks`) rescores their rows exactly. Unprobed
+    buckets are never candidates: the same recall semantics as
+    :func:`_masked_stream`. Layout contract: ``L % w == 0``.
     """
     n_bkt, L = slot_ids.shape
+    w = _fused_w(L)
+    pen = _fused_pen(slot_ids, coding.sqnorms, metric, coding.slot_pen)
     bm = kernels.dist_blockmin(
-        q_kernel, payload_kernel, pen.reshape(-1, w), w=w
-    )  # [B, S/w] shifted minima (per-query constants omitted — rank-safe)
+        coding.index_queries(), coding.rows.reshape(n_bkt * L, -1), pen.reshape(-1, w), w=w
+    )  # [B, S/w] shifted minima
     sel_vals, blk = _probed_blocks(bm, probes, n_bkt, L // w, k + slack, probe_valid)
-    return _rescore_blocks(blk, sel_vals, slot_ids, rescore_payload, block_rescore, k, w)
+    return _rescore_blocks(blk, sel_vals, _block_scorer(coding, slot_ids, w, metric), k)
 
 
-def _exact_scores(v32, queries, metric):
-    """Exact scores of fresh ``[B, nb, w, d]`` f32 blocks (updated in
-    place): squared L2 as a difference sum (l2) or the negated dot (ip),
-    elementwise in f32, never a product."""
-    if metric == "l2":
-        v32.sub_(queries[:, None, None, :])
-        return torch.sum(v32.mul_(v32), dim=-1)
-    return -torch.sum(v32.mul_(queries[:, None, None, :]), dim=-1)
+def _probe_scan(probes, probe_valid, slot_ids, coding: ListCoding, k: int, metric: str):
+    """IVF search as a loop over probe GROUPS: each query's probed buckets
+    gathered ``G`` at a time and scored (:func:`_index_score`), merged
+    into a running top-k. ``G`` keeps the ``[B, G, L, d']`` gather within
+    ``_PROBE_GROUP_BYTES``."""
+    b, nprobe = probes.shape
+    L = slot_ids.shape[1]
+    dev = probes.device
+    rows = coding.rows
+    q, score = _index_score(coding, metric)
+    cap = _PROBE_GROUP_BYTES // max(b * L * rows.shape[-1] * rows.element_size(), 1)
+    group = int(max(1, min(nprobe, cap)))
+    steps = -(-nprobe // group)
+    pad = steps * group - nprobe
+    if probe_valid is None:
+        probe_valid = torch.ones((b, nprobe), dtype=torch.bool, device=dev)
+    probes_p = torch.cat(
+        [probes, torch.zeros((b, pad), dtype=probes.dtype, device=dev)], dim=1
+    ).reshape(b, steps, group)
+    valid_p = torch.cat(
+        [probe_valid, torch.zeros((b, pad), dtype=torch.bool, device=dev)], dim=1
+    ).reshape(b, steps, group)
+    best_d = torch.full((b, k), _INF, dtype=torch.float32, device=dev)
+    best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
+    for s in range(steps):
+        lists = probes_p[:, s]  # [B, G]
+        dots = torch.einsum("bgld,bd->bgl", rows[lists].float(), q)
+        dist = score(dots, lambda t: t[lists]).reshape(b, -1)  # [B, G*L]
+        ids = slot_ids[lists].reshape(b, -1).long()
+        ids = torch.where(valid_p[:, s].repeat_interleave(L, dim=1), ids, -1)
+        dist = torch.where(ids >= 0, dist, _INF)
+        # +inf with a real id happens under slot_pen (a filtered slot):
+        # drop the id too, so no later rescore revives the row
+        ids = torch.where(torch.isfinite(dist), ids, -1)
+        best_d, sel = dops.top_k_smallest(torch.cat([best_d, dist], dim=1), k)
+        best_i = torch.gather(torch.cat([best_i, ids], dim=1), 1, sel)
+    return best_d, best_i
 
 
-def _flat_block_rescore(queries, metric, slot_pen=False):
-    """``block_rescore`` of IVF-Flat: blocks ``(vecs[, slot_pen])``."""
-
-    def rescore(pl):
-        cd = _exact_scores(pl[0].float(), queries, metric)
-        return cd + pl[1] if slot_pen else cd
-
-    return rescore
-
-
-def _sq_block_rescore(queries, vmin, step, metric):
-    """``block_rescore`` of IVF-SQ8: blocks ``(codes,)``, decoded exactly
-    as ``vmin + code * step``."""
-
-    def rescore(pl):
-        return _exact_scores(pl[0].float().mul_(step).add_(vmin), queries, metric)
-
-    return rescore
-
-
-def _flat_chunk_score(q_cast, qn, metric):
-    """``chunk_score`` of the IVF-Flat masked stream: payload chunks
-    ``(vecs [c, L, d], sqn [c, L][, slot_pen [c, L]])`` -> ``[B, c * L]``
-    scores, an f32 product (TF32 off) with the per-slot penalty added."""
-
-    def chunk_score(pl):
-        vecs, sqn, *pen = pl
-        c, L = sqn.shape
-        dots = q_cast.float() @ vecs.reshape(c * L, -1).float().T
-        if metric == "l2":
-            dist = qn[:, None] + sqn.reshape(1, -1) - 2.0 * dots
-        else:
-            dist = -dots
-        if pen:
-            dist = dist + pen[0].reshape(1, -1)
-        return dist
-
-    return chunk_score
+def _search_lists(probes, probe_valid, slot_ids, coding: ListCoding, k: int, metric: str):
+    """IVF search of one list coding under the probes, ``(dists [B, k],
+    ids [B, k] int64)``: the regime chosen once (:func:`ivf_route`) and
+    every part of it derived from the coding."""
+    n_bkt, L = slot_ids.shape
+    route = ivf_route(probes.shape[0], probes.shape[1], n_bkt, L)
+    if route == "fused_k1":
+        return _fused_stream(probes, probe_valid, slot_ids, coding, k, metric)
+    if route == "masked_stream":
+        return _masked_stream(probes, probe_valid, slot_ids, coding, k, metric)
+    return _probe_scan(probes, probe_valid, slot_ids, coding, k, metric)
 
 
 def _final_rescore(queries, full_vectors, ids, k, metric):
@@ -575,65 +600,17 @@ def ivf_flat_search(
     bf16 lists score candidates on the compressed copies (queries rounded
     to bf16); with ``full_vectors`` the best ``k + 8`` are rescored exactly
     against the f32 rows. ``slot_pen`` is a per-slot additive penalty
-    (0 = allowed, +inf = filtered) applied before any top-k. Both streams
-    rescore the selected blocks of unfiltered bf16 lists in one kernel
-    launch (:class:`_KernelRescore`); other lists take the gathered chain.
+    (0 = allowed, +inf = filtered) applied before any top-k.
     """
     probes, pvalid = _probes(
         queries, centroids, nprobe, bucket_lists, nlist, nprobe_lists,
         list_centroids,
     )
-    b = queries.shape[0]
-    n_bkt, L = slot_ids.shape
-    qn = torch.sum(queries * queries, dim=-1)
     compressed = list_vecs.dtype != torch.float32 and full_vectors is not None
     # the k+8 overfetch is the bf16-noise margin
-    fetch_k = k + 8 if compressed else k
-    q_cast = queries.to(list_vecs.dtype)
-    if _use_kernel_rescore(list_vecs, slot_ids, slot_pen):
-        block_rescore = masked_rescore = _KernelRescore(queries, metric)
-    else:
-        block_rescore = _flat_block_rescore(queries, metric, slot_pen is not None)
-
-        def masked_rescore(pl):  # the stream's payload holds the norms second
-            return block_rescore((pl[0],) + tuple(pl[2:]))
-
-    if _use_stream(b, probes.shape[1], n_bkt):
-        fw = _use_fused(n_bkt, L)
-        if fw:
-            dists, ids = _ivf_probed_blockmin(
-                probes, slot_ids, queries, list_vecs.reshape(n_bkt * L, -1),
-                _fused_pen(slot_ids, list_sqnorms, metric, slot_pen),
-                (list_vecs,) if slot_pen is None else (list_vecs, slot_pen),
-                block_rescore, fetch_k, fw, probe_valid=pvalid,
-            )
-        else:
-            dists, ids = _ivf_blockmin(
-                probes, slot_ids,
-                (list_vecs, list_sqnorms) if slot_pen is None
-                else (list_vecs, list_sqnorms, slot_pen),
-                _flat_chunk_score(q_cast, qn, metric),
-                masked_rescore, fetch_k, probe_valid=pvalid,
-            )
-    else:
-        def score(lists):
-            bq = lists.shape[0]
-            dots = torch.einsum(
-                "bgld,bd->bgl", list_vecs[lists].float(), q_cast.float()
-            )
-            if metric == "l2":
-                dist = qn[:, None, None] + list_sqnorms[lists] - 2.0 * dots
-            else:
-                dist = -dots
-            if slot_pen is not None:
-                dist = dist + slot_pen[lists]
-            return dist.reshape(bq, -1), slot_ids[lists].reshape(bq, -1).long()
-
-        dists, ids = _probe_scan(
-            probes, fetch_k, score,
-            bucket_len=L, row_bytes=list_vecs.shape[-1] * list_vecs.element_size(),
-            valid=pvalid,
-        )
+    coding = ListCoding(list_vecs, list_sqnorms, queries, slot_pen=slot_pen)
+    dists, ids = _search_lists(probes, pvalid, slot_ids, coding, k + 8 if compressed else k,
+                               metric)
     if compressed:
         return _final_rescore(queries, full_vectors, ids, k, metric)
     return dists, ids
@@ -726,65 +703,33 @@ def ivf_pq_search(
 
     Resident regime (the bf16 reconstruction within ``resident_budget``):
     every list is decoded once per call (:func:`decode_resident`, query-
-    independent), then searched as bf16 IVF-Flat lists: the fused stream
-    (K1 bf16 over the reconstructions, ``pen = ||x_hat||^2`` for l2, 0
-    for ip, +inf on dead slots; selected blocks rescored exactly against
-    the bf16 rows), the masked stream, or the probe scan, chosen as for
-    IVF-Flat. Streaming regime: chunks of ``chunk_budget`` bytes are
-    decoded, scored against every query with a bf16 product, masked to the
-    probed buckets and merged into a running top-k.
+    independent), then searched as bf16 IVF-Flat lists by
+    :func:`_search_lists`: the fused stream (K1 bf16 over the
+    reconstructions, ``pen = ||x_hat||^2`` for l2, 0 for ip, +inf on dead
+    slots; selected blocks rescored exactly against the bf16 rows by
+    ``kernels.ivf_block_rescore``), the masked stream, or the probe scan.
+    Streaming regime: chunks of ``chunk_budget`` bytes are decoded, scored
+    against every query with a bf16 product, masked to the probed buckets
+    and merged into a running top-k (the one loop no other coding shares).
     """
     probes, pvalid = _probes(
         queries, centroids, nprobe, bucket_lists, nlist, nprobe_lists,
         list_centroids,
     )
-    b = queries.shape[0]
     n_bkt, L, _ = list_codes.shape
     d = centroids.shape[1]
-    qn = torch.sum(queries * queries, dim=-1)
-    q_bf = queries.to(torch.bfloat16)
-
     if n_bkt * L * d * 2 <= resident_budget:
         recon, recon_sqn = decode_resident(
             list_codes, centroids, codebooks, list_rotations, rot_bucket_lists
         )
-        block_rescore = _flat_block_rescore(queries, metric)
-        if _use_stream(b, probes.shape[1], n_bkt):
-            fw = _use_fused(n_bkt, L)
-            if fw:
-                return _ivf_probed_blockmin(
-                    probes, slot_ids, q_bf, recon.reshape(n_bkt * L, d),
-                    _fused_pen(slot_ids, recon_sqn, metric), (recon,),
-                    block_rescore, k, fw, probe_valid=pvalid,
-                )
-
-            def chunk_score(pl):
-                vecs, sqn = pl
-                dots = q_bf.float() @ vecs.reshape(-1, d).float().T
-                if metric == "l2":
-                    return qn[:, None] + sqn.reshape(1, -1) - 2.0 * dots
-                return -dots
-
-            return _ivf_blockmin(
-                probes, slot_ids, (recon, recon_sqn), chunk_score,
-                lambda pl: block_rescore((pl[0],)), k, probe_valid=pvalid,
-            )
-
-        def score(lists):
-            bq = lists.shape[0]
-            dots = torch.einsum("bgld,bd->bgl", recon[lists].float(), q_bf.float())
-            if metric == "l2":
-                dist = qn[:, None, None] + recon_sqn[lists] - 2.0 * dots
-            else:
-                dist = -dots
-            return dist.reshape(bq, -1), slot_ids[lists].reshape(bq, -1).long()
-
-        return _probe_scan(
-            probes, k, score, bucket_len=L, row_bytes=d * 2, valid=pvalid,
-        )
+        return _search_lists(probes, pvalid, slot_ids, ListCoding(recon, recon_sqn, queries),
+                             k, metric)
 
     # streaming regime: decoded chunks in a bounded transient
+    b = queries.shape[0]
     dev = queries.device
+    qn = torch.sum(queries * queries, dim=-1)
+    q_bf = queries.to(torch.bfloat16)
     chunk = max(1, min(n_bkt, chunk_budget // max(L * d * 2, 1)))
     pv = torch.ones(probes.shape, dtype=torch.bool, device=dev) if pvalid is None else pvalid
     best_d = torch.full((b, k), _INF, dtype=torch.float32, device=dev)
@@ -843,48 +788,5 @@ def ivf_sq_search(
         queries, centroids, nprobe, bucket_lists, nlist, nprobe_lists,
         list_centroids,
     )
-    b = queries.shape[0]
-    n_bkt, L = slot_ids.shape
-    qn = torch.sum(queries * queries, dim=-1)
-    q_scaled = (queries * step[None, :]).to(torch.bfloat16)
-    q_vmin = queries @ vmin  # [B]
-    block_rescore = _sq_block_rescore(queries, vmin, step, metric)
-
-    if _use_stream(b, probes.shape[1], n_bkt):
-        fw = _use_fused(n_bkt, L)
-        if fw:
-            return _ivf_probed_blockmin(
-                probes, slot_ids, q_scaled, list_codes.reshape(n_bkt * L, -1),
-                _fused_pen(slot_ids, list_sqnorms, metric),
-                (list_codes,), block_rescore, k, fw, probe_valid=pvalid,
-            )
-
-        def chunk_score(pl):
-            codes, sqn = pl
-            c, _, d = codes.shape
-            dots = q_scaled.float() @ codes.reshape(c * L, d).float().T
-            dots += q_vmin[:, None]
-            if metric == "l2":
-                return qn[:, None] + sqn.reshape(1, -1) - 2.0 * dots
-            return -dots
-
-        return _ivf_blockmin(
-            probes, slot_ids, (list_codes, list_sqnorms), chunk_score,
-            lambda pl: block_rescore((pl[0],)), k, probe_valid=pvalid,
-        )
-
-    def score(lists):
-        bq = lists.shape[0]
-        dots = torch.einsum(
-            "bgld,bd->bgl", list_codes[lists].float(), q_scaled.float()
-        ) + q_vmin[:, None, None]
-        if metric == "l2":
-            dist = qn[:, None, None] + list_sqnorms[lists] - 2.0 * dots
-        else:
-            dist = -dots
-        return dist.reshape(bq, -1), slot_ids[lists].reshape(bq, -1).long()
-
-    return _probe_scan(
-        probes, k, score,
-        bucket_len=L, row_bytes=list_codes.shape[-1], valid=pvalid,
-    )
+    coding = ListCoding(list_codes, list_sqnorms, queries, vmin=vmin, step=step)
+    return _search_lists(probes, pvalid, slot_ids, coding, k, metric)

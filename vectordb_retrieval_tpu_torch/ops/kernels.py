@@ -44,10 +44,11 @@ lives in a tuning probe, and K6 and the IVF rescore, which replace plain
     (one warp a (query, block) pair, 16-byte loads, a butterfly over the
     rows' partial sums; on the CUDA cores: the step is bound by the bytes
     of the selected blocks).
-  * :func:`ivf_block_rescore` — the same step for IVF-Flat over bf16 lists:
-    each selected block's rows read straight from the bucketed list
-    payload, widened exactly to f32 and rescored elementwise, with the
-    slots' row ids; dead slots and never-probed pairs masked. Replaces no
+  * :func:`ivf_block_rescore` — the same step for IVF over bf16 rows
+    (IVF-Flat's bf16 lists, IVF-PQ's resident reconstructions): each
+    selected block's rows read straight from the bucketed list payload,
+    widened exactly to f32 and rescored elementwise, with the slots' row
+    ids; dead slots and never-probed pairs masked. Replaces no
     Pallas kernel: the JAX package does this step as plain ``jnp`` ops
     (``vectordb_retrieval_tpu/ops/ivf.py``, stage 3 of
     ``_ivf_probed_blockmin`` and ``_ivf_blockmin``). CUDA C++ source: its

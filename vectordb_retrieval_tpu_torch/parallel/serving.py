@@ -34,7 +34,7 @@ from vectordb_retrieval_tpu_torch.ops import distances as dops
 from vectordb_retrieval_tpu_torch.ops import ivf as ivfops
 from vectordb_retrieval_tpu_torch.ops.kmeans import kmeans_assign, kmeans_fit
 from vectordb_retrieval_tpu_torch.parallel.mesh import Mesh, ShardedTensor
-from vectordb_retrieval_tpu_torch.parallel.sharded_ivf import fan_out, ivf_route
+from vectordb_retrieval_tpu_torch.parallel.sharded_ivf import fan_out
 from vectordb_retrieval_tpu_torch.serving import (
     _ID_LIMIT,
     _allow_penalty,
@@ -577,7 +577,7 @@ class ShardedMutableIVF:
     # -- search ---------------------------------------------------------
     def route(self, n_queries: int, nprobe: int = 0) -> str:
         """The regime each shard's ``ivf_flat_search`` takes for a batch."""
-        return ivf_route(n_queries, int(nprobe or self.nprobe), self._capB_local, self._L)
+        return ivfops.ivf_route(n_queries, int(nprobe or self.nprobe), self._capB_local, self._L)
 
     def device_search(self, qd: torch.Tensor, k: int, nprobe: int = 0, filter_ids=None):
         """Device queries in, device ``(dists, stable ids)`` out."""

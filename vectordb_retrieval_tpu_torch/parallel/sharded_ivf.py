@@ -118,14 +118,6 @@ def shard_devices(mesh: Mesh, axis: Axis) -> Dict[int, torch.device]:
     return {s: out.get(s, mesh.first_device) for s in range(mesh.size(axis))}
 
 
-def ivf_route(b: int, nprobe: int, n_buckets: int, bucket_len: int) -> str:
-    """The regime a shard's IVF search takes (``ops/ivf``): ``fused_k1``,
-    ``masked_stream`` or ``probe_scan``."""
-    if not ivfops._use_stream(b, min(nprobe, n_buckets), n_buckets):
-        return "probe_scan"
-    return "fused_k1" if ivfops._use_fused(n_buckets, bucket_len) else "masked_stream"
-
-
 def _np_coarse(centroids, bucket_lists) -> np.ndarray:
     """Host ``ops/ivf.coarse_table``: dead buckets (list -1) get 1e9 rows."""
     c = np.asarray(centroids)

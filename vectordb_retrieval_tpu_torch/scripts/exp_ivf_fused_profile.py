@@ -2,7 +2,7 @@
 surrogate.
 
 Builds ``IVF1024,Flat`` (bf16 lists) on the surrogate, then times
-cumulative stages of ``ops/ivf._ivf_probed_blockmin``:
+cumulative stages of ``ops/ivf._fused_stream``:
   1. coarse probes (``exact_probe_mask``)
   2. + kernel stream (kernel K1, bf16 mode, ``ops/kernels.dist_blockmin``)
   3. + probed blockmin gather + selection

@@ -781,9 +781,8 @@ class MutableIVFIndex:
         ``fused`` (one K1 f32 launch over the whole payload), ``masked``
         (the masked stream, ``torch.matmul``) or ``probe_scan``."""
         physical, L = self._slot_ids.shape
-        if not ivfops._use_stream(n_queries, self.probe_budget(nprobe), int(physical)):
-            return "probe_scan"
-        return "fused" if ivfops._use_fused(int(physical), int(L)) else "masked"
+        route = ivfops.ivf_route(n_queries, self.probe_budget(nprobe), int(physical), int(L))
+        return {"fused_k1": "fused", "masked_stream": "masked"}.get(route, route)
 
     def device_search(self, qd: torch.Tensor, k: int, nprobe: Optional[int] = None,
                       filter_ids=None):

@@ -27,10 +27,10 @@ of that op (ground truth, the cover tree's exact fallback), inside a
 ``vrt.search`` only where a searcher called it. The spans, in the order a
 request opens them:
 
-  * ``vrt.h2d``: the query upload in ``device_batch_search``
-    (``LinearSearcher``, ``ANNSearcher``);
-  * ``vrt.search``: ``device_kernel`` in the same two methods, every search
-    op enqueued;
+  * ``vrt.h2d``: the query upload in ``models/base.host_search``, the
+    host entry of every searcher and of ``CoverTree``;
+  * ``vrt.search``: the device part there (a searcher's
+    ``device_kernel``), every search op enqueued;
   * ``vrt.seed``: the block beam's dense entry scan and its first
     frontier (``ops/graph.BlockBeam.seed``), inside ``vrt.search``;
   * ``vrt.wave``: one wave of the block beam (``pop``, ``score``: K2
@@ -42,11 +42,11 @@ request opens them:
     top-k of exact search's blockmin path
     (``ops/distances._exact_search_blockmin``), and the gather, exact
     rescore and top-k of IVF's ``_rescore_blocks`` (over unfiltered bf16
-    lists one kernel, ``kernels.ivf_block_rescore``, in place of the
+    rows one kernel, ``kernels.ivf_block_rescore``, in place of the
     gather and rescore) and ``_final_rescore`` (one span each), inside
     ``vrt.search``;
   * ``vrt.d2h``: the copies back to NumPy and the padding in
-    ``batch_search``: the wait for the card and the copies.
+    ``host_search``: the wait for the card and the copies.
 """
 
 from __future__ import annotations
