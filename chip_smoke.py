@@ -3133,12 +3133,55 @@ def _slab_dots_numbers(q, lv, sel) -> dict:
     }
 
 
+def _beam_graph_numbers(q, data, geometry: dict, name: str) -> dict:
+    """The block beam of one batch eager (``BlockBeam.run``) and replayed
+    (``block_graph_search``'s CUDA graphs): ms a batch on the host's clock,
+    each call synchronised, and on primed events; the block beam's calls
+    by how they ran over these calls. The replayed answers must equal the
+    eager ones bit for bit."""
+    import torch
+
+    from vectordb_retrieval_tpu_torch.ops import graph as gops
+    from vectordb_retrieval_tpu_torch.ops import kernels
+
+    index = (data["entries"], data["entry_block"], data["slot_ids"], data["list_vecs"],
+             data["list_sqnorms"], data["entry_adj"], data.get("list_mu"))
+
+    def eager():
+        return gops.BlockBeam(q, *index, **geometry).run()
+
+    def replayed():
+        return gops.block_graph_search(q, *index, **geometry)
+
+    def wall_ms(fn, reps: int = 20) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    before = dict(kernels.BEAM_CALLS)
+    for _ in range(3):  # a new key runs eagerly, then captures, then replays
+        replayed()
+    want, got = eager(), replayed()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"{name}: the replayed block beam differs from the eager one")
+    out = {"beam_eager_ms": wall_ms(eager), "beam_replayed_ms": wall_ms(replayed),
+           "beam_eager_device_ms": time_ms(eager, prime=True),
+           "beam_replayed_device_ms": time_ms(replayed, prime=True)}
+    out["beam_calls"] = {k: v - before[k] for k, v in kernels.BEAM_CALLS.items()}
+    return out
+
+
 def phase_graph_throughput(card: str, path_name: str, row: str, info) -> dict:
     """One graph row: QPS over its queries (the clock stops with the ids on
     the host), then one batch's device time by stage, each stage timed on
     the inputs the search gives it (primed events), and slab_dots on every
     wave's own inputs beside its plain version, the library product and the
-    card's bound."""
+    card's bound. A block-mode row adds the beam eager and replayed from
+    its CUDA graphs (``_beam_graph_numbers``)."""
     import torch
 
     from vectordb_retrieval_tpu_torch.models import graph as gm
@@ -3193,6 +3236,10 @@ def phase_graph_throughput(card: str, path_name: str, row: str, info) -> dict:
         stage_ids = beam.result(st)[1]
         out.update({"efb": efb, "expand": expand, "iters": iters,
                     "seed_ms": seed_ms, "waves": waves, "result_ms": result_ms})
+        out.update(_beam_graph_numbers(
+            q, data, dict(k=k, efb=efb, expand=expand, iters=iters, metric=metric,
+                          dedup=float(meta.get("spill", 0.0)) > 0.0),
+            f"{path_name}/{row}"))
     else:
         n = int(meta["n_vectors"])
         degree = int(meta.get("degree", data["adjacency"].shape[1]))
@@ -4339,6 +4386,9 @@ def phase_graph_stream(card: str, sift, worst: dict) -> dict:
         "index_memory_mb": algo.artifact.device_nbytes() / 2**20, "launches": launches,
     }
     emit(out)
+    # LAUNCHES["slab_dots"] ticks where the block beam runs eagerly or
+    # captures its graphs, not where it replays them: the search's first
+    # call of its shape runs eagerly
     ok = (meta.get("built_streaming") and meta["mode"] == "block"
           and recall >= row["recall"] - GRAPH_STREAM_MARGIN
           and launches["slab_dots"] >= 1 and launches["assign"] >= 1)
@@ -6061,6 +6111,8 @@ def _main(launcher) -> int:
         "library_ms": k3["library_ms"], "shape": k3["shape"],
         "other_shapes": [other(t, "assign_ms") for t in k3_dsub],
     })
+    # slab_dots' launches: the block beam's eager calls and captures (its
+    # replays launch nothing from the wrapper)
     entries.append({
         "name": "slab_dots", "route": "cuda", "source": src + "slab_dots.cu",
         "replaces": f"{tpu}:653", "also_replaces": f"{tpu}:460",

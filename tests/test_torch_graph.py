@@ -30,6 +30,7 @@ from vectordb_retrieval_tpu_torch.models import graph as tmg
 from vectordb_retrieval_tpu_torch.models.base import leaf_to_tensor
 from vectordb_retrieval_tpu_torch.models.composite import CompositeAlgorithm
 from vectordb_retrieval_tpu_torch.ops import graph as tg
+from vectordb_retrieval_tpu_torch.ops import kernels as tkn
 from vectordb_retrieval_tpu_torch.ops import kmeans as tkm
 
 torch.set_num_threads(2)
@@ -125,6 +126,81 @@ def test_block_beam_stages_compose_to_the_search(data, block_parts):
     for row in vis:
         row = row[row >= 0]
         assert len(set(row.tolist())) == len(row)
+
+
+def test_block_graph_search_on_cpu_is_the_eager_beam(data, block_parts):
+    """CPU tensors take the eager beam, and count as eager calls."""
+    _, q = data
+    parts = [_t(p) for p in block_parts["bf16"]]
+    kw = dict(k=K, efb=24, expand=6, iters=2, metric="ip")
+    before = dict(tkn.BEAM_CALLS)
+    got = tg.block_graph_search(_t(q), *parts, **kw)
+    want = tg.BlockBeam(_t(q), *parts, **kw).run()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert tkn.BEAM_CALLS == dict(before, eager=before["eager"] + 1)
+
+
+_GEOMETRY = dict(k=K, efb=24, expand=6, iters=2, metric="l2", dedup=False)
+# one change at a time: the batch shape, each geometry parameter, each
+# index tensor replaced by an equal copy (another address)
+_KEY_CHANGES = (
+    ["rows", "width"] + [f"geometry:{g}" for g in _GEOMETRY]
+    + [f"index:{i}" for i in range(7)]
+)
+
+
+@pytest.mark.parametrize("change", _KEY_CHANGES)
+def test_graph_key_tells_apart_what_a_capture_reads(data, block_parts, change):
+    _, q = data
+    parts = [_t(p) for p in block_parts["bf16"]]
+    queries = _t(q)
+    key = tg.graph_key(queries, parts, **_GEOMETRY)
+    # a new batch of the same shape over the same index: the same key
+    assert tg.graph_key(queries + 1.0, parts, **_GEOMETRY) == key
+    other_q, other_parts, other_geom = queries, list(parts), dict(_GEOMETRY)
+    if change == "rows":
+        other_q = queries[:-1]
+    elif change == "width":
+        other_q = torch.cat([queries, queries[:, :1]], dim=1)
+    elif change.startswith("geometry:"):
+        name = change.split(":")[1]
+        flipped = {"metric": "ip", "dedup": True}
+        other_geom[name] = flipped[name] if name in flipped else other_geom[name] + 1
+    else:
+        i = int(change.split(":")[1])
+        other_parts[i] = parts[i].clone()
+    assert tg.graph_key(other_q, other_parts, **other_geom) != key
+
+
+def test_no_capture_on_the_cpu_or_inside_a_work_count():
+    assert not tg.graphs_allowed(CPU)
+    with tkn.count_work():  # its slab count reads the card: a synchronisation
+        assert not tg.graphs_allowed(torch.device("cuda"))
+
+
+def test_a_key_ends_with_its_list_vecs_and_the_oldest_goes_first():
+    import gc
+
+    saved = dict(tg._GRAPHS)
+    try:
+        tg._GRAPHS.clear()
+        owners = [torch.zeros(2) for _ in range(tg._GRAPH_KEYS + 1)]
+        for i, owner in enumerate(owners):
+            tg._seen(("key", i), owner)
+        assert list(tg._GRAPHS) == [("key", i) for i in range(1, tg._GRAPH_KEYS + 1)]
+        del owner
+        owners.pop(3)
+        gc.collect()
+        assert ("key", 3) not in tg._GRAPHS
+        assert len(tg._GRAPHS) == tg._GRAPH_KEYS - 1
+        owners.pop(0)  # its key was dropped already: its finalizer is detached
+        gc.collect()
+        assert len(tg._GRAPHS) == tg._GRAPH_KEYS - 1
+    finally:
+        for fin, _ in tg._GRAPHS.values():
+            fin.detach()
+        tg._GRAPHS.clear()
+        tg._GRAPHS.update(saved)
 
 
 @pytest.fixture(scope="module")

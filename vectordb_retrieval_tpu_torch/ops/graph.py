@@ -23,7 +23,9 @@ a Python int, as it is static in the JAX package, and every selection is a
 tensor operation. ``approx_max_k(..., recall_target=1.0)`` is an exact
 top-k and becomes ``top_k_smallest``; where several candidates tie at +inf
 the choice among them changes no result (their ids are -1, or their blocks
-are visited or already in the frontier).
+are visited or already in the frontier). So on a CUDA card the block beam
+runs as CUDA graphs, captured once per batch shape and index and then
+replayed (:func:`block_graph_search`).
 
 Determinism: the block layout's router entries are segment means summed by
 a one-hot batched product (no atomics), so two builds from the same inputs
@@ -34,7 +36,9 @@ sequential chunk passes.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import weakref
+from collections import OrderedDict
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -590,6 +594,7 @@ def pick_entry_points(vectors: torch.Tensor, n_entry: int, seed: int = 0) -> tor
 
 
 class _BlockState(NamedTuple):
+    qn: torch.Tensor  # [B] squared query norms
     cd: torch.Tensor  # [B, Ne] query -> entry distances
     beam_ids: torch.Tensor  # [B, efb] frontier entry ids
     beam_blk: torch.Tensor  # [B, efb] their blocks
@@ -616,7 +621,9 @@ class BlockBeam:
     every wave but the last, ``push`` (the popped entries' graph
     neighbours into the frontier, deduplicated by block); then ``result``.
     Every stage is a function of its inputs: calling one again gives the
-    same output.
+    same output. Nothing is computed from the queries before ``seed``, so
+    a CUDA graph of the stages (:func:`block_graph_search`) reads them
+    from the one buffer it was captured with.
     """
 
     def __init__(
@@ -656,7 +663,6 @@ class BlockBeam:
         # spilled layouts clone boundary rows into a second block: merging
         # at 2k and deduplicating at the end keeps k unique ids
         self.kk = min(2 * k if dedup else k, slot_ids.shape[0] * slot_ids.shape[1])
-        self.qn = torch.sum(self.q * self.q, dim=-1)
 
     def seed(self) -> _BlockState:
         b = self.q.shape[0]
@@ -668,7 +674,7 @@ class BlockBeam:
         # would re-probe it in a later wave
         beam_d = torch.where(_earlier_equal(beam_blk), _INF, seed_d)
         return _BlockState(
-            cd, beam_ids, beam_blk, beam_d,
+            torch.sum(self.q * self.q, dim=-1), cd, beam_ids, beam_blk, beam_d,
             torch.full((b, self.kk), _INF, dtype=torch.float32, device=dev),
             torch.full((b, self.kk), -1, dtype=torch.int64, device=dev),
             torch.full((b, self.expand * self.iters), -1, dtype=torch.int64, device=dev),
@@ -706,7 +712,7 @@ class BlockBeam:
             (p.sel_blocks >= 0)[:, :, None], self.slot_ids[p.safe_blk].long(), -1
         ).reshape(b, w * length)
         if self.metric == "l2":
-            dist = self.qn[:, None, None] + self.list_sqn[p.safe_blk] - 2.0 * dots
+            dist = st.qn[:, None, None] + self.list_sqn[p.safe_blk] - 2.0 * dots
         else:
             dist = -dots
         dist = torch.where(ids >= 0, dist.reshape(b, w * length), _INF)
@@ -754,16 +760,137 @@ class BlockBeam:
         nd, sel = dops.top_k_smallest(rk_d, min(self.k, self.kk))
         return nd, torch.gather(st.rk_i, 1, sel)
 
+    def wave(self, st: _BlockState, t: int) -> _BlockState:
+        """Wave ``t``: ``pop``, ``score``, ``merge`` and, but on the last
+        wave, ``push``."""
+        st, p = self.pop(st, t)
+        st = self.merge(st, p, self.score(p))
+        if t < self.iters - 1:  # pushed neighbours of the last wave are never popped
+            st = self.push(st, p)
+        return st
+
     def run(self) -> Tuple[torch.Tensor, torch.Tensor]:
         with span("vrt.seed"):
             st = self.seed()
         for t in range(self.iters):
             with span("vrt.wave"):
-                st, p = self.pop(st, t)
-                st = self.merge(st, p, self.score(p))
-                if t < self.iters - 1:  # pushed neighbours of the last wave are never popped
-                    st = self.push(st, p)
+                st = self.wave(st, t)
         return self.result(st)
+
+
+# ---- the block beam as CUDA graphs ---------------------------------------
+
+# the most capture keys kept at once (seen once, or captured); the oldest
+# is dropped first
+_GRAPH_KEYS = 8
+# capture key -> (the finalizer that drops it with its index's list_vecs,
+# None while the key has run once eagerly | its graphs)
+_GRAPHS: "OrderedDict[tuple, Tuple[weakref.finalize, Optional[_BeamGraphs]]]" = OrderedDict()
+# device -> the side stream every capture on it runs on
+_CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _identity(t: Optional[torch.Tensor]) -> Optional[tuple]:
+    if t is None:
+        return None
+    return t.data_ptr(), tuple(t.shape), t.stride(), t.dtype
+
+
+def graph_key(queries: torch.Tensor, index: Sequence[Optional[torch.Tensor]], k: int,
+              efb: int, expand: int, iters: int, metric: str, dedup: bool) -> tuple:
+    """Everything a capture of the block beam reads: the device, the query
+    batch's shape and dtype, the geometry, and each index tensor's address,
+    shape, strides and dtype (``index``: the arguments of
+    :func:`block_graph_search` from ``entries`` to ``list_mu``). A new
+    query batch of the same shape over the same index has the same key."""
+    return (queries.device, tuple(queries.shape), queries.dtype, k, efb, expand, int(iters),
+            metric, bool(dedup), tuple(_identity(t) for t in index))
+
+
+def graphs_allowed(device: torch.device) -> bool:
+    """Whether a call on ``device`` may capture or replay: on a CUDA card,
+    outside a work count (its slab count reads the card, a
+    synchronisation a capture cannot hold) and outside another capture."""
+    return (device.type == "cuda" and not kernels.counting_work()
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class _BeamGraphs:
+    """The block beam of one key as CUDA graphs: ``seed``, then one graph a
+    wave (the last with ``result``), captured in order into one private
+    memory pool and replayed in that order on the current stream. Holds
+    every tensor the graphs read or write, but the index's ``list_vecs``,
+    whose end drops the key (:func:`block_graph_search`): the query
+    buffer, each stage's state, the outputs, the other index tensors and
+    the beam's int64 copies of ``entry_block`` and ``entry_adj``."""
+
+    def __init__(self, queries: torch.Tensor, index: Sequence[Optional[torch.Tensor]],
+                 geometry: Dict[str, object]):
+        dev = queries.device
+        self.q = torch.empty(queries.shape, dtype=queries.dtype, device=dev)
+        self.q.copy_(queries)
+        beam = BlockBeam(self.q, *index, **geometry)
+        stream = _CAPTURE_STREAMS.get(dev)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+        # one eager run on the capture stream first: the libraries' per-stream
+        # workspaces are made outside the graphs' pool
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            beam.run()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        pool = torch.cuda.graph_pool_handle()
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        self.states: List[_BlockState] = []
+        for t in range(-1, beam.iters):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                st = beam.seed() if t < 0 else beam.wave(self.states[-1], t)
+                if t == beam.iters - 1:
+                    self.out = beam.result(st)
+            self.graphs.append(graph)
+            self.states.append(st)
+        self.index = (beam.entries, beam.entry_block, beam.slot_ids, beam.list_sqn,
+                      beam.entry_adj, beam.list_mu)
+
+    def __call__(self, queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        self.q.copy_(queries)
+        with span("vrt.seed"):
+            self.graphs[0].replay()
+        for graph in self.graphs[1:]:
+            with span("vrt.wave"):
+                graph.replay()
+        # copies: the next replay overwrites the outputs
+        return self.out[0].clone(), self.out[1].clone()
+
+
+def _cached_graphs(queries: torch.Tensor, index: Sequence[Optional[torch.Tensor]],
+                   geometry: Dict[str, object]) -> Optional[_BeamGraphs]:
+    """The graphs of this call's key: None on the key's first call (it runs
+    eagerly), captured on its second, replayed after."""
+    key = graph_key(queries, index, **geometry)
+    if key not in _GRAPHS:
+        _seen(key, index[3])  # list_vecs
+        return None
+    _GRAPHS.move_to_end(key)
+    fin, graphs = _GRAPHS[key]
+    if graphs is None:
+        graphs = _BeamGraphs(queries, index, geometry)
+        _GRAPHS[key] = (fin, graphs)
+        kernels.BEAM_CALLS["captured"] += 1
+    else:
+        kernels.BEAM_CALLS["replayed"] += 1
+    return graphs
+
+
+def _seen(key: tuple, list_vecs: torch.Tensor) -> None:
+    """Record that ``key`` ran once; the record ends with ``list_vecs``."""
+    fin = weakref.finalize(list_vecs, _GRAPHS.pop, key, None)
+    fin.atexit = False
+    _GRAPHS[key] = (fin, None)
+    while len(_GRAPHS) > _GRAPH_KEYS:
+        _, (old, _) = _GRAPHS.popitem(last=False)
+        old.detach()
 
 
 def block_graph_search(
@@ -790,12 +917,26 @@ def block_graph_search(
     entries' graph neighbours (deduplicated by block against the visited
     blocks and the frontier), ranked by their entry distance. See
     :class:`BlockBeam` for the stages.
+
+    On a CUDA card the stages run as CUDA graphs: the first call of a key
+    (:func:`graph_key`) runs eagerly, the second captures the seed and each
+    wave (:class:`_BeamGraphs`), every later one copies its queries into
+    the captured buffer and replays them, each graph in its ``vrt.seed`` or
+    ``vrt.wave`` span. The same kernels run on the same inputs, so the
+    answers are the eager ones bit for bit. Keys are kept until their
+    ``list_vecs`` is freed, at most ``_GRAPH_KEYS`` of them. CPU tensors,
+    and calls where :func:`graphs_allowed` is false, run eagerly.
+    ``kernels.BEAM_CALLS`` counts the calls by how they ran.
     """
-    return BlockBeam(
-        queries, entries, entry_block, slot_ids, list_vecs, list_sqn, entry_adj,
-        list_mu, k=k, efb=efb, expand=expand, iters=iters, metric=metric,
-        dedup=dedup,
-    ).run()
+    index = (entries, entry_block, slot_ids, list_vecs, list_sqn, entry_adj, list_mu)
+    geometry = dict(k=k, efb=efb, expand=expand, iters=iters, metric=metric, dedup=dedup)
+    if graphs_allowed(queries.device):
+        with torch.cuda.device(queries.device):
+            graphs = _cached_graphs(queries, index, geometry)
+            if graphs is not None:
+                return graphs(queries)
+    kernels.BEAM_CALLS["eager"] += 1
+    return BlockBeam(queries, *index, **geometry).run()
 
 
 # ---- node beam -----------------------------------------------------------

@@ -66,7 +66,10 @@ IVF rescore stand alone, in one source) with ``nvcc``
 for ``sm_90a`` at first use, into ``_build/<hash of source, every header
 and flags>/``, and loaded with ``ctypes`` through a plain C interface.
 Every launch adds one to ``LAUNCHES[name]`` (one name per kernel mode);
-nothing else touches the counts.
+nothing else touches the counts. A launch captured into a CUDA graph (the
+block beam's, ``ops/graph.block_graph_search``) counts once, at capture:
+its replays enqueue nothing from here. ``BEAM_CALLS`` counts the block
+beam's searches by how they ran, so the share that replays can be read.
 
 Counted work: while a :func:`count_work` scope is open, every wrapper call
 adds the operations and bytes of the function it computes to the scope,
@@ -127,6 +130,10 @@ KERNELS = tuple(name for name, _, _ in _DBM_MODES.values()) + (
 
 # launches per kernel mode, counted by the wrappers where they launch
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# block_graph_search calls by how they ran: "captured" (the call that
+# captured its CUDA graphs), "replayed" (a later call of the same key) and
+# "eager" (every op enqueued one by one), counted by ops/graph.py
+BEAM_CALLS: Dict[str, int] = {"captured": 0, "replayed": 0, "eager": 0}
 # compiler output (registers, spills, shared memory) of the builds this
 # process made; empty for libraries found already built
 BUILD_LOG: Dict[str, str] = {}
@@ -139,8 +146,9 @@ _DEPTH = [0]
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BEAM_CALLS):
+        for name in counts:
+            counts[name] = 0
 
 
 @contextlib.contextmanager
@@ -157,6 +165,11 @@ def count_work() -> Iterator[Dict[str, float]]:
         yield work
     finally:
         _WORK.remove(work)
+
+
+def counting_work() -> bool:
+    """True while a :func:`count_work` scope is open."""
+    return bool(_WORK)
 
 
 def inside_wrapper() -> bool:

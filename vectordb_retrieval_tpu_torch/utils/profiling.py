@@ -36,6 +36,8 @@ request opens them:
   * ``vrt.wave``: one wave of the block beam (``pop``, ``score``: K2
     ``kernels.slab_dots``, ``merge`` and, on every wave but the last,
     ``push``), ``iters`` of them after ``vrt.seed``, inside ``vrt.search``;
+    where ``ops/graph.block_graph_search`` replays its CUDA graphs, these
+    two spans hold each graph's launch instead of its ops;
   * ``vrt.probe``: the IVF coarse probe (``ops/ivf._probes``), inside
     ``vrt.search``;
   * ``vrt.rescore``: the exact rescore (K6, ``kernels.block_rescore``) and
